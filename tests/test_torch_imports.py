@@ -1,0 +1,75 @@
+"""The PyTorch port stands alone: it never imports JAX or the JAX package.
+
+Every module under ``src/repro_torch/`` and the root ``chip_smoke.py`` are
+checked by AST for ``jax``, ``jaxlib`` and ``repro`` imports (``repro_torch``
+itself is fine), and a fresh interpreter that imports every port module
+must end with none of those in ``sys.modules``.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                     ROOT / "scripts" / "profile_query.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module.split(".")[0]
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)):
+            yield node.lineno, node.args[0].value.split(".")[0]
+
+
+def _modules():
+    return sorted(".".join(p.relative_to(PORT.parent).with_suffix("").parts)
+                  .removesuffix(".__init__")
+                  for p in PORT.rglob("*.py"))
+
+
+def test_port_has_the_slice_modules():
+    mods = set(_modules())
+    for m in ("api.registry", "api.plan", "api.engine", "api.session",
+              "api.executors", "gnn.graph", "gnn.datasets", "gnn.layers",
+              "gnn.models", "core.profiler", "core.partition",
+              "core.placement", "core.scheduler", "core.compression",
+              "core.simulation", "kernels.gather_aggregate", "kernels.ref",
+              "kernels.ops", "kernels.build", "runtime.bsp"):
+        assert f"repro_torch.{m}" in mods, m
+    assert (PORT / "kernels" / "csrc" / "block_spmm.cu").is_file()
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    bad = [(line, mod) for line, mod in _imported_roots(path)
+           if mod in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_importing_every_port_module_loads_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(len(sys.modules)); assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
