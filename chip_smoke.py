@@ -7,13 +7,22 @@ Phases, in order; any failed check raises and the script exits non-zero:
 
   1. build    nvcc-compiles every CUDA source of ``repro_torch.kernels``
               (sm_90a) into ``build/repro_torch/`` and prints the time.
-  2. kernels  holds ``block_spmm`` and ``block_spmm_batched`` against their
-              plain PyTorch versions on the card, evaluated in float64 on the
-              same inputs (rtol 1e-5 / atol 1e-4), at the main path's shapes
-              (full-scale SIoT, F = 52 and 64, B = 8) plus one rectangular
-              and one F = 200 case; checks that every batched example is
-              bitwise the serial kernel; times kernel, plain version (float32)
-              and ``torch.sparse.mm`` with CUDA events.
+  2. kernels  holds each kernel against its plain PyTorch version on the
+              card, evaluated in float64 on the same inputs (rtol 1e-5 /
+              atol 1e-4), at the main paths' shapes, and checks that every
+              batched example is bitwise the serial kernel; times kernel,
+              plain version (float32) and a library yardstick with CUDA
+              events:
+                block_spmm(_batched): full-scale SIoT (the single-program
+                path) and the mesh's folded local operand, F = 52 and 64,
+                B = 1 and 8, plus one rectangular and one F = 200 case;
+                yardstick ``torch.sparse.mm``;
+                dequant_spmm(_batched): the mesh's folded halo operand over
+                its 16,128-row table with uint8 wire codes, F = 52 and 64,
+                B = 1 and 8, plus one uint16 and one rectangular case;
+                also bitwise ``block_spmm`` over the plain dequantized
+                table; yardstick ``codes.float() * s + m`` then
+                ``torch.sparse.mm`` (two calls).
   3. main     serves GCN and SAGE [52, 64, 2] through
               ``Engine(..., executor="sim", aggregation="pallas",
               device="cuda")`` on full-scale SIoT: a few ``query()`` calls
@@ -22,11 +31,27 @@ Phases, in order; any failed check raises and the script exits non-zero:
               checks K launches per query and per batch, batched == serial
               bitwise, and the embeddings against the float64 forward on the
               card (rtol 1e-4 / atol 1e-5), reporting beside it how far
-              ``aggregation="segment_sum"`` lies. Afterwards a small graph is
-              served on the card and on the CPU and compared.
+              ``aggregation="segment_sum"`` lies.
+  3b. mesh    serves the same models through ``Engine(...,
+              executor="mesh-bsp", aggregation="pallas", compressor="daq",
+              device="cuda")`` (6 fogs, the default cluster), counters again
+              set to 0 just before: a few queries and one ``execute_many``
+              of 8; checks K ``block_spmm`` + K ``dequant_spmm`` per query,
+              K ``block_spmm_batched`` + K ``dequant_spmm_batched`` per
+              batch, batched == serial bitwise, the embeddings within the
+              reference's DAQ bar of the float64 forward (|d| <= 5e-2 *
+              max(max|want|, 1); gating the kinds in DAQ_GATED_KINDS,
+              printed for all), and one ``compressor="none"`` query (2K
+              ``block_spmm``) at rtol 1e-4 / atol 1e-5. Afterwards a small
+              graph is served on the card and on the CPU, on both
+              executors, and compared.
   4. report   one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name
               and power limit, and as the last line
-              ``{"ok": true, "device": {...}}``.
+              ``{"ok": true, "device": {...}}``. A kernel's top-level
+              numbers sum its main-path cases on the path named in
+              ``ROW_PATH`` (one call per layer shape: the aggregation work
+              of one query, or of one batch); ``launches`` sums the counts
+              of every path driven.
 
 Without a CUDA card, or without the repository's ``src/`` beside it, the
 script exits non-zero before printing any result.
@@ -52,6 +77,13 @@ PEAK_F32_FLOP_PER_S = 67e12
 
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-4   # tests/test_kernels.py
 EMB_RTOL, EMB_ATOL = 1e-4, 1e-5         # tests/test_aggregation.py
+DAQ_BAR = 5e-2                          # tests/test_aggregation.py:81
+#: Kinds whose mesh checks against the float64 forward gate the run. The
+#: DAQ wire's bar gates GCN only: on SAGE's L2-normalised 2-wide output the
+#: 8-bit halo error itself reaches the bar at full scale (ROADMAP Queue 3);
+#: SAGE's numbers are printed beside it.
+DAQ_GATED_KINDS = ("gcn",)
+F32_WIRE_GATED_KINDS = ("gcn", "sage")
 DIMS_HIDDEN, DIMS_OUT = 64, 2
 BATCH = 8
 QUERIES = 3
@@ -60,7 +92,15 @@ SOURCE = "src/repro_torch/kernels/csrc/block_spmm.cu"
 REPLACES = {
     "block_spmm": "src/repro/kernels/gather_aggregate.py:194",
     "block_spmm_batched": "src/repro/kernels/gather_aggregate.py:149",
+    "dequant_spmm": "src/repro/kernels/daq_dequant.py:85",
+    "dequant_spmm_batched": "src/repro/kernels/daq_dequant.py:149",
 }
+#: The path whose main-path cases make a kernel's top-level numbers.
+ROW_PATH = {"block_spmm": "sim", "block_spmm_batched": "sim",
+            "dequant_spmm": "mesh", "dequant_spmm_batched": "mesh"}
+#: The kernels each served path must launch.
+PATH_KERNELS = {"sim": ("block_spmm", "block_spmm_batched"),
+                "mesh": tuple(REPLACES)}
 
 
 def log(msg: str) -> None:
@@ -100,15 +140,18 @@ def errors(got: torch.Tensor, want: torch.Tensor) -> dict:
 
 
 def bound(real_tiles: int, nonzeros: int, vb: int, m: int, src_rows: int,
-          f: int, batch: int) -> tuple:
+          f: int, batch: int, code_bytes: int = 4,
+          row_bytes: int = 0) -> tuple:
     """Least time (ms) for one call, the larger of two floors: every input
-    byte read once (the real tiles only: padding tiles are skipped) and
-    every output byte written once, at the HBM rate; and the multiply-adds
-    the function needs, one per nonzero tile entry per feature per example
-    (products with a zero entry are not needed), at the f32 CUDA-core
-    peak."""
+    byte read once (the real tiles only: padding tiles are skipped; the
+    source table at ``code_bytes`` per entry plus ``row_bytes`` of row
+    parameters per row) and every output byte written once, at the HBM
+    rate; and the multiply-adds the function needs, one per nonzero tile
+    entry per feature per example (products with a zero entry are not
+    needed), at the f32 CUDA-core peak."""
     nbytes = (real_tiles * 128 * 128 * 4 + vb * m * 8
-              + batch * (src_rows + vb * 128) * f * 4)
+              + batch * (src_rows * (f * code_bytes + row_bytes)
+                         + vb * 128 * f * 4))
     flops = 2.0 * nonzeros * f * batch
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
@@ -128,6 +171,25 @@ def adjacency(senders, receivers, rows: int, cols: int, weights=None):
         return coo.to_sparse_csr().cuda()
 
 
+def tile_adjacency(blocks, cols, mask, src_rows: int):
+    """A block-CSR operand's A as a torch CSR matrix on the card."""
+    real = (mask != 0)[:, :, None, None] & (blocks != 0)
+    i, t, r, k = real.nonzero(as_tuple=True)
+    idx = torch.stack([i * 128 + r, cols[i, t].long() * 128 + k])
+    coo = torch.sparse_coo_tensor(idx, blocks[i, t, r, k],
+                                  (blocks.shape[0] * 128, src_rows)
+                                  ).coalesce()
+    with warnings.catch_warnings():   # "CSR support is in beta state"
+        warnings.simplefilter("ignore", UserWarning)
+        return coo.to_sparse_csr()
+
+
+def operand_stats(blocks, mask) -> tuple:
+    """(real tiles, nonzero tile entries, VB, M) of a block-CSR operand."""
+    return (int(mask.sum()), int((blocks != 0).sum()), blocks.shape[0],
+            blocks.shape[1])
+
+
 def check_close(name, got, want, rtol, atol):
     if not torch.allclose(got, want, rtol=rtol, atol=atol):
         err = float((got - want).abs().max())
@@ -135,12 +197,10 @@ def check_close(name, got, want, rtol, atol):
                              f"rtol {rtol} / atol {atol}")
 
 
-def kernel_cases(ga, ref, csr, g):
-    """Phase 2. Returns {kernel: {"cases": [...], main-path sums...}}."""
+def kernel_cases(ga, ref, csr, g, local):
+    """Phase 2, block kernels. ``local`` is the mesh's folded local
+    operand. Returns {kernel: {"cases": [...]}}."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    vb, m = csr.blocks.shape[:2]
-    real = int(csr.mask.sum())
-    nonzeros = int((csr.blocks != 0).sum())
     padded = csr.padded_v
     a_siot = adjacency(g.senders, g.receivers, padded, padded)
     # One rectangular operand set, the shape of a shard's halo table:
@@ -152,18 +212,21 @@ def kernel_cases(ga, ref, csr, g):
     rect = tuple(torch.as_tensor(x).cuda() for x in (rb, rc, rm))
     rect_src = -(-9000 // 128) * 128
     a_rect = adjacency(rs, rr, rpv, rect_src)
-    rect_real = int(rm.sum())
+    mesh_ops = (local.blocks, local.cols, local.mask)
 
-    operands = {"siot": ((csr.blocks, csr.cols, csr.mask), padded, a_siot,
-                         real, nonzeros, vb, m),
-                "rect": (rect, rect_src, a_rect, rect_real,
-                         int(np.count_nonzero(rb)), rb.shape[0],
-                         rb.shape[1])}
-    cases = [("siot", 52, True), ("siot", 64, True), ("rect", 64, False),
-             ("siot", 200, False)]
+    operands = {
+        "siot": ((csr.blocks, csr.cols, csr.mask), padded, a_siot,
+                 operand_stats(csr.blocks, csr.mask)),
+        "rect": (rect, rect_src, a_rect, operand_stats(*rect[::2])),
+        "mesh_local": (mesh_ops, local.src_rows,
+                       tile_adjacency(*mesh_ops, local.src_rows),
+                       operand_stats(local.blocks, local.mask))}
+    cases = [("siot", 52, "sim"), ("siot", 64, "sim"),
+             ("mesh_local", 52, "mesh"), ("mesh_local", 64, "mesh"),
+             ("rect", 64, None), ("siot", 200, None)]
     out = {"block_spmm": {"cases": []}, "block_spmm_batched": {"cases": []}}
-    for where, f, main in cases:
-        ops_, src_rows, a_lib, n_real, nnz, cvb, cm = operands[where]
+    for where, f, path in cases:
+        ops_, src_rows, a_lib, (n_real, nnz, cvb, cm) = operands[where]
         for name, batch in (("block_spmm", 1), ("block_spmm_batched", BATCH)):
             shape = (src_rows, f) if batch == 1 else (batch, src_rows, f)
             h = torch.randn(shape, generator=gen, device="cuda")
@@ -205,14 +268,129 @@ def kernel_cases(ga, ref, csr, g):
                    "src_rows": src_rows, "out_rows": cvb * 128,
                    "real_tiles": n_real, "tile_slots": cvb * cm,
                    "tile_nonzeros": nnz,
-                   "main_path": main, **err, "ms": k_ms, "plain_ms": p_ms,
+                   "path": path, **err, "ms": k_ms, "plain_ms": p_ms,
                    "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by}
             out[name]["cases"].append(rec)
-            log(f"  {name:19s} {where:4s} F={f:3d} B={batch} "
+            log(f"  {name:19s} {where:10s} F={f:3d} B={batch} "
                 f"err {err['max_abs_err']:.3g} kernel {k_ms:.4f} ms  "
                 f"plain {p_ms:.4f} ms  sparse.mm {l_ms:.4f} ms  "
                 f"bound {b_ms:.4f} ms ({b_by})")
             del h, got, want, lib_in, lib_out
+    return out
+
+
+def wire_codes(bsp, gen, rng, batch: int, rows: int, real_rows: int,
+               f: int, dtype):
+    """Codes and row parameters as the halo wire makes them: uint8 from
+    ``_wire_quantize`` of random rows, or uint16 codes (made on the host)
+    with per-row parameters spanning about [-1, 1]; rows past
+    ``real_rows`` are zero padding (code 0, scale 0, min 0)."""
+    pad = (0, rows - real_rows)
+    if dtype == torch.uint8:
+        codes, sc, mn = bsp._wire_quantize(torch.randn(
+            (batch, real_rows, f), generator=gen, device="cuda"))
+        return (torch.nn.functional.pad(codes, (0, 0) + pad),
+                torch.nn.functional.pad(sc, pad),
+                torch.nn.functional.pad(mn, pad))
+    codes = np.zeros((batch, rows, f), np.uint16)
+    codes[:, :real_rows] = rng.integers(0, 65536, (batch, real_rows, f))
+    sc, mn = np.zeros((2, batch, rows), np.float32)
+    sc[:, :real_rows] = rng.uniform(0.5, 1.5, (batch, real_rows)) / 65535
+    mn[:, :real_rows] = -rng.uniform(0.0, 1.0, (batch, real_rows))
+    return tuple(torch.as_tensor(x).cuda() for x in (codes, sc, mn))
+
+
+def dequant_cases(ga, dq, ref, bsp, halo, halo_real_rows: int):
+    """Phase 2, DAQ kernels. ``halo`` is the mesh's folded halo operand,
+    ``halo_real_rows`` the rows of its table before block padding (n*B).
+    Returns {kernel: {"cases": [...]}}."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rng = np.random.default_rng(3)
+    rs = rng.integers(0, 9000, 60000).astype(np.int32)
+    rr = rng.integers(0, 2048, 60000).astype(np.int32)
+    rect = tuple(torch.as_tensor(x).cuda()
+                 for x in ga.build_block_csr(rs, rr, 2048)[:3])
+    rect_src = -(-9000 // 128) * 128
+    halo_ops = (halo.blocks, halo.cols, halo.mask)
+    operands = {
+        "mesh_halo": (halo_ops, halo.src_rows, halo_real_rows,
+                      tile_adjacency(*halo_ops, halo.src_rows),
+                      operand_stats(halo.blocks, halo.mask)),
+        "rect": (rect, rect_src, 9000, adjacency(rs, rr, 2048, rect_src),
+                 operand_stats(*rect[::2]))}
+    cases = [("mesh_halo", 52, torch.uint8, "mesh"),
+             ("mesh_halo", 64, torch.uint8, "mesh"),
+             ("mesh_halo", 64, torch.uint16, None),
+             ("rect", 64, torch.uint8, None)]
+    out = {"dequant_spmm": {"cases": []},
+           "dequant_spmm_batched": {"cases": []}}
+    for where, f, dtype, path in cases:
+        ops_, src_rows, real_rows, a_lib, (n_real, nnz, cvb, cm) = \
+            operands[where]
+        for name, batch in (("dequant_spmm", 1),
+                            ("dequant_spmm_batched", BATCH)):
+            codes, sc, mn = wire_codes(bsp, gen, rng, batch, src_rows,
+                                       real_rows, f, dtype)
+            if batch == 1:
+                codes, sc, mn = codes[0], sc[0], mn[0]
+            kern = getattr(dq, name)
+            plain = (ref.dequant_spmm_ref if batch == 1
+                     else ref.dequant_spmm_batched_ref)
+            got = kern(*ops_, codes, sc, mn)
+            # float64 yardstick: the very f32 dequantized panel, summed in
+            # float64 (float64 blocks promote the plain version).
+            want = plain(ops_[0].double(), ops_[1], ops_[2].double(), codes,
+                         sc, mn)
+            err = errors(got, want)
+            err["plain_f32_max_abs_err"] = errors(
+                plain(*ops_, codes, sc, mn), want)["max_abs_err"]
+            check_close(f"{name} {where} F={f} {dtype}", got.double(), want,
+                        KERNEL_RTOL, KERNEL_ATOL)
+            stack = (codes, sc, mn) if batch > 1 else tuple(
+                x[None] for x in (codes, sc, mn))
+            for b in range(batch):
+                c, s_, m_ = (x[b] for x in stack)
+                serial = dq.dequant_spmm(*ops_, c, s_, m_)
+                if batch > 1 and not torch.equal(got[b], serial):
+                    raise AssertionError(f"{name} {where} F={f}: example {b}"
+                                         f" differs from dequant_spmm")
+                # The staged panel is bitwise the plain dequantized table.
+                table = ref.dequant_ref(c, s_, m_)
+                if not torch.equal(serial, ga.block_spmm(*ops_, table)):
+                    raise AssertionError(f"dequant_spmm {where} F={f}: not "
+                                         f"bitwise block_spmm over the plain"
+                                         f" dequantized table")
+
+            # Library yardstick, two calls: dequantize, then one sparse
+            # product over the [S, B*F] panel (layout change not timed).
+            def lib():
+                h = codes.float() * sc[..., None] + mn[..., None]
+                if batch > 1:
+                    h = h.permute(1, 0, 2).reshape(src_rows, batch * f)
+                return torch.sparse.mm(a_lib, h)
+            lib_out = lib().reshape(-1, batch, f).permute(1, 0, 2) \
+                if batch > 1 else lib()
+            check_close(f"library {where} F={f}", lib_out.double(), want,
+                        KERNEL_RTOL, KERNEL_ATOL)
+            k_ms = time_ms(lambda: kern(*ops_, codes, sc, mn), reps=20)
+            p_ms = time_ms(lambda: plain(*ops_, codes, sc, mn), reps=3,
+                           warmup=1)
+            l_ms = time_ms(lib, reps=20)
+            b_ms, b_by = bound(n_real, nnz, cvb, cm, src_rows, f, batch,
+                               code_bytes=codes.element_size(), row_bytes=8)
+            rec = {"case": where, "F": f, "B": batch,
+                   "codes": str(dtype).removeprefix("torch."),
+                   "src_rows": src_rows, "out_rows": cvb * 128,
+                   "real_tiles": n_real, "tile_slots": cvb * cm,
+                   "tile_nonzeros": nnz,
+                   "path": path, **err, "ms": k_ms, "plain_ms": p_ms,
+                   "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by}
+            out[name]["cases"].append(rec)
+            log(f"  {name:21s} {where:9s} F={f:3d} B={batch} "
+                f"{rec['codes']:6s} err {err['max_abs_err']:.3g} kernel "
+                f"{k_ms:.4f} ms  plain {p_ms:.4f} ms  library {l_ms:.4f} ms"
+                f"  bound {b_ms:.4f} ms ({b_by})")
+            del codes, sc, mn, got, want, lib_out
     return out
 
 
@@ -319,6 +497,124 @@ def serve(Engine, models, g, kind: str, ga):
             "batch_size": BATCH, "embedding_checks": checks}
 
 
+def mesh_plan(Engine, models, g, kind: str):
+    """The mesh path's plan for ``kind`` (seeded weights) and its compile
+    seconds."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = models.gnn_init(gen, kind, [g.feature_dim, DIMS_HIDDEN,
+                                         DIMS_OUT])
+    t0 = time.perf_counter()
+    plan = Engine((params, kind), executor="mesh-bsp", aggregation="pallas",
+                  compressor="daq", device="cuda").compile(g)
+    return plan, time.perf_counter() - t0
+
+
+def daq_errors(got: np.ndarray, want: np.ndarray) -> dict:
+    """Max abs difference against the reference's DAQ bar,
+    5e-2 * max(max|want|, 1), and the entries beyond it."""
+    d = np.abs(got.astype(np.float64) - want)
+    bar = DAQ_BAR * max(float(np.abs(want).max()), 1.0)
+    return {"max_abs": float(d.max()), "bar": bar,
+            "ratio": float(d.max()) / bar, "beyond_bar": int((d > bar).sum()),
+            "p99_abs": float(np.quantile(d, 0.99))}
+
+
+def serve_mesh(models, g, kind: str, plan, compile_s: float, kernels):
+    """Phase 3b for one model kind. ``kernels`` are the four wrappers in
+    the order of REPLACES. Returns timings and checks everything."""
+    k = plan.model.num_layers
+    sess = plan.session()
+
+    def counts():
+        return np.array([fn.launches for fn in kernels])
+
+    def expect(before, want, what):
+        got = counts() - before
+        if list(got) != list(want):
+            raise AssertionError(f"{kind} mesh: {what} launched "
+                                 f"{dict(zip(REPLACES, got.tolist()))}, "
+                                 f"expected {dict(zip(REPLACES, want))}")
+
+    query_s = []
+    for _ in range(QUERIES):
+        before = counts()
+        t0 = time.perf_counter()
+        res = sess.query()
+        query_s.append(time.perf_counter() - t0)
+        expect(before, [k, 0, k, 0], "a query")
+        if res.embeddings.shape != (g.num_vertices, DIMS_OUT) or \
+                not np.isfinite(res.embeddings).all():
+            raise AssertionError(f"{kind} mesh: bad embeddings "
+                                 f"{res.embeddings.shape}")
+    stages = {"collect_ms": [], "execute_ms": [], "account_ms": []}
+    for _ in range(QUERIES):
+        t0 = time.perf_counter()
+        feats = sess.collect()
+        t1 = time.perf_counter()
+        emb = sess.execute(feats)
+        t2 = time.perf_counter()
+        sess.account()
+        t3 = time.perf_counter()
+        for name, sec in zip(stages, ((t1 - t0), (t2 - t1), (t3 - t2))):
+            stages[name].append(sec * 1e3)
+
+    rng = np.random.default_rng(7)
+    stack = np.stack([sess.collect(g.features + rng.normal(
+        scale=0.1, size=g.features.shape)) for _ in range(BATCH)])
+    before = counts()
+    t4 = time.perf_counter()
+    many = sess.execute_many(stack)
+    batch_s = time.perf_counter() - t4
+    expect(before, [0, k, 0, k], "a batch")
+    t5 = time.perf_counter()
+    serial = [sess.execute(stack[b]) for b in range(BATCH)]
+    serial_s = time.perf_counter() - t5
+    for b in range(BATCH):
+        if not np.array_equal(many[b], serial[b]):
+            raise AssertionError(f"{kind} mesh: batched example {b} is not "
+                                 f"bitwise the serial execute")
+
+    # The DAQ wire against the float64 single-program forward of the same
+    # collected features, to the reference's DAQ bar; then one f32-wire
+    # query (compressor "none": raw features, f32 halo rows) against the
+    # float64 forward at the embedding bar.
+    p64 = [{n: v.double() for n, v in p.items()} for p in plan.model.params]
+
+    def exact(f_in):
+        with torch.no_grad():
+            h64 = torch.as_tensor(f_in, dtype=torch.float64, device="cuda")
+            return models.gnn_apply(p64, kind, h64, plan.edges).cpu().numpy()
+    checks = {"query": daq_errors(emb, exact(feats)),
+              "batch[3]": daq_errors(many[3], exact(stack[3]))}
+    for name, c in checks.items():
+        log(f"  {kind} mesh {name}: daq wire vs f64 max {c['max_abs']:.3g} "
+            f"(bar {c['bar']:.3g}, ratio {c['ratio']:.3g}, "
+            f"{c['beyond_bar']} entries beyond, p99 {c['p99_abs']:.3g})")
+    f32 = plan.session(compressor="none")
+    before = counts()
+    t6 = time.perf_counter()
+    res32 = f32.query()
+    f32_query_s = time.perf_counter() - t6
+    expect(before, [2 * k, 0, 0, 0], "a compressor='none' query")
+    checks["f32_wire"] = emb_errors(res32.embeddings,
+                                    exact(g.features.astype(np.float32)))
+    c = checks["f32_wire"]
+    log(f"  {kind} mesh f32 wire vs f64: max {c['max_abs']:.3g} ratio "
+        f"{c['tol_ratio']:.3g} beyond {c['beyond_bar']}")
+    pg = sess.partitioned()
+    return {"kind": kind, "layers": k, "compile_s": compile_s,
+            "fogs": pg.n, "slots": pg.slots,
+            "boundary_slots": pg.boundary_slots,
+            "first_query_ms": query_s[0] * 1e3,
+            "query_ms": statistics.median(query_s[1:]) * 1e3,
+            **{name: statistics.median(v) for name, v in stages.items()},
+            "batch_ms": batch_s * 1e3, "serial_batch_ms": serial_s * 1e3,
+            "batch_size": BATCH, "f32_query_ms": f32_query_s * 1e3,
+            "exchange_bytes_daq": res.exchange_bytes,
+            "exchange_bytes_f32": res32.exchange_bytes,
+            "latency_s": res.latency, "embedding_checks": checks}
+
+
 def emb_errors(got: np.ndarray, want: np.ndarray) -> dict:
     """Max abs difference, worst |d| / (atol + rtol |want|) and the number
     of entries beyond the embedding bar."""
@@ -329,17 +625,27 @@ def emb_errors(got: np.ndarray, want: np.ndarray) -> dict:
 
 
 def small_reference(Engine, models, datasets):
-    """A small graph served on the card and on the CPU must agree."""
+    """A small graph served on the card and on the CPU must agree: on the
+    single-program path, and on the mesh with the f32 and the DAQ wire
+    (the DAQ wire to the reference's DAQ bar: a code may land one step
+    apart where the two devices round differently)."""
     g = datasets.load("siot", 0.05, seed=0)
     for kind in ("gcn", "sage"):
         params = models.gnn_init(torch.Generator().manual_seed(1), kind,
                                  [g.feature_dim, 16, 8])
-        embs = [Engine((params, kind), aggregation="pallas", device=dev,
-                       compressor="none").compile(g).session().query()
-                .embeddings for dev in ("cuda", "cpu")]
-        np.testing.assert_allclose(embs[0], embs[1], rtol=EMB_RTOL,
-                                   atol=EMB_ATOL,
-                                   err_msg=f"{kind}: card vs CPU")
+        for executor, comp in (("sim", "none"), ("mesh-bsp", "none"),
+                               ("mesh-bsp", "daq")):
+            embs = [Engine((params, kind), aggregation="pallas", device=dev,
+                           executor=executor, compressor=comp).compile(g)
+                    .session().query().embeddings for dev in ("cuda", "cpu")]
+            what = f"{kind} {executor} {comp}: card vs CPU"
+            if comp == "daq":
+                c = daq_errors(embs[0], embs[1].astype(np.float64))
+                if c["ratio"] > 1:
+                    raise AssertionError(f"{what} {c}")
+            else:
+                np.testing.assert_allclose(embs[0], embs[1], rtol=EMB_RTOL,
+                                           atol=EMB_ATOL, err_msg=what)
 
 
 def main() -> int:
@@ -350,7 +656,9 @@ def main() -> int:
     from repro_torch.api import Engine
     from repro_torch.gnn import datasets, models
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import daq_dequant as dq
     from repro_torch.kernels import gather_aggregate as ga
+    from repro_torch.runtime import bsp
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -380,19 +688,44 @@ def main() -> int:
         f"VB={vb} M={m}, {real} real tiles of {vb * m} slots, "
         f"density {g.num_edges / (real * 128 * 128):.4%} "
         f"(host set-up {time.perf_counter() - t0:.2f} s)")
-    results = kernel_cases(ga, ref, csr, g)
+    gcn_mesh, gcn_compile_s = mesh_plan(Engine, models, g, "gcn")
+    pg = gcn_mesh.partitioned
+    local, halo = bsp._folded_csrs(pg, gcn_mesh.device)
+    cut = int((pg.part_of[g.senders] != pg.part_of[g.receivers]).sum())
+    log(f"  mesh: {pg.n} fogs, P={pg.slots} slots, {pg.boundary_slots} "
+        f"boundary slots per fog ({pg.n * pg.boundary_slots} halo rows), "
+        f"{cut} of {g.num_edges} edges cross fogs; local "
+        f"{tuple(pg.local_csr.blocks.shape[:3])} {int(local.mask.sum())} "
+        f"real tiles of {local.mask.numel()}, halo "
+        f"{tuple(pg.halo_csr.blocks.shape[:3])} {int(halo.mask.sum())} real "
+        f"tiles of {halo.mask.numel()} (compile {gcn_compile_s:.2f} s)")
+    results = kernel_cases(ga, ref, csr, g, local)
+    results.update(dequant_cases(ga, dq, ref, bsp, halo,
+                                 pg.n * pg.boundary_slots))
+    del local, halo
 
-    log("phase 3: main path")
-    ga.block_spmm.launches = 0
-    ga.block_spmm_batched.launches = 0
-    served = [serve(Engine, models, g, kind, ga)
-              for kind in ("gcn", "sage")]
-    launches = {"block_spmm": ga.block_spmm.launches,
-                "block_spmm_batched": ga.block_spmm_batched.launches}
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"{name} was never launched on the main "
-                                 f"path")
+    kernels = [getattr(ga, n) if n.startswith("block") else getattr(dq, n)
+               for n in REPLACES]
+    launches = {}
+
+    def drive(path, fn):
+        """Drive one path with every count set to 0 just before it, read
+        just after; each kernel of the path must have launched."""
+        for kern in kernels:
+            kern.launches = 0
+        out = fn()
+        counts = {n: kern.launches for n, kern in zip(REPLACES, kernels)}
+        for name in PATH_KERNELS[path]:
+            if counts[name] == 0:
+                raise AssertionError(f"{name} was never launched on the "
+                                     f"{path} path")
+        launches[path] = counts
+        log(f"  launches on the {path} path: {counts}")
+        return out
+
+    log("phase 3: main path (single program)")
+    served = drive("sim", lambda: [serve(Engine, models, g, kind, ga)
+                                   for kind in ("gcn", "sage")])
     for s in served:
         log(f"  {s['kind']}: compile {s['compile_s']:.2f} s, query "
             f"{s['query_ms']:.1f} ms (first {s['first_query_ms']:.1f}; "
@@ -400,27 +733,63 @@ def main() -> int:
             f"{s['execute_ms']:.1f} / account {s['account_ms']:.1f}), "
             f"batch of {BATCH} {s['batch_ms']:.1f} ms vs serial "
             f"{s['serial_batch_ms']:.1f} ms")
-    log(f"  launches on the main path: {launches}")
-    small_reference(Engine, models, datasets)
-    log("  small graph: card == CPU within tolerance")
 
-    kernels = []
+    log("phase 3b: mesh path (mesh-bsp, DAQ halo wire)")
+
+    def mesh_kinds():
+        out = [serve_mesh(models, g, "gcn", gcn_mesh, gcn_compile_s,
+                          kernels)]
+        out.append(serve_mesh(models, g, "sage",
+                              *mesh_plan(Engine, models, g, "sage"),
+                              kernels))
+        return out
+    meshed = drive("mesh", mesh_kinds)
+    del gcn_mesh, pg
+    for s in meshed:
+        log(f"  {s['kind']} mesh: {s['fogs']} fogs, compile "
+            f"{s['compile_s']:.2f} s, query {s['query_ms']:.1f} ms (first "
+            f"{s['first_query_ms']:.1f}; collect {s['collect_ms']:.1f} / "
+            f"execute {s['execute_ms']:.1f} / account "
+            f"{s['account_ms']:.1f}), batch of {BATCH} {s['batch_ms']:.1f}"
+            f" ms vs serial {s['serial_batch_ms']:.1f} ms; exchange bytes "
+            f"per sync: daq {s['exchange_bytes_daq']} / f32 "
+            f"{s['exchange_bytes_f32']}")
+    failed = []
+    for s in meshed:
+        c = s["embedding_checks"]
+        if s["kind"] in F32_WIRE_GATED_KINDS and c["f32_wire"]["beyond_bar"]:
+            failed.append(f"{s['kind']} f32 wire vs the float64 forward "
+                          f"beyond rtol {EMB_RTOL} / atol {EMB_ATOL}: "
+                          f"{c['f32_wire']}")
+        for name in ("query", "batch[3]"):
+            if s["kind"] in DAQ_GATED_KINDS and c[name]["ratio"] > 1:
+                failed.append(f"{s['kind']} {name} DAQ wire beyond the "
+                              f"reference's bar: {c[name]}")
+    if failed:
+        print(json.dumps({"main_path": served, "mesh_path": meshed}),
+              flush=True)
+        raise AssertionError("; ".join(failed))
+    small_reference(Engine, models, datasets)
+    log("  small graph: card == CPU within tolerance, both executors")
+
+    kernel_rows = []
     for name, rec in results.items():
-        main = [c for c in rec["cases"] if c["main_path"]]
-        kernels.append({
+        main_cases = [c for c in rec["cases"] if c["path"] == ROW_PATH[name]]
+        kernel_rows.append({
             "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
-            # Main-path numbers: one call per layer shape (F = 52, 64),
-            # summed, i.e. the aggregation work of one query / one batch.
+            "replaces": REPLACES[name],
+            "launches": sum(c[name] for c in launches.values()),
+            "launches_by_path": {p: c[name] for p, c in launches.items()},
             "max_abs_err": max(c["max_abs_err"] for c in rec["cases"]),
-            "ms": sum(c["ms"] for c in main),
-            "plain_ms": sum(c["plain_ms"] for c in main),
-            "bound_ms": sum(c["bound_ms"] for c in main),
-            "bound_by": main[-1]["bound_by"],
-            "library_ms": sum(c["library_ms"] for c in main),
+            "ms": sum(c["ms"] for c in main_cases),
+            "plain_ms": sum(c["plain_ms"] for c in main_cases),
+            "bound_ms": sum(c["bound_ms"] for c in main_cases),
+            "bound_by": main_cases[-1]["bound_by"],
+            "library_ms": sum(c["library_ms"] for c in main_cases),
             "cases": rec["cases"]})
-    print(json.dumps({"main_path": served}), flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"main_path": served, "mesh_path": meshed}),
+          flush=True)
+    print(json.dumps({"kernels": kernel_rows}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Where a served query's time goes on a CUDA card (the port's main path).
 
-    python3 scripts/profile_query.py [--queries 10] [--out PATH]
+    python3 scripts/profile_query.py [--executor sim|mesh-bsp] [--queries 10]
+                                     [--out PATH]
 
 Serves full-scale SIoT through ``repro_torch``'s
-``Engine(..., executor="sim", aggregation="pallas", device="cuda")`` for
-GCN and SAGE [52, 64, 2] and reports, per model, from a ``torch.profiler``
+``Engine(..., executor=EXECUTOR, aggregation="pallas", device="cuda")``
+(``--executor``: ``sim``, the default, or ``mesh-bsp``, the 6-fog mesh
+with the DAQ halo wire) for GCN and SAGE [52, 64, 2] and reports, per
+model, from a ``torch.profiler``
 trace of ``--queries`` back-to-back ``execute`` calls and of one
 ``execute_many`` over 8 feature sets: device busy time (kernels, copies and
 fills from the trace, as a union of intervals), the window's host-clock
@@ -80,6 +83,8 @@ def profile_window(fn) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--executor", choices=("sim", "mesh-bsp"),
+                    default="sim")
     ap.add_argument("--queries", type=int, default=10)
     ap.add_argument("--out", default=str(ROOT / "results" /
                                          "profile_query.json"))
@@ -93,17 +98,18 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     g = datasets.load("siot", 1.0, seed=0)
-    report = {"device": torch.cuda.get_device_name(0), "models": []}
+    report = {"device": torch.cuda.get_device_name(0),
+              "executor": args.executor, "models": []}
     for kind in ("gcn", "sage"):
         params = models.gnn_init(torch.Generator(device="cuda").manual_seed(0),
                                  kind, [g.feature_dim, 64, 2])
-        sess = Engine((params, kind), executor="sim", aggregation="pallas",
-                      device="cuda").compile(g).session()
+        sess = Engine((params, kind), executor=args.executor,
+                      aggregation="pallas", device="cuda").compile(g).session()
         sess.query()                                   # warm-up
         feats = sess.collect()
         stack = np.stack([feats] * 8)
         sess.execute_many(stack)                       # warm-up
-        rec = {"kind": kind,
+        rec = {"kind": kind, "executor": args.executor,
                "execute": profile_window(lambda: [
                    sess.execute(feats) for _ in range(args.queries)]),
                "execute_many_8": profile_window(

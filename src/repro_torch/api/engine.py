@@ -9,8 +9,8 @@ string-keyed registry entry, plus the torch device the numerics run on);
 registration, IEP data placement, static-shape partition buffers — and
 freezes the result, with the model's parameters moved to the device, into
 an immutable ``Plan``. Swapping the executor backend between "sim",
-"single" and "cloud" (or the compressor/placement between their registry
-keys) changes no other code.
+"single", "mesh-bsp" and "cloud" (or the compressor/placement between
+their registry keys) changes no other code.
 """
 from __future__ import annotations
 
@@ -96,9 +96,12 @@ class Engine:
         self._exchange = EXCHANGES.resolve(exchange)
         self._executor = EXECUTORS.resolve(executor)
         # Validate the aggregation knob eagerly too: "pallas" is strict
-        # about the model kind.
-        bsp.resolve_aggregation(aggregation, self.model.kind,
-                                device=self.device)
+        # about the model kind (and about the exchange on backends that
+        # aggregate over the per-shard block-CSR operands).
+        bsp.resolve_aggregation(
+            aggregation, self.model.kind,
+            exchange=exchange if self._executor.needs_block_shards else None,
+            device=self.device)
         if int(staleness_bound) != 0:
             raise _not_ported(f"staleness_bound={staleness_bound}",
                               "10, fleet and stale halos")
@@ -136,10 +139,17 @@ class Engine:
             sync_cost=cluster.sync_cost, seed=cfg.seed,
             bytes_per_vertex=cfg.bytes_per_vertex,
             partitioner=self._partitioner)
-        # Freeze the static-shape per-partition buffers once. The
-        # single-program executors read no per-shard block-CSR operands.
-        partitioned = bsp.build_partitioned(graph, placement.assignment,
-                                            build_blocks=False)
+        # Freeze the static-shape per-partition buffers once. The block-CSR
+        # shards are only built when this engine's own backend would read
+        # them (sessions that override to a kernel path rebuild lazily).
+        needs_shards = self._executor.needs_block_shards
+        mode = bsp.resolve_aggregation(
+            cfg.aggregation, self.model.kind,
+            exchange=cfg.exchange if needs_shards else None,
+            device=self.device)
+        partitioned = bsp.build_partitioned(
+            graph, placement.assignment,
+            build_blocks=needs_shards and mode == "pallas")
         return Plan(model=self.model, graph=graph, cluster=cluster,
                     fogs=fogs, placement=placement, partitioned=partitioned,
                     config=cfg,

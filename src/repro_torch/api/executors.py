@@ -6,21 +6,28 @@ they differ in which simulated pipeline prices the query's latency:
   "sim"       single-program numerics, multi-fog BSP latency accounting.
   "single"    single-program numerics, single-most-powerful-fog accounting
               (the paper's single-fog baseline).
+  "mesh-bsp"  the paper's distributed BSP runtime (§III-E): one shard per
+              fog partition, a halo/allgather exchange per layer, the
+              shards folded onto the plan's one device
+              (``runtime.bsp``); multi-fog accounting.
   "cloud"     single-program numerics, de-facto cloud accounting (full
               WAN upload to a datacenter GPU) — the paper's Fig. 3
               cloud-vs-fog baseline.
 
 Every backend honours the Engine/Session ``aggregation`` knob
-("segment_sum" | "pallas" | "auto"): the kernel path swaps the model's
-neighborhood aggregation for the whole-graph block-CSR SpMM kernels.
+("segment_sum" | "pallas" | "auto"): the single-program kernel path swaps
+the model's neighborhood aggregation for the whole-graph block-CSR SpMM
+kernels; the mesh backend routes each shard's aggregation through the
+pre-blocked local + halo SpMM (and, with a DAQ compressor, ships the halo
+quantized and aggregates it with the fused ``dequant_spmm`` kernel).
 ``resolve_aggregation`` in ``runtime.bsp`` defines the fallback/strictness
 rules.
 
-Micro-batches (``run_many``) run the kernel path with one
-``block_spmm_batched`` launch per layer for the whole [B, V, F] stack and
-the dense tail example by example; the segment-sum path runs the serial
-forward per example. Either way each batched result is bitwise equal to
-the serial ``run`` on the same features.
+Micro-batches (``run_many``) run the kernel path with one batched launch
+per layer and operand for the whole [B, V, F] stack and the dense tail
+example by example; the segment-sum path runs the serial forward per
+example. Either way each batched result is bitwise equal to the serial
+``run`` on the same features.
 """
 from __future__ import annotations
 
@@ -56,6 +63,10 @@ class ExecutorBackend:
     """
     name: str
     pipeline: str
+
+    #: True for backends whose kernel path reads the per-shard block-CSR
+    #: operands of the PartitionedGraph (built on demand).
+    needs_block_shards = False
 
     def check(self, plan) -> None:
         """Fail fast (helpful error) if this backend cannot run the plan."""
@@ -145,6 +156,81 @@ class _SingleProgram(ExecutorBackend):
         return list(self._forward(plan, stacked, aggregation))
 
 
+class _MeshBsp(ExecutorBackend):
+    #: this backend aggregates over PartitionedGraph.local_csr/halo_csr
+    #: when the kernel path is active (Engine/Session build them lazily).
+    needs_block_shards = True
+
+    def check(self, plan) -> None:
+        """The shards share the plan's one device, which must exist."""
+        dev = plan.device
+        if dev.type not in ("cuda", "cpu"):
+            raise RuntimeError(f"executor 'mesh-bsp' runs on a cuda or cpu "
+                               f"device, not {dev}")
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"executor 'mesh-bsp' needs the plan's device "
+                               f"{dev}, but torch.cuda.is_available() is "
+                               f"False")
+
+    @staticmethod
+    def _halo_quant(plan, exchange: str, aggregation: str) -> bool:
+        """DAQ plans fuse wire dequantization into the halo SpMM (kernel
+        path only): boundary rows cross the exchange quantized."""
+        return (bsp.resolve_aggregation(aggregation, plan.model.kind,
+                                        exchange=exchange,
+                                        device=plan.device) == "pallas"
+                and plan.config.compressor.startswith("daq"))
+
+    def wire_format(self, plan, exchange, aggregation):
+        if self._halo_quant(plan, exchange, aggregation):
+            return (1, 8)   # uint8 codes + f32 (scale, min) per row
+        return (4, 0)
+
+    def run(self, plan, feats, assignment, pg, exchange,
+            aggregation="segment_sum"):
+        g = dataclasses.replace(plan.graph, features=feats)
+        with torch.no_grad():
+            return bsp.bsp_infer(
+                list(plan.model.params), plan.model.kind, g, assignment,
+                device=plan.device, exchange=exchange,
+                aggregation=aggregation,
+                halo_quant=self._halo_quant(plan, exchange, aggregation),
+                pg=pg)
+
+    def run_many(self, plan, feats, assignment, pg, exchange,
+                 aggregation="segment_sum"):
+        """One batched run for the whole micro-batch: the stacked
+        [B, V, F] features become one folded [B, n*P, F] stack and each
+        layer's exchange ships every example's boundary rows at once (see
+        ``bsp.bsp_apply_many``). Bitwise the serial per-request loop;
+        singleton batches take the serial path.
+        """
+        stacked = _as_stack(feats)
+        if stacked.shape[0] <= 1:
+            return super().run_many(plan, stacked, assignment, pg,
+                                    exchange, aggregation=aggregation)
+        with torch.no_grad():
+            out = bsp.bsp_infer_many(
+                list(plan.model.params), plan.model.kind, stacked, pg,
+                device=plan.device, exchange=exchange,
+                aggregation=aggregation,
+                halo_quant=self._halo_quant(plan, exchange, aggregation))
+        return list(out)
+
+    def run_layers(self, *args, **kwargs):
+        raise NotImplementedError("mesh-bsp layer capture and frontier "
+                                  "runs are not ported yet: ROADMAP Queue 1 "
+                                  "item 9, incremental frontier queries")
+
+    run_frontier = run_layers
+
+    def run_stale(self, *args, **kwargs):
+        raise NotImplementedError("mesh-bsp run_stale is not ported yet: "
+                                  "ROADMAP Queue 1 item 10, fleet and stale "
+                                  "halos")
+
+
 EXECUTORS.register("sim", _SingleProgram("sim", "multi"))
 EXECUTORS.register("single", _SingleProgram("single", "single"))
 EXECUTORS.register("cloud", _SingleProgram("cloud", "cloud"))
+EXECUTORS.register("mesh-bsp", _MeshBsp("mesh-bsp", "multi"))

@@ -14,7 +14,7 @@ The paper's per-query stages are separately callable — ``collect``
 the plan's device, step 4) and ``account`` (simulated latency pricing) —
 and ``query`` composes them into the single-shot blocking call. Every query
 returns a ``QueryResult`` with one metrics schema across executor backends
-(sim / single / cloud).
+(sim / single / mesh-bsp / cloud).
 """
 from __future__ import annotations
 
@@ -105,8 +105,11 @@ class Session:
         # eagerly so bad combinations fail at session creation.
         self._aggregation = (cfg.aggregation if aggregation is None
                              else aggregation)
-        bsp.resolve_aggregation(self._aggregation, plan.model.kind,
-                                device=plan.device)
+        bsp.resolve_aggregation(
+            self._aggregation, plan.model.kind,
+            exchange=self._exchange.name
+            if self._executor.needs_block_shards else None,
+            device=plan.device)
         self.lam = lam
         self.theta = theta
         self.adapt_every = int(adapt_every)
@@ -133,13 +136,30 @@ class Session:
         """The session's *current* (possibly adapted) placement."""
         return self.state.placement
 
-    def partitioned(self) -> bsp.PartitionedGraph:
-        """Static-shape buffers for the current assignment (cached)."""
-        if self._partitioned is None:
-            self._partitioned = bsp.build_partitioned(
+    def _needs_block_shards(self, backend: ExecutorBackend) -> bool:
+        """Whether ``backend`` will read the per-shard block-CSR operands."""
+        return (backend.needs_block_shards
+                and bsp.resolve_aggregation(
+                    self._aggregation, self.plan.model.kind,
+                    exchange=self._exchange.name,
+                    device=self.plan.device) == "pallas")
+
+    def partitioned(self, backend: Optional[ExecutorBackend] = None
+                    ) -> bsp.PartitionedGraph:
+        """Static-shape buffers for the current assignment (cached).
+
+        The block-CSR shards of the kernel aggregation path are built on
+        demand: if the (given or session) backend needs them and the
+        cached buffers lack them, the layout is rebuilt once with blocks.
+        """
+        backend = self._executor if backend is None else backend
+        need = self._needs_block_shards(backend)
+        pg = self._partitioned
+        if pg is None or (need and pg.local_csr is None):
+            self._partitioned = pg = bsp.build_partitioned(
                 self.plan.graph, self.state.placement.assignment,
-                build_blocks=False)
-        return self._partitioned
+                build_blocks=need)
+        return pg
 
     # -- separately callable query stages -----------------------------------
 
@@ -170,7 +190,7 @@ class Session:
         returns float32 numpy [V, D]."""
         backend = self.resolve_executor(executor)
         return backend.run(self.plan, feats, self.state.placement.assignment,
-                           self.partitioned(), self._exchange.name,
+                           self.partitioned(backend), self._exchange.name,
                            aggregation=self._aggregation)
 
     def execute_many(self, feats, *, executor=None) -> list:
@@ -183,7 +203,7 @@ class Session:
         feats = np.asarray(feats, np.float32)
         return backend.run_many(
             self.plan, feats, self.state.placement.assignment,
-            self.partitioned(), self._exchange.name,
+            self.partitioned(backend), self._exchange.name,
             aggregation=self._aggregation)
 
     def account(self, executor=None, *,

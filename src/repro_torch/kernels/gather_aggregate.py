@@ -95,20 +95,31 @@ def build_block_csr(senders: np.ndarray, receivers: np.ndarray,
     return blocks, block_cols, block_mask, padded_v
 
 
+def _check_tensor(name: str, t: torch.Tensor, dtypes, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, the source table on "
+                         f"{device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be "
+                        f"{' or '.join(map(str, dtypes))}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
 def _check_operands(blocks, block_cols, block_mask, h, batched: bool,
-                    max_col: Optional[int]) -> None:
-    """Raise on anything the kernels do not take (they check nothing)."""
+                    max_col: Optional[int], h_name: str = "h",
+                    h_dtypes=(torch.float32,)) -> None:
+    """Raise on anything the kernels do not take (they check nothing).
+
+    ``h`` is the source table: f32 for ``block_spmm``, the codes for the
+    dequant kernels (``h_name``/``h_dtypes`` say which).
+    """
     dev = h.device
-    for name, t, dtype in (("blocks", blocks, torch.float32),
-                           ("block_cols", block_cols, torch.int32),
-                           ("block_mask", block_mask, torch.float32),
-                           ("h", h, torch.float32)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, h on {dev}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    for name, t, dtypes in (("blocks", blocks, (torch.float32,)),
+                            ("block_cols", block_cols, (torch.int32,)),
+                            ("block_mask", block_mask, (torch.float32,)),
+                            (h_name, h, h_dtypes)):
+        _check_tensor(name, t, dtypes, dev)
     if blocks.ndim != 4 or blocks.shape[2:] != (BLOCK, BLOCK):
         raise ValueError(f"blocks must be [VB, M, {BLOCK}, {BLOCK}], "
                          f"got {tuple(blocks.shape)}")
@@ -119,12 +130,13 @@ def _check_operands(blocks, block_cols, block_mask, h, batched: bool,
                          f"{tuple(block_cols.shape)} / "
                          f"{tuple(block_mask.shape)}")
     if h.ndim != (3 if batched else 2):
-        raise ValueError(f"h must be {'[B, S, F]' if batched else '[S, F]'}"
-                         f", got {tuple(h.shape)}")
+        raise ValueError(f"{h_name} must be "
+                         f"{'[B, S, F]' if batched else '[S, F]'}, got "
+                         f"{tuple(h.shape)}")
     src_rows, f = h.shape[-2:]
     if src_rows % BLOCK or f < 1 or (batched and h.shape[0] < 1):
-        raise ValueError(f"h rows must be a multiple of {BLOCK} and F, B "
-                         f">= 1, got {tuple(h.shape)}")
+        raise ValueError(f"{h_name} rows must be a multiple of {BLOCK} and "
+                         f"F, B >= 1, got {tuple(h.shape)}")
     if vb > _MAX_ROW_BLOCKS:
         raise ValueError(f"{vb} row-blocks exceed the launch limit "
                          f"{_MAX_ROW_BLOCKS}")
@@ -146,13 +158,16 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
-#: C signatures of csrc/block_spmm.cu: (blocks, cols, mask, h, out, ints...,
-#: stream). Every pointer and the stream must be c_void_p, or ctypes would
-#: pass them as 32-bit ints and cut them.
+#: C signatures of csrc/block_spmm.cu: (blocks, cols, mask, source
+#: pointers..., out, ints..., stream). Every pointer and the stream must be
+#: c_void_p, or ctypes would pass them as 32-bit ints and cut them. The
+#: dequant entries (used by ``kernels.daq_dequant``) take codes, scales and
+#: mins as their source.
 _SIGNATURES = {
-    "block_spmm_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "block_spmm_batched_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _P],
+    "block_spmm_launch": [_P] * 5 + [_I] * 3 + [_P],
+    "block_spmm_batched_launch": [_P] * 5 + [_I] * 5 + [_P],
+    "dequant_spmm_launch": [_P] * 7 + [_I] * 5 + [_P],
+    "dequant_spmm_batched_launch": [_P] * 7 + [_I] * 6 + [_P],
 }
 
 

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.gnn.graph import Graph
+from repro_torch.kernels.daq_dequant import dequant_spmm
 from repro_torch.kernels.gather_aggregate import (BLOCK, block_spmm,
                                                   block_spmm_batched,
                                                   build_block_csr)
@@ -64,6 +65,23 @@ class BlockCsr:
         """sum-aggregate: numpy [V, F] (or [B, V, F]) in and out."""
         ht = torch.tensor(np.asarray(h, np.float32), device=self.device)
         return self.aggregate_traced(ht).cpu().numpy()
+
+    def aggregate_quantized(self, codes: np.ndarray, scales: np.ndarray,
+                            mins: np.ndarray) -> np.ndarray:
+        """Fused dequant + sum-aggregate over quantized features: numpy
+        uint{8,16,32} codes [V, F] with f32[V] scales and mins in, f32
+        [V, F] out. Padded rows dequantize to exactly 0."""
+        v = codes.shape[0]
+
+        def padded(a):   # zero rows appended up to the block grid
+            t = torch.as_tensor(a, device=self.device)
+            return torch.cat([t, t.new_zeros((self.padded_v - v,)
+                                             + t.shape[1:])])
+        out = dequant_spmm(self.blocks, self.cols, self.mask, padded(codes),
+                           padded(np.asarray(scales, np.float32)),
+                           padded(np.asarray(mins, np.float32)),
+                           max_col=self.max_col)
+        return out[:v].cpu().numpy()
 
 
 # ----------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Distributed BSP runtime (paper §III-E): host-side layout and knobs.
+"""Distributed BSP runtime (paper §III-E), the fog mesh on one device.
 
 The paper's runtime: each fog holds a vertex partition; every GNN layer runs
 Aggregate/Update over local vertices, pulling neighbor activations from
@@ -13,19 +13,27 @@ per-layer cross-fog exchange is one of:
   * ``"halo_async"`` — the stale-tolerant variant whose fresh serves are
     the ``"halo"`` exchange.
 
-This module holds what the serving API needs on the host: the
-``aggregation`` knob (``resolve_aggregation``), the static-shape
-per-partition buffers (``build_partitioned``, with the pre-blocked
-per-shard block-CSR operands of the kernel path) and the exchange specs
-with their wire-byte accounting. The multi-device programs that consume
-these buffers are not part of the port yet.
+The host part lays the graph out per partition with static padded shapes
+(``build_partitioned``, with the pre-blocked per-shard block-CSR operands
+of the kernel path) and prices the exchange (``exchange_bytes``,
+``ExchangeSpec``). The device part (``bsp_apply`` / ``bsp_apply_many``,
+``bsp_infer`` / ``bsp_infer_many``) runs the n shards on ONE torch device:
+the shard axis is folded into the row axis, so shard ``p``'s slot ``i`` is
+row ``p*P + i`` of one [n*P, F] table, and the all_gather of the boundary
+rows is a gather of those rows into one [n*B, F] halo table that every
+shard reads. A layer is one program over all shards instead of n
+programs.
 
 Shard-local aggregation runs on one of two numerically equivalent paths,
 selected by the ``aggregation`` knob:
 
   * ``"segment_sum"`` — gather + ``index_add_`` over the COO edge list.
   * ``"pallas"``      — the hand-written block-CSR SpMM kernels (the knob
-    keeps the reference's name for the kernel path).
+    keeps the reference's name for the kernel path): per layer one
+    ``block_spmm`` over every shard's local rows plus one over the shared
+    halo table. With ``halo_quant`` (DAQ plans) the halo rows cross the
+    wire as uint8 codes plus one f32 (scale, min) pair per row and the
+    halo product is the fused ``dequant_spmm`` kernel.
   * ``"auto"``        — ``"pallas"`` wherever it is supported *and* the
     run's device is a CUDA device (on the CPU the kernels' plain versions
     would run, which is only useful for correctness); otherwise
@@ -43,14 +51,20 @@ arrays, 1.0 = real), so every code path may blindly multiply-accumulate.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.api.registry import EXCHANGES
 from repro_torch.gnn.graph import Graph
-from repro_torch.kernels.gather_aggregate import BLOCK, build_block_csr
+from repro_torch.gnn.layers import EdgeList, LAYER_FNS, apply_layer_with_sum
+from repro_torch.kernels.daq_dequant import (dequant_spmm,
+                                             dequant_spmm_batched)
+from repro_torch.kernels.gather_aggregate import (BLOCK, block_spmm,
+                                                  block_spmm_batched,
+                                                  build_block_csr)
 
 #: legal values of the Engine/Session ``aggregation`` knob.
 AGGREGATIONS = ("segment_sum", "pallas", "auto")
@@ -199,6 +213,12 @@ class PartitionedGraph:
     # None when build_partitioned ran with build_blocks=False.
     local_csr: Optional[BlockShardCsr] = None
     halo_csr: Optional[BlockShardCsr] = None
+    # Device copies of the layout's buffers, keyed (device, what) and built
+    # once at first use (see _on_device). ``with_features`` shares this
+    # dict, so a query re-uploads only its features; a layout built anew
+    # (after a migration) starts empty.
+    device_cache: dict = dataclasses.field(default_factory=dict,
+                                           compare=False, repr=False)
 
     def unpermute(self, out: np.ndarray) -> np.ndarray:
         """[n, P, D] stacked partition outputs -> [V, D] original order."""
@@ -373,6 +393,353 @@ def build_partitioned(g: Graph, assignment: np.ndarray,
         self_senders_global=self_g, self_senders_halo=self_h,
         part_of=part_of, slot_of=slot_of,
         local_csr=local_csr, halo_csr=halo_csr)
+
+
+# ----------------------------------------------------------------------------
+# Device programs: the n shards folded into the row axis of one device
+# ----------------------------------------------------------------------------
+
+def _layer_edges(slots: int, senders: torch.Tensor, kind: str,
+                 self_senders: torch.Tensor, receivers: torch.Tensor,
+                 emask: torch.Tensor, vmask: torch.Tensor) -> EdgeList:
+    """One layer's EdgeList over the folded [n*P] receiver rows.
+
+    ``senders`` [n, E] already index the folded source table;
+    ``receivers`` [n, E] are shard-local slots, moved here to shard p's
+    rows ``p*P ..``. GAT gets explicit self-edges (``self_senders``
+    [n, P], masked by ``vmask``) after each shard's own edges, as the
+    reference appends them per shard.
+    """
+    n = receivers.shape[0]
+    if kind == "gat":
+        own = torch.arange(slots, dtype=receivers.dtype,
+                           device=receivers.device).expand(n, slots)
+        senders = torch.cat([senders, self_senders], 1)
+        receivers = torch.cat([receivers, own], 1)
+        emask = torch.cat([emask, vmask], 1)
+    offset = torch.arange(n, dtype=receivers.dtype,
+                          device=receivers.device)[:, None] * slots
+    return EdgeList(senders.reshape(-1), (receivers + offset).reshape(-1),
+                    emask.reshape(-1), n * slots)
+
+
+def _wire_quantize(h: torch.Tensor, levels: float = 255.0):
+    """Per-row linear quantization of the halo wire payload.
+
+    Mirrors ``compression._quantize_rows`` at 8 bits: uint8 codes plus one
+    f32 (scale, min) pair per row, rounding half to even. All-zero
+    (masked padding) rows get code 0 / scale ~0 / min 0 and dequantize to
+    exactly 0. ``h`` may carry leading batch axes: the reductions run over
+    the feature (last) axis, so batched quantization is bitwise the
+    single-query call per row.
+    """
+    mins = h.amin(dim=-1)
+    scales = torch.clamp_min(h.amax(dim=-1) - mins, 1e-12) / levels
+    codes = torch.clamp(torch.round((h - mins[..., None]) / scales[..., None]),
+                        0, levels).to(torch.uint8)
+    return codes, scales, mins
+
+
+def _kernel_pad(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """Zero-pad the row axis (second to last) of a source table to the
+    kernel grid's ``rows``. The kernels mask the ragged feature edge
+    themselves, so features stay unpadded."""
+    return F.pad(x, (0, 0, 0, rows - x.shape[-2]))
+
+
+def _gathered_stack(x: torch.Tensor) -> torch.Tensor:
+    """[n, B, R, F] per-shard stack -> [B, n*R, F] per-example tables
+    (pure data movement; rows land in the order the serial path's
+    ``.reshape(-1, f)`` gives them)."""
+    n, b = x.shape[:2]
+    return x.movedim(0, 1).reshape((b, n * x.shape[2]) + x.shape[3:])
+
+
+def _on_device(pg: PartitionedGraph, device: torch.device, what, build):
+    """``build()`` for this layout and device, built once and kept in
+    ``pg.device_cache`` (shared by ``with_features`` copies)."""
+    key = (str(device), what)
+    if key not in pg.device_cache:
+        pg.device_cache[key] = build()
+    return pg.device_cache[key]
+
+
+@dataclasses.dataclass(frozen=True)
+class _Layout:
+    """The layout's row bookkeeping on one device, folded over shards."""
+    vertex_mask: torch.Tensor     # f32[n*P, 1]
+    boundary_index: torch.Tensor  # i64[n*B]: folded row of each halo row
+    boundary_mask: torch.Tensor   # f32[n*B, 1]
+    result_index: torch.Tensor    # i64[V]: folded row of each vertex
+
+
+def _layout(pg: PartitionedGraph, device: torch.device) -> _Layout:
+    def build():
+        shard_rows = np.arange(pg.n)[:, None] * pg.slots
+        return _Layout(
+            vertex_mask=torch.as_tensor(pg.vertex_mask.reshape(-1, 1),
+                                        device=device),
+            boundary_index=torch.as_tensor(
+                (shard_rows + pg.boundary_rows).reshape(-1), device=device),
+            boundary_mask=torch.as_tensor(pg.boundary_mask.reshape(-1, 1),
+                                          device=device),
+            result_index=torch.as_tensor(pg.part_of * pg.slots + pg.slot_of,
+                                         device=device))
+    return _on_device(pg, device, "layout", build)
+
+
+def _edges(pg: PartitionedGraph, device: torch.device, exchange: str,
+           kind: str) -> EdgeList:
+    """The folded EdgeList of ``exchange``: over the [n*P | n*B] table
+    (local rows, then the halo table) for ``halo``, over the [n*P] table
+    for ``allgather``."""
+    def build():
+        put = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+        if exchange == "allgather":
+            senders = put(pg.senders_global)
+            self_senders = put(pg.self_senders_global)
+        else:
+            # Shard p's combined table is [its P rows | the n*B halo
+            # rows]: local slot s is folded row p*P + s, halo row s - P
+            # is row n*P + s - P.
+            n, slots = pg.n, pg.slots
+            shard = np.arange(n, dtype=np.int32)[:, None] * slots
+            halo = pg.senders_halo
+            senders = put(halo + np.where(halo < slots, shard,
+                                          np.int32((n - 1) * slots)))
+            self_senders = put(pg.self_senders_halo + shard)
+        return _layer_edges(pg.slots, senders, kind, self_senders,
+                            put(pg.receivers_local), put(pg.edge_mask),
+                            put(pg.vertex_mask))
+    return _on_device(pg, device, ("edges", exchange, kind == "gat"), build)
+
+
+@dataclasses.dataclass(frozen=True)
+class _FoldedCsr:
+    """A BlockShardCsr on one device with its shard axis folded into the
+    row-block axis: one launch aggregates every shard."""
+    blocks: torch.Tensor   # f32[n*VB, M, B, B]
+    cols: torch.Tensor     # i32[n*VB, M]
+    mask: torch.Tensor     # f32[n*VB, M]
+    max_col: int           # largest entry of cols (host bounds check)
+    src_rows: int          # rows of the source table the launch reads
+    out_rows: int          # output rows per shard (VB * B)
+
+
+def _fold(csr: BlockShardCsr, device: torch.device,
+          per_shard_source: bool) -> _FoldedCsr:
+    """``per_shard_source``: shard p reads its own block of a stacked
+    [n * src_rows] table (local operand), so its column blocks move by
+    ``p * src_rows / B``; otherwise every shard reads one shared table
+    (the halo operand)."""
+    n, vb, m = csr.cols.shape
+    cols, src_rows = csr.cols, csr.src_rows
+    if per_shard_source:
+        cols = cols + (np.arange(n, dtype=np.int32)
+                       * (src_rows // BLOCK))[:, None, None]
+        src_rows *= n
+
+    def put(a):
+        return torch.as_tensor(a.reshape((n * vb,) + a.shape[2:]),
+                               device=device)
+    return _FoldedCsr(put(csr.blocks), put(cols), put(csr.mask),
+                      int(cols.max()), src_rows, csr.out_rows)
+
+
+def _folded_csrs(pg: PartitionedGraph, device: torch.device):
+    return _on_device(pg, device, "csr", lambda: (
+        _fold(pg.local_csr, device, True), _fold(pg.halo_csr, device, False)))
+
+
+def _kernel_sum(pg: PartitionedGraph, h: torch.Tensor, lay: _Layout,
+                local: _FoldedCsr, halo: _FoldedCsr,
+                halo_quant: bool) -> torch.Tensor:
+    """Every shard's neighbor SUM = local SpMM + halo SpMM, one launch
+    each for all shards. ``h`` is the folded [n*P, F] table or a
+    [B, n*P, F] stack (then the batched kernels run)."""
+    n, slots = pg.n, pg.slots
+    lead, f = h.shape[:-2], h.shape[-1]
+    batched = h.ndim == 3
+    spmm = block_spmm_batched if batched else block_spmm
+    loc = _kernel_pad(h.reshape(lead + (n, slots, f)), local.src_rows // n)
+    out = spmm(local.blocks, local.cols, local.mask,
+               loc.reshape(lead + (local.src_rows, f)),
+               max_col=local.max_col)
+    hb = h[..., lay.boundary_index, :] * lay.boundary_mask   # [.., n*B, F]
+    if halo_quant:
+        codes, sc, mn = _wire_quantize(hb)
+        pad = (0, halo.src_rows - sc.shape[-1])
+        dq = dequant_spmm_batched if batched else dequant_spmm
+        out_h = dq(halo.blocks, halo.cols, halo.mask,
+                   _kernel_pad(codes, halo.src_rows), F.pad(sc, pad),
+                   F.pad(mn, pad), max_col=halo.max_col)
+    else:
+        out_h = spmm(halo.blocks, halo.cols, halo.mask,
+                     _kernel_pad(hb, halo.src_rows), max_col=halo.max_col)
+
+    def shard_rows(o):
+        o = o.reshape(lead + (n, local.out_rows, f))[..., :slots, :]
+        return o.reshape(lead + (n * slots, f))
+    return shard_rows(out) + shard_rows(out_h)
+
+
+def _resolve(kind: str, pg: PartitionedGraph, exchange: str,
+             aggregation: str, halo_quant: bool, device) -> Tuple[str, bool]:
+    """(wire exchange, kernel path?) of one run; raises on what the
+    layout or the knobs cannot serve."""
+    mode = resolve_aggregation(aggregation, kind, exchange=exchange,
+                               device=device)
+    use_kernels = mode == "pallas"
+    if use_kernels and (pg.local_csr is None or pg.halo_csr is None):
+        raise ValueError(
+            "aggregation='pallas' needs the block-CSR shards; rebuild the "
+            "PartitionedGraph with build_partitioned(..., build_blocks=True)")
+    if halo_quant and not use_kernels:
+        raise ValueError("halo_quant requires the 'pallas' aggregation path")
+    return _wire_exchange(exchange), use_kernels
+
+
+def _run(params, kind: str, pg: PartitionedGraph, h: torch.Tensor,
+         exchange: str, aggregation: str, halo_quant: bool) -> torch.Tensor:
+    """K-layer BSP forward on the folded table ``h`` ([n*P, F], or a
+    [B, n*P, F] stack) -> the folded output, on ``h``'s device.
+
+    The kernel path runs one local and one halo launch per layer for the
+    whole stack, then the dense tail example by example; the segment-sum
+    path runs a stack example by example. Either way every example is
+    bitwise its serial run.
+    """
+    device = h.device
+    exchange, use_kernels = _resolve(kind, pg, exchange, aggregation,
+                                     halo_quant, device)
+    if exchange not in ("halo", "allgather"):
+        raise ValueError(exchange)
+    if h.ndim == 3 and not use_kernels:
+        return torch.stack([_run(params, kind, pg, hh, exchange,
+                                 aggregation, halo_quant) for hh in h])
+    lay = _layout(pg, device)
+    edges = _edges(pg, device, exchange, kind)
+    if use_kernels:
+        local, halo = _folded_csrs(pg, device)
+    _, layer_fn = LAYER_FNS[kind]
+    for li, p in enumerate(params):
+        last = li == len(params) - 1
+        if use_kernels:
+            a_sum = _kernel_sum(pg, h, lay, local, halo, halo_quant)
+            h = apply_layer_with_sum(kind, p, h, edges, a_sum, last=last)
+        else:
+            h_src = h if exchange == "allgather" else torch.cat(
+                [h, h[lay.boundary_index] * lay.boundary_mask])
+            kwargs = {"activation": None} if last else {}
+            h = layer_fn(p, h, edges, h_src=h_src, **kwargs)
+        h = h * lay.vertex_mask   # keep padded rows at zero
+    return h
+
+
+def bsp_apply(params, kind: str, pg: PartitionedGraph,
+              exchange: str = "halo", aggregation: str = "segment_sum",
+              halo_quant: bool = False,
+              device: Union[str, torch.device] = "cuda") -> torch.Tensor:
+    """Distributed K-layer GNN inference; returns [n, P, D] on ``device``.
+
+    ``aggregation`` selects the shard-local aggregation path (see module
+    docstring); ``halo_quant=True`` (kernel path only) quantizes the halo
+    rows to uint8 before the exchange and dequantizes them inside the
+    fused ``dequant_spmm`` kernel — the wire carries 1 byte/feature plus
+    8 bytes/row instead of 4 bytes/feature.
+    """
+    h = torch.as_tensor(pg.feats, device=torch.device(device))
+    out = _run(params, kind, pg, h.reshape(pg.n * pg.slots, -1), exchange,
+               aggregation, halo_quant)
+    return out.reshape(pg.n, pg.slots, -1)
+
+
+def bsp_apply_many(params, kind: str, pg: PartitionedGraph,
+                   feat_stack: np.ndarray, exchange: str = "halo",
+                   aggregation: str = "segment_sum", halo_quant: bool = False,
+                   device: Union[str, torch.device] = "cuda") -> torch.Tensor:
+    """Distributed inference over a whole micro-batch.
+
+    ``feat_stack`` is the [n, B, P, F] table from
+    ``PartitionedGraph.feature_stack``; returns [n, B, P, D]. On the
+    kernel path each layer's exchange ships every example's boundary rows
+    at once and the batched kernels aggregate the whole stack in one local
+    and one halo launch. Every example is bitwise the serial
+    ``bsp_apply``.
+    """
+    h = _gathered_stack(torch.as_tensor(feat_stack,
+                                        device=torch.device(device)))
+    out = _run(params, kind, pg, h, exchange, aggregation, halo_quant)
+    return out.reshape(h.shape[0], pg.n, pg.slots, -1).movedim(0, 1)
+
+
+def bsp_infer(params, kind: str, g: Graph, assignment: np.ndarray,
+              device: Union[str, torch.device] = "cuda",
+              exchange: str = "halo", aggregation: str = "segment_sum",
+              halo_quant: bool = False,
+              pg: Optional[PartitionedGraph] = None) -> np.ndarray:
+    """End-to-end distributed inference -> [V, D] numpy in original
+    vertex order.
+
+    ``pg`` reuses prebuilt partition buffers (the features are refreshed
+    from ``g``, the device copies of the layout are kept), which is what
+    the serving path does per query.
+    """
+    device = torch.device(device)
+    if pg is None:
+        mode = resolve_aggregation(aggregation, kind, exchange=exchange,
+                                   device=device)
+        pg = build_partitioned(g, assignment, build_blocks=mode == "pallas")
+    else:
+        pg = pg.with_features(g.features)
+    out = bsp_apply(params, kind, pg, exchange, aggregation, halo_quant,
+                    device)
+    rows = out.reshape(pg.n * pg.slots, -1)
+    return rows[_layout(pg, device).result_index].cpu().numpy()
+
+
+def bsp_infer_many(params, kind: str, feats: np.ndarray,
+                   pg: PartitionedGraph,
+                   device: Union[str, torch.device] = "cuda",
+                   exchange: str = "halo", aggregation: str = "segment_sum",
+                   halo_quant: bool = False) -> np.ndarray:
+    """Batched end-to-end distributed inference -> [B, V, D] numpy.
+
+    ``feats`` is a [B, V, F] stacked micro-batch; the prebuilt ``pg``
+    supplies the layout (and block-CSR shards for the kernel path).
+    """
+    feats = np.asarray(feats, np.float32)
+    if feats.ndim != 3:
+        raise ValueError(f"bsp_infer_many takes a [B, V, F] stack, got "
+                         f"shape {feats.shape}")
+    device = torch.device(device)
+    h = _gathered_stack(torch.as_tensor(pg.feature_stack(feats),
+                                        device=device))
+    out = _run(params, kind, pg, h, exchange, aggregation, halo_quant)
+    return out[:, _layout(pg, device).result_index].cpu().numpy()
+
+
+def _not_ported(name: str, item: str):
+    def entry(*args, **kwargs):
+        raise NotImplementedError(f"bsp.{name} is not ported yet: ROADMAP "
+                                  f"Queue 1 item {item}")
+    entry.__name__ = name
+    return entry
+
+
+bsp_infer_capture = _not_ported("bsp_infer_capture",
+                                "9, incremental frontier queries")
+bsp_infer_capture_many = _not_ported("bsp_infer_capture_many",
+                                     "9, incremental frontier queries")
+bsp_infer_frontier = _not_ported("bsp_infer_frontier",
+                                 "9, incremental frontier queries")
+bsp_infer_frontier_many = _not_ported("bsp_infer_frontier_many",
+                                      "9, incremental frontier queries")
+bsp_infer_stale = _not_ported("bsp_infer_stale", "10, fleet and stale halos")
+bsp_infer_stale_many = _not_ported("bsp_infer_stale_many",
+                                   "10, fleet and stale halos")
+build_halo_tables = _not_ported("build_halo_tables",
+                                "10, fleet and stale halos")
 
 
 def exchange_bytes(pg: PartitionedGraph, feature_dim: int,

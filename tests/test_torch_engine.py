@@ -18,6 +18,7 @@ from repro.api import Engine as JEngine
 from repro.gnn import datasets as jdata
 from repro.gnn import models as jmodels
 from repro_torch.api import Engine, UnknownComponentError
+from repro_torch.api.registry import EXECUTORS
 from repro_torch.gnn import datasets as tdata
 from repro_torch.gnn import models as tmodels
 from repro_torch.kernels import gather_aggregate as tga
@@ -119,10 +120,31 @@ def test_gat_with_pallas_raises_value_error():
         Engine((tparams, "gat"), device="cpu", aggregation="pallas")
 
 
-def test_mesh_bsp_is_not_registered():
-    _, gt, _, tparams = _setup("gcn")
-    with pytest.raises(UnknownComponentError, match="sim"):
-        Engine((tparams, "gcn"), device="cpu", executor="mesh-bsp")
+def test_mesh_bsp_is_registered_and_validates_like_the_reference():
+    """``mesh-bsp`` validates ``aggregation`` with the exchange as context,
+    as the reference's Engine and Session do: the kernel path needs the
+    ``halo`` exchange and a static-sum kind."""
+    _, gt, _, gcn = _setup("gcn")
+    _, _, _, gat = _setup("gat")
+    assert "mesh-bsp" in EXECUTORS
+    with pytest.raises(ValueError, match="halo"):
+        Engine((gcn, "gcn"), device="cpu", executor="mesh-bsp",
+               exchange="allgather", aggregation="pallas")
+    with pytest.raises(ValueError, match="pallas"):
+        Engine((gat, "gat"), device="cpu", executor="mesh-bsp",
+               aggregation="pallas")
+    # The single-program backends have no exchange to validate against.
+    plan = Engine((gcn, "gcn"), device="cpu", executor="sim",
+                  exchange="allgather", aggregation="pallas",
+                  compressor="none").compile(gt)
+    with pytest.raises(ValueError, match="halo"):
+        plan.session(executor="mesh-bsp")
+    # "auto" on the CPU resolves to segment_sum: no block shards are built.
+    auto = Engine((gcn, "gcn"), device="cpu", executor="mesh-bsp",
+                  aggregation="auto").compile(gt)
+    assert auto.partitioned.local_csr is None
+    with pytest.raises(UnknownComponentError, match="mesh-bsp"):
+        Engine((gcn, "gcn"), device="cpu", executor="tpu-pod")
 
 
 def test_default_device_without_cuda_raises():

@@ -49,7 +49,8 @@ def test_port_has_the_slice_modules():
               "gnn.models", "core.profiler", "core.partition",
               "core.placement", "core.scheduler", "core.compression",
               "core.simulation", "kernels.gather_aggregate", "kernels.ref",
-              "kernels.ops", "kernels.build", "runtime.bsp"):
+              "kernels.daq_dequant", "kernels.ops", "kernels.build",
+              "runtime.bsp"):
         assert f"repro_torch.{m}" in mods, m
     assert (PORT / "kernels" / "csrc" / "block_spmm.cu").is_file()
 
