@@ -22,7 +22,20 @@ Phases, in order; any failed check raises and the script exits non-zero:
                 B = 1 and 8, plus one uint16 and one rectangular case;
                 also bitwise ``block_spmm`` over the plain dequantized
                 table; yardstick ``codes.float() * s + m`` then
-                ``torch.sparse.mm`` (two calls).
+                ``torch.sparse.mm`` (two calls);
+                flash_attention (plain version in float64 per head; f32
+                at rtol 1e-5 / atol 1e-4, bf16 within one bf16 rounding:
+                rtol 2**-8 + 1e-5 / atol 1e-4): qwen1.5-0.5b prefill B = 2,
+                H = 16, dh = 64, S = T = 4096 in bf16 and f32, its serve
+                shape (B = 4, S = 16), starcoder2's GQA (H = 24, KV = 2,
+                dh = 128, S = 2048), a window = 4096 case at S = 8192 and a
+                q_offset case (S = 1024 against T = 4096); yardstick
+                ``F.scaled_dot_product_attention``;
+                dequant: the uint8 and uint16 groups of ``daq_pack`` on
+                full-scale SIoT features (also against ``daq_unpack``'s
+                float64) and benchmarks/run.py's 128-feature shape,
+                bitwise the plain version; yardstick
+                ``codes.float() * s + m``.
   3. main     serves GCN and SAGE [52, 64, 2] through
               ``Engine(..., executor="sim", aggregation="pallas",
               device="cuda")`` on full-scale SIoT: a few ``query()`` calls
@@ -45,17 +58,35 @@ Phases, in order; any failed check raises and the script exits non-zero:
               ``block_spmm``) at rtol 1e-4 / atol 1e-5. Afterwards a small
               graph is served on the card and on the CPU, on both
               executors, and compared.
-  4. report   one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name
-              and power limit, and as the last line
+  3c. dequantize  ``ops.dequantize_features(..., device="cuda")`` on the
+              same three code tables (one ``dequant`` launch each), held
+              bitwise to the plain version.
+  3d. serve   ``repro_torch.launch.serve.serve`` with qwen1.5-0.5b at full
+              width (``attn_impl="flash"``, random seeded weights) and the
+              reference's serve defaults: 24 requests of 16 tokens, pods
+              1.0/1.6/2.4, batches of 4, "iep" placement; checks exactly
+              24 flash launches per prefill (decode launches none).
+  3e. prefill ``transformer.prefill`` at full width, B = 2, S = 4096:
+              bf16 through the kernel (the served dtype, timed); an
+              f32-activation copy through the kernel gated against the
+              same prefill on the plain ``"chunked"`` path (last-token
+              logits, rtol 1e-4 / atol 1e-4, TF32 off); reported, not
+              gated: the bf16 logits' distance from it and how many of 8
+              greedy tokens agree. Afterwards a reduced qwen1.5-0.5b is
+              served on the card and on the CPU and compared.
+  4. report   one ``{"kernels": [...]}`` JSON line (all six kernels), the
+              ``nvidia-smi`` name and power limit, and as the last line
               ``{"ok": true, "device": {...}}``. A kernel's top-level
               numbers sum its main-path cases on the path named in
               ``ROW_PATH`` (one call per layer shape: the aggregation work
-              of one query, or of one batch); ``launches`` sums the counts
-              of every path driven.
+              of one query or one batch; one attention layer of the
+              S = 4096 prefill; one ``dequantize`` drive); ``launches``
+              sums the counts of every path driven.
 
 Without a CUDA card, or without the repository's ``src/`` beside it, the
 script exits non-zero before printing any result.
 """
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -66,14 +97,17 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bandwidth
-# and the f32 rate of the CUDA cores (the kernels use no tensor cores).
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bandwidth,
+# the f32 rate of the CUDA cores and the dense bf16 tensor-core rate (the
+# floor of a bf16 attention, whatever this kernel uses).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12
 
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-4   # tests/test_kernels.py
 EMB_RTOL, EMB_ATOL = 1e-4, 1e-5         # tests/test_aggregation.py
@@ -84,23 +118,46 @@ DAQ_BAR = 5e-2                          # tests/test_aggregation.py:81
 #: SAGE's numbers are printed beside it.
 DAQ_GATED_KINDS = ("gcn",)
 F32_WIRE_GATED_KINDS = ("gcn", "sage")
+#: One bf16 rounding of the float64 result (half an ulp, relative) on top
+#: of the f32 kernel bar: a bf16 output is the f32 result rounded once.
+BF16_RTOL = 2.0 ** -8 + KERNEL_RTOL
+LOGIT_RTOL, LOGIT_ATOL = 1e-4, 1e-4     # tests/test_flash_attention.py:74
 DIMS_HIDDEN, DIMS_OUT = 64, 2
 BATCH = 8
 QUERIES = 3
+ARCH = "qwen1.5-0.5b"
+#: The reference's serve defaults (src/repro/launch/serve.py:main).
+SERVE = dict(requests=24, tokens=16, pods="1.0,1.6,2.4", batch_size=4,
+             placement="iep")
+PREFILL_B, PREFILL_S = 2, 4096
+GREEDY = 8
 
-SOURCE = "src/repro_torch/kernels/csrc/block_spmm.cu"
+CSRC = "src/repro_torch/kernels/csrc/"
+SOURCES = {"block_spmm": CSRC + "block_spmm.cu",
+           "block_spmm_batched": CSRC + "block_spmm.cu",
+           "dequant_spmm": CSRC + "block_spmm.cu",
+           "dequant_spmm_batched": CSRC + "block_spmm.cu",
+           "dequant": CSRC + "block_spmm.cu",
+           "flash_attention": CSRC + "flash_attention.cu"}
 REPLACES = {
     "block_spmm": "src/repro/kernels/gather_aggregate.py:194",
     "block_spmm_batched": "src/repro/kernels/gather_aggregate.py:149",
     "dequant_spmm": "src/repro/kernels/daq_dequant.py:85",
     "dequant_spmm_batched": "src/repro/kernels/daq_dequant.py:149",
+    "dequant": "src/repro/kernels/daq_dequant.py:38",
+    "flash_attention": "src/repro/kernels/flash_attention.py:67",
 }
 #: The path whose main-path cases make a kernel's top-level numbers.
 ROW_PATH = {"block_spmm": "sim", "block_spmm_batched": "sim",
-            "dequant_spmm": "mesh", "dequant_spmm_batched": "mesh"}
-#: The kernels each served path must launch.
+            "dequant_spmm": "mesh", "dequant_spmm_batched": "mesh",
+            "dequant": "dequantize", "flash_attention": "prefill"}
+#: The kernels each driven path must launch.
 PATH_KERNELS = {"sim": ("block_spmm", "block_spmm_batched"),
-                "mesh": tuple(REPLACES)}
+                "mesh": ("block_spmm", "block_spmm_batched", "dequant_spmm",
+                         "dequant_spmm_batched"),
+                "dequantize": ("dequant",),
+                "serve": ("flash_attention",),
+                "prefill": ("flash_attention",)}
 
 
 def log(msg: str) -> None:
@@ -124,7 +181,8 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def errors(got: torch.Tensor, want: torch.Tensor) -> dict:
+def errors(got: torch.Tensor, want: torch.Tensor, rtol: float = KERNEL_RTOL,
+           atol: float = KERNEL_ATOL) -> dict:
     """Max abs error, max rel error (over entries at least 1e-3 of the
     largest magnitude) and the worst |err| / (atol + rtol |want|), which
     is at most 1 where the comparison passes."""
@@ -135,7 +193,7 @@ def errors(got: torch.Tensor, want: torch.Tensor) -> dict:
         "max_abs_err": float(diff.max()),
         "max_rel_err": float((diff[big] / mag[big]).max()) if big.any()
         else 0.0,
-        "tol_ratio": float((diff / (KERNEL_ATOL + KERNEL_RTOL * mag)).max()),
+        "tol_ratio": float((diff / (atol + rtol * mag)).max()),
     }
 
 
@@ -648,16 +706,401 @@ def small_reference(Engine, models, datasets):
                                            atol=EMB_ATOL, err_msg=what)
 
 
+def visible_pairs(s: int, t: int, causal: bool, window: int,
+                  q_offset: int) -> int:
+    """(query, key) pairs the mask keeps for one head: key < T, with
+    ``causal`` key <= q_pos, with ``window`` key > q_pos - window."""
+    q_pos = q_offset + np.arange(s, dtype=np.int64)
+    hi = np.minimum(q_pos, t - 1) if causal else np.full(s, t - 1)
+    lo = np.maximum(q_pos - window + 1, 0) if window else np.zeros(s,
+                                                                   np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_bound(pairs: int, b: int, s: int, t: int, h: int, kv: int,
+                dh: int, dtype) -> tuple:
+    """Least time (ms) of one attention call, the larger of two floors: q,
+    k, v read once and o written once at the HBM rate; 4 * dh operations
+    per kept (query, key) pair per query head (q.k and p.v, a multiply and
+    an add each) at the peak of the input type (bf16 tensor cores, or f32
+    CUDA cores)."""
+    elem = torch.finfo(dtype).bits // 8
+    nbytes = elem * (2 * b * s * h * dh + 2 * b * t * kv * dh)
+    ops = 4.0 * dh * pairs * b * h
+    peak = PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 \
+        else PEAK_F32_FLOP_PER_S
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+#: (name, layout, B, S, T, H, KV, dh, dtype, window, q_offset, path):
+#: "model" layout [B, S, H, dh] through gqa_flash (causal), "folded"
+#: [B*H, S, dh] through flash_attention. ``path`` names the driven path
+#: whose calls the case reproduces.
+FLASH_CASES = [
+    ("qwen prefill", "model", PREFILL_B, PREFILL_S, PREFILL_S, 16, 16, 64,
+     torch.bfloat16, 0, 0, "prefill"),
+    ("qwen prefill f32", "model", PREFILL_B, PREFILL_S, PREFILL_S, 16, 16,
+     64, torch.float32, 0, 0, None),
+    ("qwen serve", "model", 4, 16, 16, 16, 16, 64, torch.bfloat16, 0, 0,
+     "serve"),
+    ("starcoder2 gqa", "model", 2, 2048, 2048, 24, 2, 128, torch.bfloat16,
+     0, 0, None),
+    ("qwen window", "model", 1, 8192, 8192, 16, 16, 64, torch.float32, 4096,
+     0, None),
+    ("q_offset", "folded", 1, 1024, 4096, 16, 16, 64, torch.float32, 0,
+     3072, None),
+]
+
+
+def flash_cases(fa, ref) -> dict:
+    """Phase 2, flash attention. Returns {"flash_attention": {"cases"}}."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = {"flash_attention": {"cases": []}}
+    for (name, layout, b, s, t, h, kv, dh, dtype, window, q_offset,
+         path) in FLASH_CASES:
+        q = torch.randn((b, s, h, dh), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((b, t, kv, dh), generator=gen,
+                        device="cuda").to(dtype)
+        v = torch.randn((b, t, kv, dh), generator=gen,
+                        device="cuda").to(dtype)
+        group = h // kv
+        if layout == "model":
+            def kern():
+                return fa.gqa_flash(q, k, v, window=window)
+
+            def plain():
+                return ref.gqa_flash_ref(q, k, v, window=window)
+        else:   # [B*H, S, dh]: the folded layout of flash_attention
+            qf, kf, vf = (x.transpose(1, 2).reshape(-1, x.shape[1], dh)
+                          .contiguous() for x in (q, k, v))
+
+            def kern():
+                return fa.flash_attention(qf, kf, vf, window=window,
+                                          q_offset=q_offset).reshape(
+                    b, h, s, dh).transpose(1, 2)
+
+            def plain():
+                return ref.flash_attention_ref(
+                    qf, kf, vf, window=window, q_offset=q_offset).reshape(
+                    b, h, s, dh).transpose(1, 2)
+        got = kern()
+        # float64 yardstick per (example, head), so the [S, T] float64
+        # score table of one head is the largest temporary.
+        want = torch.empty((b, s, h, dh), dtype=torch.float64, device="cuda")
+        for bi in range(b):
+            for hi in range(h):
+                kh = hi // group
+                want[bi, :, hi] = ref.flash_attention_ref(
+                    q[bi, :, hi][None].double(), k[bi, :, kh][None].double(),
+                    v[bi, :, kh][None].double(), window=window,
+                    q_offset=q_offset)[0]
+        rtol = BF16_RTOL if dtype == torch.bfloat16 else KERNEL_RTOL
+        err = errors(got, want, rtol, KERNEL_ATOL)
+        err["plain_f32_max_abs_err"] = errors(plain(), want)["max_abs_err"]
+        if not torch.isfinite(got).all() or err["tol_ratio"] > 1:
+            raise AssertionError(f"flash_attention {name}: max abs err "
+                                 f"{err['max_abs_err']} beyond rtol {rtol} "
+                                 f"/ atol {KERNEL_ATOL} (ratio "
+                                 f"{err['tol_ratio']:.3g})")
+        # Library yardstick: one SDPA call on [B, H, S, dh] copies (the
+        # layout change is not timed), the mask as a boolean [S, T] where
+        # it is not plain causal.
+        ql, kl, vl = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        q_pos = q_offset + torch.arange(s, device="cuda")[:, None]
+        k_pos = torch.arange(t, device="cuda")[None, :]
+        mask = None
+        if window or q_offset or s != t:
+            mask = (k_pos <= q_pos) & ((k_pos > q_pos - window) if window
+                                       else True)
+
+        def lib():
+            return F.scaled_dot_product_attention(
+                ql, kl, vl, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=group > 1)
+        lib_err = errors(lib().transpose(1, 2), want, rtol, KERNEL_ATOL)
+        reps = 10 if s * t >= 1 << 22 else 50
+        k_ms = time_ms(kern, reps=reps)
+        p_ms = time_ms(plain, reps=3, warmup=1)
+        l_ms = time_ms(lib, reps=reps)
+        pairs = visible_pairs(s, t, True, window, q_offset)
+        b_ms, b_by = flash_bound(pairs, b, s, t, h, kv, dh, dtype)
+        rec = {"case": name, "layout": layout, "B": b, "S": s, "T": t,
+               "H": h, "KV": kv, "dh": dh,
+               "dtype": str(dtype).removeprefix("torch."), "window": window,
+               "q_offset": q_offset, "kept_pairs_per_head": pairs,
+               "path": path, **err, "library_max_abs_err":
+               lib_err["max_abs_err"], "ms": k_ms, "plain_ms": p_ms,
+               "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by}
+        out["flash_attention"]["cases"].append(rec)
+        log(f"  flash_attention {name:17s} {rec['dtype']:8s} err "
+            f"{err['max_abs_err']:.3g} (ratio {err['tol_ratio']:.3g}; sdpa "
+            f"{lib_err['max_abs_err']:.3g}) kernel {k_ms:.4f} ms  plain "
+            f"{p_ms:.4f} ms  sdpa {l_ms:.4f} ms  bound {b_ms:.4f} ms "
+            f"({b_by})")
+        del q, k, v, got, want, ql, kl, vl
+        torch.cuda.empty_cache()
+    return out
+
+
+def dequant_tables(g, compression, datasets) -> list:
+    """(name, codes, f32 scales, f32 mins, float64 yardstick or None):
+    the uint8 and uint16 groups of ``daq_pack`` on the graph's features
+    (their float64 ``daq_unpack`` rows as yardstick) and the 128-feature
+    table of benchmarks/run.py's kernel_microbench."""
+    packed = compression.daq_pack(g.features, g.degrees, lossless=False)
+    unpacked = compression.daq_unpack(packed)
+    out = []
+    for nbits in (8, 16):
+        ids, q, mins, scales = packed.groups[nbits]
+        out.append((f"siot daq {nbits}-bit", q, scales.astype(np.float32),
+                    mins.astype(np.float32), unpacked[ids]))
+    y = datasets.load("yelp", scale=0.1, seed=0)
+    rng = np.random.default_rng(0)
+    codes = rng.integers(0, 255, (y.num_vertices, 128)).astype(np.uint8)
+    sc = rng.uniform(0.01, 1, y.num_vertices).astype(np.float32)
+    mn = rng.normal(size=y.num_vertices).astype(np.float32)
+    out.append(("kernel_microbench", codes, sc, mn, None))
+    return out
+
+
+def dequant_kernel_cases(dq, ref, tables) -> dict:
+    """Phase 2, the standalone dequant kernel on each table, padded to the
+    256 x 128 tiling as ``ops.dequantize_features`` pads it."""
+    out = {"dequant": {"cases": []}}
+    for name, codes, sc, mn, exact in tables:
+        v, f = codes.shape
+        vp, fp = -(-v // 256) * 256, -(-f // 128) * 128
+        cp = np.zeros((vp, fp), codes.dtype)
+        cp[:v, :f] = codes
+        c = torch.as_tensor(cp).cuda()
+        s_, m_ = (torch.as_tensor(np.pad(x, (0, vp - v))).cuda()
+                  for x in (sc, mn))
+        got = dq.dequant(c, s_, m_)
+        plain = ref.dequant_ref(c, s_, m_)
+        if not torch.equal(got, plain):
+            raise AssertionError(f"dequant {name}: not bitwise the plain "
+                                 f"version")
+        want = (c.double() * s_.double()[:, None] + m_.double()[:, None])
+        err = errors(got, want)
+        if exact is not None:
+            # The wire's float64 rows: f32 scale / min and two f32
+            # roundings against the float64 unpack.
+            err_unpack = errors(got[:v, :f], torch.as_tensor(exact).cuda())
+            err["unpack_f64_max_abs_err"] = err_unpack["max_abs_err"]
+            err["unpack_f64_tol_ratio"] = err_unpack["tol_ratio"]
+            check_close(f"dequant {name} vs daq_unpack",
+                        got[:v, :f].double(), torch.as_tensor(exact).cuda(),
+                        KERNEL_RTOL, KERNEL_ATOL)
+        check_close(f"dequant {name}", got.double(), want, KERNEL_RTOL,
+                    KERNEL_ATOL)
+
+        def lib():
+            return c.float() * s_[:, None] + m_[:, None]
+        k_ms = time_ms(lambda: dq.dequant(c, s_, m_), reps=50)
+        p_ms = time_ms(lambda: ref.dequant_ref(c, s_, m_), reps=50)
+        l_ms = time_ms(lib, reps=50)
+        nbytes = vp * fp * (c.element_size() + 4) + vp * 8
+        b_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        rec = {"case": name, "V": vp, "F": fp,
+               "codes": str(c.dtype).removeprefix("torch."),
+               "path": "dequantize", **err, "ms": k_ms, "plain_ms": p_ms,
+               "library_ms": l_ms, "bound_ms": b_ms, "bound_by": "bytes"}
+        out["dequant"]["cases"].append(rec)
+        log(f"  dequant {name:19s} [{vp}, {fp}] {rec['codes']:6s} err "
+            f"{err['max_abs_err']:.3g} kernel {k_ms:.4f} ms  plain "
+            f"{p_ms:.4f} ms  library {l_ms:.4f} ms  bound {b_ms:.4f} ms")
+    return out
+
+
+def dequantize_path(ops, ref, tables) -> list:
+    """Phase 3c: ``ops.dequantize_features`` on the card, bitwise the plain
+    dequantization of the same codes."""
+    out = []
+    for name, codes, sc, mn, _ in tables:
+        t0 = time.perf_counter()
+        got = ops.dequantize_features(codes, sc, mn, device="cuda")
+        host_ms = (time.perf_counter() - t0) * 1e3
+        want = ref.dequant_ref(*(torch.as_tensor(x) for x in (codes, sc,
+                                                               mn))).numpy()
+        if got.shape != codes.shape or not np.array_equal(got, want):
+            raise AssertionError(f"dequantize_features {name}: not the "
+                                 f"plain dequantization")
+        out.append({"table": name, "shape": list(codes.shape),
+                    "host_ms": host_ms})
+        log(f"  dequantize_features {name}: {list(codes.shape)} "
+            f"{codes.dtype} in {host_ms:.2f} ms (host clock, H2D + D2H)")
+    return out
+
+
+def serve_path(sv, fa, cfg) -> dict:
+    """Phase 3d: transformer serving (``launch.serve``) at full width."""
+    launches0 = fa.flash_attention.launches
+    res = sv.serve(cfg, device="cuda", log=log, **SERVE)
+    n_batches = len(res["batches"])
+    got = fa.flash_attention.launches - launches0
+    if got != cfg.num_layers * n_batches:
+        raise AssertionError(f"serve launched {got} flash kernels for "
+                             f"{n_batches} prefills, expected "
+                             f"{cfg.num_layers} per prefill")
+    for r in res["requests"]:
+        if len(r.done) != SERVE["tokens"] or not all(
+                0 <= t < cfg.vocab_size for t in r.done):
+            raise AssertionError(f"request {r.rid}: bad tokens {r.done}")
+    b = res["batches"]
+    steady = b[1:] or b
+    summary = {
+        "arch": cfg.name, "batches": n_batches,
+        "tokens": res["tokens"], "wall_s": res["wall_s"],
+        "tokens_per_s": res["tokens_per_s"],
+        "bottleneck_ratio": res["bottleneck_ratio"],
+        "flash_launches": got,
+        "first_prefill_ms": b[0]["prefill_ms"],
+        "prefill_ms_median": statistics.median(x["prefill_ms"]
+                                               for x in steady),
+        "decode_ms_median": statistics.median(x["decode_ms"] for x in steady),
+        "decode_ms_per_step_median": statistics.median(
+            x["decode_ms"] / x["decode_steps"] for x in steady),
+        "batch_timings": b}
+    log(f"  serve: {summary['tokens']} tokens in {summary['wall_s']:.2f} s "
+        f"({summary['tokens_per_s']:.1f} tok/s), prefill "
+        f"{summary['prefill_ms_median']:.2f} ms / decode "
+        f"{summary['decode_ms_median']:.2f} ms per batch (median after the "
+        f"first; first prefill {summary['first_prefill_ms']:.1f} ms), "
+        f"{got} flash launches, bottleneck/mean "
+        f"{summary['bottleneck_ratio']:.3f}")
+    return summary
+
+
+def greedy(tf, params, cfg, logits, caches, pos: int, n: int):
+    """``n`` greedy tokens [B, n] from prefill logits and caches."""
+    toks = []
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    for step in range(n):
+        toks.append(tok)
+        if step + 1 < n:
+            logits, caches = tf.decode_step(params, cfg, caches, tok,
+                                            pos + step)
+            tok = torch.argmax(logits[:, -1:], dim=-1)
+    return torch.cat(toks, dim=1)
+
+
+def long_prefill(tf, fa, cfg) -> dict:
+    """Phase 3e: ``prefill`` at full width, B = 2, S = 4096."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = tf.init_params(cfg, gen)
+    toks = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S),
+                         generator=gen, device="cuda")
+    cfg32 = dataclasses.replace(cfg, activation_dtype="float32")
+    cfg32c = dataclasses.replace(cfg32, attn_impl="chunked")
+    served = tf.cast_params(params, cfg)
+    cache_len = PREFILL_S + GREEDY
+
+    def timed(p, c):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tf.prefill(p, c, toks, cache_len=cache_len)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    with torch.inference_mode():
+        launches0 = fa.flash_attention.launches
+        (l16, c16), first_ms = timed(served, cfg)
+        del c16
+        (l16, c16), bf16_ms = timed(served, cfg)
+        (l32, c32), f32_ms = timed(params, cfg32)
+        flash_calls = fa.flash_attention.launches - launches0
+        (l32c, c32c), chunked_ms = timed(params, cfg32c)
+        chunked_calls = fa.flash_attention.launches - launches0 - flash_calls
+        if flash_calls != 3 * cfg.num_layers or chunked_calls:
+            raise AssertionError(f"3 flash prefills launched {flash_calls} "
+                                 f"kernels, the chunked one {chunked_calls}")
+        if l16.shape != (PREFILL_B, 1, cfg.vocab_size) or \
+                not torch.isfinite(l16).all() or not torch.isfinite(l32).all():
+            raise AssertionError(f"bad prefill logits {tuple(l16.shape)}")
+        gate = errors(l32, l32c, LOGIT_RTOL, LOGIT_ATOL)
+        bf16_vs = errors(l16.float(), l32c, LOGIT_RTOL, LOGIT_ATOL)
+        g16 = greedy(tf, served, cfg, l16, c16, PREFILL_S, GREEDY)
+        del c16
+        g32 = greedy(tf, params, cfg32c, l32c, c32c, PREFILL_S, GREEDY)
+        del c32, c32c
+    agree = int((g16 == g32).sum())
+    res = {"B": PREFILL_B, "S": PREFILL_S, "flash_launches": flash_calls,
+           "first_bf16_ms": first_ms, "bf16_flash_ms": bf16_ms,
+           "f32_flash_ms": f32_ms, "f32_chunked_ms": chunked_ms,
+           "f32_flash_vs_chunked": gate, "bf16_flash_vs_f32_chunked":
+           bf16_vs, "greedy_tokens_agree": agree,
+           "greedy_tokens": g16.numel(), "logit_max_abs": float(
+               l32c.abs().max())}
+    log(f"  prefill B={PREFILL_B} S={PREFILL_S}: bf16 flash {bf16_ms:.1f} "
+        f"ms (first {first_ms:.1f}), f32 flash {f32_ms:.1f} ms, f32 chunked "
+        f"{chunked_ms:.1f} ms; f32 flash vs chunked logits max "
+        f"{gate['max_abs_err']:.3g} (ratio {gate['tol_ratio']:.3g} of rtol "
+        f"{LOGIT_RTOL} / atol {LOGIT_ATOL}); bf16 vs f32 max "
+        f"{bf16_vs['max_abs_err']:.3g} (|logit| up to "
+        f"{res['logit_max_abs']:.3g}), greedy tokens agree {agree} / "
+        f"{g16.numel()}")
+    if gate["tol_ratio"] > 1:
+        raise AssertionError(f"f32 flash prefill vs chunked: {gate}")
+    del params, served
+    torch.cuda.empty_cache()
+    return res
+
+
+def small_serve_reference(sv, tf, registry) -> dict:
+    """A reduced qwen1.5-0.5b served through the kernel on the card and
+    through the plain version on the CPU, same weights: prefill logits of
+    one batch within rtol 1e-4 / atol 1e-4; greedy tokens reported."""
+    cfg = dataclasses.replace(registry.reduced(registry.get(ARCH)),
+                              attn_impl="flash")
+    params = tf.init_params(cfg, torch.Generator().manual_seed(2))
+    on_card = to_device(params, "cuda")
+    runs = {dev: sv.serve(cfg, requests=6, tokens=6, batch_size=2,
+                          device=dev, params=p, log=None)
+            for dev, p in (("cuda", on_card), ("cpu", params))}
+    agree = sum(a == b for ra, rb in zip(runs["cuda"]["requests"],
+                                         runs["cpu"]["requests"])
+                for a, b in zip(ra.done, rb.done))
+    toks = torch.as_tensor(sv.make_requests(cfg, 2, 6)[0].prompt[None])
+    with torch.inference_mode():
+        lc, _ = tf.prefill(on_card, cfg, toks.cuda())
+        lh, _ = tf.prefill(params, cfg, toks)
+    np.testing.assert_allclose(lc.cpu().numpy(), lh.numpy(), rtol=LOGIT_RTOL,
+                               atol=LOGIT_ATOL, err_msg="reduced prefill: "
+                               "card vs CPU")
+    total = sum(len(r.done) for r in runs["cpu"]["requests"])
+    log(f"  reduced serve: card vs CPU prefill logits within rtol "
+        f"{LOGIT_RTOL} / atol {LOGIT_ATOL}; greedy tokens agree {agree} / "
+        f"{total}")
+    return {"greedy_tokens_agree": agree, "greedy_tokens": total}
+
+
+def to_device(tree, device):
+    """A copy of a parameter dictionary on ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs on a CUDA card", file=sys.stderr)
         return 1
     from repro_torch.api import Engine
+    from repro_torch.configs import registry
+    from repro_torch.core import compression
     from repro_torch.gnn import datasets, models
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import daq_dequant as dq
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gather_aggregate as ga
+    from repro_torch.launch import serve as sv
+    from repro_torch.models import transformer as tf
     from repro_torch.runtime import bsp
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -703,9 +1146,17 @@ def main() -> int:
     results.update(dequant_cases(ga, dq, ref, bsp, halo,
                                  pg.n * pg.boundary_slots))
     del local, halo
+    tables = dequant_tables(g, compression, datasets)
+    results.update(dequant_kernel_cases(dq, ref, tables))
+    results.update(flash_cases(fa, ref))
 
-    kernels = [getattr(ga, n) if n.startswith("block") else getattr(dq, n)
-               for n in REPLACES]
+    wrappers = {"block_spmm": ga.block_spmm,
+                "block_spmm_batched": ga.block_spmm_batched,
+                "dequant_spmm": dq.dequant_spmm,
+                "dequant_spmm_batched": dq.dequant_spmm_batched,
+                "dequant": dq.dequant,
+                "flash_attention": fa.flash_attention}
+    kernels = [wrappers[n] for n in REPLACES]
     launches = {}
 
     def drive(path, fn):
@@ -736,12 +1187,14 @@ def main() -> int:
 
     log("phase 3b: mesh path (mesh-bsp, DAQ halo wire)")
 
+    mesh_kernels = [wrappers[n] for n in PATH_KERNELS["mesh"]]
+
     def mesh_kinds():
         out = [serve_mesh(models, g, "gcn", gcn_mesh, gcn_compile_s,
-                          kernels)]
+                          mesh_kernels)]
         out.append(serve_mesh(models, g, "sage",
                               *mesh_plan(Engine, models, g, "sage"),
-                              kernels))
+                              mesh_kernels))
         return out
     meshed = drive("mesh", mesh_kinds)
     del gcn_mesh, pg
@@ -772,11 +1225,26 @@ def main() -> int:
     small_reference(Engine, models, datasets)
     log("  small graph: card == CPU within tolerance, both executors")
 
+    log("phase 3c: dequantize path (ops.dequantize_features)")
+    dequantized = drive("dequantize",
+                        lambda: dequantize_path(ops, ref, tables))
+    del g, csr
+    ops._BLOCK_CSR_CACHE.clear()
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(registry.get(ARCH), attn_impl="flash")
+    log(f"phase 3d: serve path ({cfg.name} at full width: "
+        f"{cfg.param_count() / 1e9:.3f} B parameters, flash attention)")
+    served_lm = drive("serve", lambda: serve_path(sv, fa, cfg))
+    log(f"phase 3e: long prefill (B={PREFILL_B}, S={PREFILL_S})")
+    prefilled = drive("prefill", lambda: long_prefill(tf, fa, cfg))
+    reduced = small_serve_reference(sv, tf, registry)
+
     kernel_rows = []
     for name, rec in results.items():
         main_cases = [c for c in rec["cases"] if c["path"] == ROW_PATH[name]]
         kernel_rows.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
             "launches": sum(c[name] for c in launches.values()),
             "launches_by_path": {p: c[name] for p, c in launches.items()},
@@ -787,8 +1255,10 @@ def main() -> int:
             "bound_by": main_cases[-1]["bound_by"],
             "library_ms": sum(c["library_ms"] for c in main_cases),
             "cases": rec["cases"]})
-    print(json.dumps({"main_path": served, "mesh_path": meshed}),
-          flush=True)
+    print(json.dumps({"main_path": served, "mesh_path": meshed,
+                      "dequantize_path": dequantized,
+                      "serve_path": served_lm, "prefill_path": prefilled,
+                      "reduced_serve": reduced}), flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

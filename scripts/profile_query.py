@@ -3,6 +3,7 @@
 
     python3 scripts/profile_query.py [--executor sim|mesh-bsp] [--queries 10]
                                      [--out PATH]
+    python3 scripts/profile_query.py --transformer [--out PATH]
 
 Serves full-scale SIoT through ``repro_torch``'s
 ``Engine(..., executor=EXECUTOR, aggregation="pallas", device="cuda")``
@@ -15,6 +16,14 @@ fills from the trace, as a union of intervals), the window's host-clock
 length, the device's idle share, and device time by kernel name. The
 host-clock split of a query into collect / execute / account is
 ``chip_smoke.py``'s.
+
+With ``--transformer`` it traces the transformer serving path instead:
+qwen1.5-0.5b at full width with ``attn_impl="flash"`` (random seeded
+weights, served in bf16): one ``transformer.prefill`` of B = 2, S = 4096,
+and one served batch as ``repro_torch.launch.serve`` runs it (a prefill of
+4 prompts of 16 tokens, then 15 greedy decode steps). Beside the numbers
+above it reports the flash kernel's device time and its share of the
+window and of the device's busy time.
 
 Prints one JSON object per model and writes them all to ``--out``
 (default ``results/profile_query.json``). Needs a CUDA card.
@@ -58,8 +67,10 @@ def busy_us(intervals) -> float:
     return total
 
 
-def profile_window(fn) -> dict:
-    """Run ``fn`` under the profiler; device busy vs host-clock window."""
+def profile_window(fn, match: str = "") -> dict:
+    """Run ``fn`` under the profiler; device busy vs host-clock window.
+    With ``match``, also the device time of the kernels whose name holds
+    it and their share of the window and of the busy time."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -76,9 +87,63 @@ def profile_window(fn) -> dict:
     for s, e, cat, name in iv:
         by_name[f"{cat}:{name[:60]}"] += e - s
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"window_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-            "device_idle_share": 1.0 - busy / wall_us,
-            "device_ms_by_name": {k: v / 1e3 for k, v in top}}
+    out = {"window_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+           "device_idle_share": 1.0 - busy / wall_us,
+           "kernel_launches": sum(cat == "kernel" for _, _, cat, _ in iv),
+           "device_ms_by_name": {k: v / 1e3 for k, v in top}}
+    if match:
+        hit = busy_us([x for x in iv if match in x[3]])
+        out.update({f"{match}_ms": hit / 1e3,
+                    f"{match}_share_of_window": hit / wall_us,
+                    f"{match}_share_of_busy": hit / busy})
+    return out
+
+
+def profile_transformer() -> list:
+    """The transformer records: a long prefill and one served batch."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve as sv
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(registry.get("qwen1.5-0.5b"),
+                              attn_impl="flash")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = tf.cast_params(tf.init_params(cfg, gen), cfg)
+    long_toks = torch.randint(0, cfg.vocab_size, (2, 4096), generator=gen,
+                              device="cuda")
+    reqs = sv.make_requests(cfg, 4, 16)
+    plen = max(len(r.prompt) for r in reqs)
+    toks = np.zeros((len(reqs), plen), np.int32)
+    for i, r in enumerate(reqs):
+        toks[i, plen - len(r.prompt):] = r.prompt
+    toks = torch.as_tensor(toks, device="cuda")
+
+    def prefill_long():
+        tf.prefill(params, cfg, long_toks)
+
+    def serve_batch():   # serve.py's per-batch loop
+        logits, caches = tf.prefill(params, cfg, toks, cache_len=plen + 16)
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        out = [tok]
+        for step in range(15):
+            logits, caches = tf.decode_step(params, cfg, caches, tok,
+                                            plen + step)
+            tok = torch.argmax(logits[:, -1:], dim=-1)
+            out.append(tok)
+        torch.cat(out, dim=1).cpu()
+
+    recs = []
+    with torch.inference_mode():
+        for name, fn in (("prefill_B2_S4096", prefill_long),
+                         ("serve_batch_B4", serve_batch)):
+            fn()                                        # warm-up
+            rec = {"arch": cfg.name, "case": name,
+                   **profile_window(fn, match="flash_kernel")}
+            recs.append(rec)
+            print(json.dumps(rec), flush=True)
+    return recs
 
 
 def main() -> int:
@@ -86,6 +151,8 @@ def main() -> int:
     ap.add_argument("--executor", choices=("sim", "mesh-bsp"),
                     default="sim")
     ap.add_argument("--queries", type=int, default=10)
+    ap.add_argument("--transformer", action="store_true",
+                    help="trace the transformer serving path instead")
     ap.add_argument("--out", default=str(ROOT / "results" /
                                          "profile_query.json"))
     args = ap.parse_args()
@@ -97,6 +164,13 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    if args.transformer:
+        out.write_text(json.dumps({
+            "device": torch.cuda.get_device_name(0),
+            "records": profile_transformer()}, indent=1))
+        return 0
     g = datasets.load("siot", 1.0, seed=0)
     report = {"device": torch.cuda.get_device_name(0),
               "executor": args.executor, "models": []}
@@ -118,8 +192,6 @@ def main() -> int:
                                           / args.queries)
         report["models"].append(rec)
         print(json.dumps(rec), flush=True)
-    out = Path(args.out)
-    out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=1))
     return 0
 

@@ -6,6 +6,12 @@
 //   block_spmm_batched    (_spmm_batched_kernel)         -> block_spmm_batched_launch
 //   dequant_spmm          (_dequant_spmm_kernel)         -> dequant_spmm_launch
 //   dequant_spmm_batched  (_dequant_spmm_batched_kernel) -> dequant_spmm_batched_launch
+//   dequant               (_dequant_kernel)              -> dequant_launch
+//
+// dequant is the standalone row-wise dequantization (the last section of
+// this file): it writes the table the fused kernels never materialize,
+// with the same panel loader, so its output is bitwise the panel they
+// stage.
 //
 // All four compute, for every row-block i (and every batch element b),
 //   out[b, i*128 + r, f] = sum_m mask[i, m] * sum_k blocks[i, m, r, k]
@@ -249,6 +255,51 @@ int dequant_spmm(const float* blocks, const int* cols, const float* mask,
   return (int)cudaGetLastError();
 }
 
+// Standalone dequantization, out[row, col] = codes * scale[row] +
+// min[row], rounded twice like the plain version. Bound by bytes: it reads
+// each code and row parameter once and writes each f32 output once, one
+// element per thread in a grid-stride loop, neighbouring threads on
+// neighbouring elements (coalesced); nothing is staged in shared memory.
+template <typename Code>
+__global__ void __launch_bounds__(kThreads)
+dequant_kernel(const Code* __restrict__ codes,
+               const float* __restrict__ scales,
+               const float* __restrict__ mins, float* __restrict__ out,
+               long long n, int f) {
+  const DequantPanel<Code> panel{codes, scales, mins, f};
+  for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x; e < n;
+       e += (long long)gridDim.x * kThreads) {
+    const long long row = e / f;
+    out[e] = panel(row, (int)(e - row * f));
+  }
+}
+
+int dequant(const void* codes, const float* scales, const float* mins,
+            float* out, int rows, int f, int code_bytes, void* stream) {
+  const long long n = (long long)rows * f;
+  if (n == 0) return (int)cudaSuccess;
+  const long long want = (n + kThreads - 1) / kThreads;
+  const int grid = (int)(want < 132 * 64 ? want : 132 * 64);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (code_bytes) {
+    case 1:
+      dequant_kernel<uint8_t><<<grid, kThreads, 0, s>>>(
+          (const uint8_t*)codes, scales, mins, out, n, f);
+      break;
+    case 2:
+      dequant_kernel<uint16_t><<<grid, kThreads, 0, s>>>(
+          (const uint16_t*)codes, scales, mins, out, n, f);
+      break;
+    case 4:
+      dequant_kernel<uint32_t><<<grid, kThreads, 0, s>>>(
+          (const uint32_t*)codes, scales, mins, out, n, f);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -295,6 +346,14 @@ int dequant_spmm_batched_launch(const float* blocks, const int* cols,
                                 int src_rows, int code_bytes, void* stream) {
   return dequant_spmm(blocks, cols, mask, codes, scales, mins, out, batch,
                       vb, m, f, src_rows, code_bytes, stream);
+}
+
+// out f32[rows, f] = codes * scales[:, None] + mins[:, None], codes
+// uint{8,16,32}[rows, f] (code_bytes 1, 2 or 4), scales / mins f32[rows].
+int dequant_launch(const void* codes, const float* scales, const float* mins,
+                   float* out, int rows, int f, int code_bytes,
+                   void* stream) {
+  return dequant(codes, scales, mins, out, rows, f, code_bytes, stream);
 }
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-"""Block-CSR aggregation over DAQ-quantized features, on Hopper.
+"""DAQ dequantization on Hopper: standalone, and fused into block-CSR
+aggregation.
 
 The mesh executor's halo rows cross the wire as 8-bit codes plus one f32
 (scale, min) pair per row (paper §III-D's degree-aware quantization,
@@ -8,7 +9,9 @@ with a dequantizing panel loader) builds each source panel as
 ``codes * scale[row] + min[row]`` while staging it into shared memory, so
 the dense f32 table never exists in device memory. ``dequant_spmm_batched``
 does the same over a [B, S, F] stack of codes in one launch, each
-``out[b]`` bitwise ``dequant_spmm`` on example ``b``.
+``out[b]`` bitwise ``dequant_spmm`` on example ``b``. ``dequant`` writes
+the dense f32 table itself (``ops.dequantize_features``), with the same
+two roundings, so it is bitwise the panel the fused kernels stage.
 
 CUDA tensors launch the kernel on the current stream; CPU tensors take the
 plain versions (``kernels.ref``). Each wrapper counts its launches in a
@@ -108,5 +111,44 @@ def dequant_spmm_batched(blocks: torch.Tensor, block_cols: torch.Tensor,
     return out
 
 
+def dequant(codes: torch.Tensor, scales: torch.Tensor, mins: torch.Tensor, *,
+            v_tile: int = 256, f_tile: int = 128) -> torch.Tensor:
+    """Row-wise linear dequantization: out[v, f] = codes[v, f] * scales[v]
+    + mins[v], f32[V, F], for codes uint{8,16,32}[V, F] and f32[V] row
+    parameters.
+
+    ``v_tile``/``f_tile`` are the reference's tile sizes: V and F must be
+    multiples of them (after ``min`` with V and F), as there; the CUDA
+    kernel itself takes any shape.
+    """
+    _check_tensor("codes", codes, tuple(CODE_BYTES), codes.device)
+    if codes.ndim != 2:
+        raise ValueError(f"codes must be [V, F], got {tuple(codes.shape)}")
+    v, f = codes.shape
+    for name, t in (("scales", scales), ("mins", mins)):
+        _check_tensor(name, t, (torch.float32,), codes.device)
+        if tuple(t.shape) != (v,):
+            raise ValueError(f"{name} must be ({v},) (one per row), got "
+                             f"{tuple(t.shape)}")
+    v_tile, f_tile = min(v_tile, v), min(f_tile, f)
+    if v_tile < 1 or f_tile < 1 or v % v_tile or f % f_tile:
+        raise ValueError(f"codes {tuple(codes.shape)} must tile by "
+                         f"({v_tile}, {f_tile})")
+    if codes.device.type == "cpu":
+        return ref.dequant_ref(codes, scales, mins)
+    if codes.device.type != "cuda":
+        raise ValueError(f"dequant runs on cuda or cpu, not {codes.device}")
+    out = torch.empty((v, f), dtype=torch.float32, device=codes.device)
+    with torch.cuda.device(codes.device):
+        stream = torch.cuda.current_stream(codes.device).cuda_stream
+        err = _kernel("dequant_launch")(
+            _ptr(codes), _ptr(scales), _ptr(mins), _ptr(out), v, f,
+            CODE_BYTES[codes.dtype], ctypes.c_void_p(stream))
+        dequant.launches += 1
+    _raise_on(err, "dequant")
+    return out
+
+
 dequant_spmm.launches = 0
 dequant_spmm_batched.launches = 0
+dequant.launches = 0

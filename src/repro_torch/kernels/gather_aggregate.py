@@ -162,12 +162,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: pointers..., out, ints..., stream). Every pointer and the stream must be
 #: c_void_p, or ctypes would pass them as 32-bit ints and cut them. The
 #: dequant entries (used by ``kernels.daq_dequant``) take codes, scales and
-#: mins as their source.
+#: mins as their source; ``dequant_launch`` takes only those.
 _SIGNATURES = {
     "block_spmm_launch": [_P] * 5 + [_I] * 3 + [_P],
     "block_spmm_batched_launch": [_P] * 5 + [_I] * 5 + [_P],
     "dequant_spmm_launch": [_P] * 7 + [_I] * 5 + [_P],
     "dequant_spmm_batched_launch": [_P] * 7 + [_I] * 6 + [_P],
+    "dequant_launch": [_P] * 4 + [_I] * 3 + [_P],
 }
 
 

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.gnn.graph import Graph
-from repro_torch.kernels.daq_dequant import dequant_spmm
+from repro_torch.kernels.daq_dequant import dequant, dequant_spmm
 from repro_torch.kernels.gather_aggregate import (BLOCK, block_spmm,
                                                   block_spmm_batched,
                                                   build_block_csr)
@@ -149,3 +149,30 @@ def invalidate_block_csr(g: Graph) -> int:
     for k in stale:
         del _BLOCK_CSR_CACHE[k]
     return len(stale)
+
+
+def dequantize_features(codes: np.ndarray, scales: np.ndarray,
+                        mins: np.ndarray, *,
+                        device: Union[str, torch.device] = "cuda"
+                        ) -> np.ndarray:
+    """Kernel-backed row-wise dequantization with pad / unpad handling:
+    numpy codes uint{8,16,32}[V, F] and f32[V] scales and mins in, numpy
+    f32[V, F] out. The table is zero-padded to the reference's 256 x 128
+    tiling, dequantized by ``daq_dequant.dequant`` on ``device`` (the CUDA
+    kernel on a CUDA device, its plain version on the CPU) and cut back."""
+    # Imported here: api.engine imports this module.
+    from repro_torch.api.engine import resolve_device
+    dev = resolve_device(device)
+    v, f = codes.shape
+    v_pad = -(-v // 256) * 256
+    f_pad = -(-f // 128) * 128
+    cp = np.zeros((v_pad, f_pad), codes.dtype)
+    cp[:v, :f] = codes
+    sp = np.zeros((v_pad,), np.float32)
+    sp[:v] = scales
+    mp = np.zeros((v_pad,), np.float32)
+    mp[:v] = mins
+    out = dequant(torch.as_tensor(cp, device=dev),
+                  torch.as_tensor(sp, device=dev),
+                  torch.as_tensor(mp, device=dev))
+    return out[:v, :f].cpu().numpy()

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the block-CSR kernels (the correctness yardstick).
+"""Plain PyTorch versions of the kernels (the correctness yardstick).
 
 Each function takes its kernel's exact input layout, so the CPU tests and
 the on-card comparison in ``chip_smoke.py`` can hold kernel and plain
@@ -6,6 +6,8 @@ version side by side. The kernel wrappers fall back to these only for
 tensors that lie on the CPU.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -71,3 +73,45 @@ def dequant_spmm_batched_ref(blocks: torch.Tensor, block_cols: torch.Tensor,
     return torch.stack([dequant_spmm_ref(blocks, block_cols, block_mask,
                                          c, s, m)
                         for c, s, m in zip(codes, scales, mins)])
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        q_offset: int = 0) -> torch.Tensor:
+    """Plain-softmax version of the flash kernel: q [BH, S, dh], k/v
+    [BH, T, dh] -> [BH, S, dh] in q's dtype.
+
+    Computes in float32 for float32 and bfloat16 inputs, in float64 for
+    float64 ones (the on-card yardstick). Masked scores are -1e30 and their
+    probabilities re-zeroed, so a row with no visible key gives 0.
+    """
+    ct = torch.promote_types(q.dtype, torch.float32)
+    s = torch.einsum("bsd,btd->bst", q.to(ct), k.to(ct)) / math.sqrt(
+        q.shape[-1])
+    sq, t = q.shape[1], k.shape[1]
+    qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(t, device=q.device)[None, :]
+    ok = torch.ones((sq, t), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kpos <= qpos
+    if window:
+        ok &= kpos > qpos - window
+    s = torch.where(ok[None], s, -1e30)
+    p = torch.where(ok[None], torch.softmax(s, dim=-1), 0.0)
+    return torch.einsum("bst,btd->bsd", p, v.to(ct)).to(q.dtype)
+
+
+def gqa_flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  window: int = 0) -> torch.Tensor:
+    """Model layout, causal: q [B, S, H, dh], k/v [B, T, KV, dh] ->
+    [B, S, H, dh], each kv head repeated for its H / KV query heads and
+    the heads folded into the batch, as the reference's ``gqa_flash``."""
+    b, s, h, dh = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    kx = k.repeat_interleave(h // kv, dim=2)
+    vx = v.repeat_interleave(h // kv, dim=2)
+    qf = q.transpose(1, 2).reshape(b * h, s, dh)
+    kf = kx.transpose(1, 2).reshape(b * h, t, dh)
+    vf = vx.transpose(1, 2).reshape(b * h, t, vx.shape[-1])
+    o = flash_attention_ref(qf, kf, vf, window=window)
+    return o.reshape(b, h, s, -1).transpose(1, 2)

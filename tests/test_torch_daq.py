@@ -5,9 +5,13 @@ quantized codes. The JAX kernels run in interpret mode (as
 tests/test_kernels.py runs them); the port's plain versions
 (``kernels.ref``) and its wrappers on CPU tensors must agree with them and
 with the JAX ``dequant_spmm_ref`` within that file's bar, rtol 1e-5 /
-atol 1e-4. Also here: the halo wire's ``_wire_quantize`` (bitwise the JAX
-one) and ``BlockCsr.aggregate_quantized``. The CUDA kernels themselves are
-held against these plain versions on the card by ``chip_smoke.py``.
+atol 1e-4. The standalone ``dequant`` and ``ops.dequantize_features`` are
+held to the JAX ones within that file's dequant bar, rtol 1e-6 / atol
+1e-5 (the JAX kernel fuses the product and the sum into one rounding; the
+port rounds twice, bitwise what numpy gives). Also here: the halo wire's
+``_wire_quantize`` (bitwise the JAX one) and
+``BlockCsr.aggregate_quantized``. The CUDA kernels themselves are held
+against these plain versions on the card by ``chip_smoke.py``.
 """
 import functools
 
@@ -31,6 +35,7 @@ from repro_torch.runtime import bsp as tbsp
 from _torch_threads import one_cpu_thread  # noqa: F401  (autouse)
 
 RTOL, ATOL = 1e-5, 1e-4
+DQ_RTOL, DQ_ATOL = 1e-6, 1e-5   # tests/test_kernels.py:114
 BATCH = 3
 
 CASES = [  # (output rows, edges, source rows)
@@ -209,3 +214,62 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         tdq.dequant_spmm(blocks, cols, mask, c[:100], s[:100], m[:100])
     with pytest.raises(ValueError, match="reaches block"):
         tdq.dequant_spmm(blocks, cols, mask, c, s, m, max_col=3)
+
+
+def _two_roundings(codes, scales, mins):
+    prod = (codes.astype(np.float32) * scales[:, None]).astype(np.float32)
+    return (prod + mins[:, None]).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", list(CODES))
+@pytest.mark.parametrize("v,f", [(256, 128), (512, 256)])
+def test_dequant_matches_jax(dtype, v, f):
+    """The reference's shapes and code ranges (tests/test_kernels.py)."""
+    rng = np.random.default_rng(4)
+    top = min(np.iinfo(CODES[dtype]).max, 1 << 20)
+    codes = rng.integers(0, top, (v, f)).astype(CODES[dtype])
+    sc = rng.uniform(1e-3, 1.0, v).astype(np.float32)
+    mn = rng.normal(size=v).astype(np.float32)
+    want = np.asarray(jdq.dequant(jnp.asarray(codes), jnp.asarray(sc),
+                                  jnp.asarray(mn), interpret=True))
+    before = tdq.dequant.launches
+    got = tdq.dequant(*_torch(codes, sc, mn)).numpy()
+    assert got.dtype == np.float32 and got.shape == (v, f)
+    np.testing.assert_allclose(got, want, rtol=DQ_RTOL, atol=DQ_ATOL)
+    assert np.array_equal(got, _two_roundings(codes, sc, mn))
+    assert tdq.dequant.launches == before   # CPU tensors never launch
+
+
+@pytest.mark.parametrize("dtype", list(CODES))
+@pytest.mark.parametrize("v,f", [(300, 52), (1000, 128), (256, 200)])
+def test_dequantize_features_matches_jax(dtype, v, f):
+    """Pad to the 256 x 128 tiling, dequantize, cut back: numpy in and
+    out, as ``benchmarks/run.py`` calls it."""
+    codes, sc, mn = _codes(CODES[dtype], (v, f), np.random.default_rng(v))
+    want = jops.dequantize_features(codes, sc, mn, interpret=True)
+    got = tops.dequantize_features(codes, sc, mn, device="cpu")
+    assert isinstance(got, np.ndarray) and got.shape == want.shape == (v, f)
+    np.testing.assert_allclose(got, want, rtol=DQ_RTOL, atol=DQ_ATOL)
+    assert np.array_equal(got, _two_roundings(codes, sc, mn))
+
+
+def test_dequant_rejects_what_the_reference_or_kernel_does_not_take():
+    codes, sc, mn = _torch(*_codes(np.uint8, (512, 128),
+                                   np.random.default_rng(9)))
+    with pytest.raises(TypeError, match="codes"):
+        tdq.dequant(codes.to(torch.int32), sc, mn)
+    with pytest.raises(ValueError, match=r"\[V, F\]"):
+        tdq.dequant(codes[None], sc, mn)
+    with pytest.raises(ValueError, match="one per row"):
+        tdq.dequant(codes, sc[:-1], mn)
+    with pytest.raises(TypeError, match="mins"):
+        tdq.dequant(codes, sc, mn.double())
+    with pytest.raises(ValueError, match="tile"):
+        tdq.dequant(codes[:300], sc[:300], mn[:300])
+    with pytest.raises(ValueError, match="tile"):
+        tdq.dequant(codes[:, :100].contiguous(), sc, mn, f_tile=64)
+    assert tdq.dequant(codes[:100, :52].contiguous(), sc[:100],
+                       mn[:100]).shape == (100, 52)   # one tile each way
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tops.dequantize_features(codes.numpy(), sc.numpy(), mn.numpy())

@@ -50,9 +50,12 @@ def test_port_has_the_slice_modules():
               "core.placement", "core.scheduler", "core.compression",
               "core.simulation", "kernels.gather_aggregate", "kernels.ref",
               "kernels.daq_dequant", "kernels.ops", "kernels.build",
-              "runtime.bsp"):
+              "kernels.flash_attention", "runtime.bsp", "models.config",
+              "models.layers", "models.attention", "models.transformer",
+              "configs.registry", "configs.qwen1_5_0_5b", "launch.serve"):
         assert f"repro_torch.{m}" in mods, m
-    assert (PORT / "kernels" / "csrc" / "block_spmm.cu").is_file()
+    for src in ("block_spmm.cu", "flash_attention.cu"):
+        assert (PORT / "kernels" / "csrc" / src).is_file()
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
