@@ -12,16 +12,22 @@ Phases, in order; any failed check raises and the script exits non-zero:
               atol 1e-4), at the main paths' shapes, and checks that every
               batched example is bitwise the serial kernel; times kernel,
               plain version (float32) and a library yardstick with CUDA
-              events:
+              events (behind a spin kernel, so that they time the card and
+              not the wrapper's host work, which is timed apart):
                 block_spmm(_batched): full-scale SIoT (the single-program
                 path) and the mesh's folded local operand, F = 52 and 64,
-                B = 1 and 8, plus one rectangular and one F = 200 case;
-                yardstick ``torch.sparse.mm``;
+                B = 1 and 8, plus one rectangular and one F = 200 case,
+                over each operand's ``compact_block_csr`` rows (the time to
+                build them is printed beside the Engine compile time), and
+                also held to the rows plain version in float64; on CUDA
+                without ``rows`` the wrappers must raise; yardstick
+                ``torch.sparse.mm``;
                 dequant_spmm(_batched): the mesh's folded halo operand over
                 its 16,128-row table with uint8 wire codes, F = 52 and 64,
                 B = 1 and 8, plus one uint16 and one rectangular case;
                 also bitwise ``block_spmm`` over the plain dequantized
-                table; yardstick ``codes.float() * s + m`` then
+                table (the dense tile body against the row-compacted one);
+                yardstick ``codes.float() * s + m`` then
                 ``torch.sparse.mm`` (two calls);
                 flash_attention (plain version in float64 per head; f32
                 at rtol 1e-5 / atol 1e-4, bf16 within one bf16 rounding:
@@ -164,8 +170,15 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+#: Cycles of the spin kernel queued before each timed call (about 0.5 ms):
+#: the card is still busy with it while the host enqueues the call, so the
+#: events around the call time the card, not the host's wrapper work.
+SPIN_CYCLES = 1_000_000
+
+
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median device time of ``fn`` in ms, by CUDA events around each call."""
+    """Median device time of ``fn`` in ms, by CUDA events around each call
+    (each call queued behind a spin kernel)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -173,6 +186,7 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -197,17 +211,30 @@ def errors(got: torch.Tensor, want: torch.Tensor, rtol: float = KERNEL_RTOL,
     }
 
 
-def bound(real_tiles: int, nonzeros: int, vb: int, m: int, src_rows: int,
-          f: int, batch: int, code_bytes: int = 4,
-          row_bytes: int = 0) -> tuple:
-    """Least time (ms) for one call, the larger of two floors: every input
-    byte read once (the real tiles only: padding tiles are skipped; the
-    source table at ``code_bytes`` per entry plus ``row_bytes`` of row
-    parameters per row) and every output byte written once, at the HBM
-    rate; and the multiply-adds the function needs, one per nonzero tile
-    entry per feature per example (products with a zero entry are not
-    needed), at the f32 CUDA-core peak."""
-    nbytes = (real_tiles * 128 * 128 * 4 + vb * m * 8
+def host_us(fn, calls: int = 50) -> float:
+    """Host time of one call of ``fn`` in microseconds (the wrapper's checks
+    and the launch), over ``calls`` calls that the card keeps up with."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def bound(nonzeros: int, vb: int, m: int, src_rows: int, f: int, batch: int,
+          code_bytes: int = 4, row_bytes: int = 0) -> tuple:
+    """Least time (ms) for one call of a block-CSR product, the larger of
+    two floors: every byte the function needs read once and every output
+    byte written once, at the HBM rate; and one multiply-add per nonzero
+    per feature per example, at the f32 CUDA-core peak. The adjacency
+    needs 8 bytes per nonzero tile entry (its value and source index;
+    products with a zero entry are not needed) and the slots' columns and
+    mask; the source table ``code_bytes`` per entry plus ``row_bytes`` of
+    row parameters per row; both counted for this call's operand."""
+    nbytes = (nonzeros * 8 + vb * m * 8
               + batch * (src_rows * (f * code_bytes + row_bytes)
                          + vb * 128 * f * 4))
     flops = 2.0 * nonzeros * f * batch
@@ -248,6 +275,32 @@ def operand_stats(blocks, mask) -> tuple:
             blocks.shape[1])
 
 
+def compaction_ms(ga, op, rows, built_by: str, built_s: float) -> dict:
+    """Time ``compact_block_csr`` on a full-scale operand (median of 3, on
+    the card), check it rebuilds the operand's cached rows, and print it
+    beside the time of the build that made the operand."""
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = ga.compact_block_csr(op.blocks, op.cols, op.mask)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    for field in ("row_ptr", "seg_ptr", "seg_w", "src", "val", "warp_rows",
+                  "split"):
+        if not torch.equal(getattr(again, field), getattr(rows, field)):
+            raise AssertionError(f"compact_block_csr is not deterministic: "
+                                 f"{field}")
+    rec = {"ms": statistics.median(times), "nonzeros": rows.nnz,
+           "segments": rows.n_seg, "split_rows": len(rows.split),
+           "tiles": list(rows.tiles), "built_by": built_by,
+           "built_s": built_s}
+    log(f"  compact_block_csr {list(rows.tiles)}: {rec['ms']:.2f} ms "
+        f"({rows.nnz} nonzeros, {rows.n_seg} segments, {len(rows.split)} "
+        f"rows split over a CTA); {built_by} {built_s:.2f} s")
+    return rec
+
+
 def check_close(name, got, want, rtol, atol):
     if not torch.allclose(got, want, rtol=rtol, atol=atol):
         err = float((got - want).abs().max())
@@ -272,40 +325,74 @@ def kernel_cases(ga, ref, csr, g, local):
     a_rect = adjacency(rs, rr, rpv, rect_src)
     mesh_ops = (local.blocks, local.cols, local.mask)
 
+    # Each operand with its rows and largest column block, as the main
+    # path passes them (without max_col a wrapper reads block_cols back
+    # from the card for its bounds check, a sync in every timed call).
     operands = {
-        "siot": ((csr.blocks, csr.cols, csr.mask), padded, a_siot,
-                 operand_stats(csr.blocks, csr.mask)),
-        "rect": (rect, rect_src, a_rect, operand_stats(*rect[::2])),
-        "mesh_local": (mesh_ops, local.src_rows,
+        "siot": ((csr.blocks, csr.cols, csr.mask), csr.rows, csr.max_col,
+                 padded, a_siot, operand_stats(csr.blocks, csr.mask)),
+        "rect": (rect, ga.compact_block_csr(*rect), int(rc.max()), rect_src,
+                 a_rect, operand_stats(*rect[::2])),
+        "mesh_local": (mesh_ops, local.rows, local.max_col, local.src_rows,
                        tile_adjacency(*mesh_ops, local.src_rows),
                        operand_stats(local.blocks, local.mask))}
+    # On a CUDA tensor the wrappers need the compacted operand: no fallback.
+    for name in ("block_spmm", "block_spmm_batched"):
+        h = torch.zeros((1,) * (name != "block_spmm") + (padded, 8),
+                        device="cuda")
+        try:
+            getattr(ga, name)(csr.blocks, csr.cols, csr.mask, h)
+        except ValueError as e:
+            if "compact_block_csr" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{name} ran on CUDA without rows")
     cases = [("siot", 52, "sim"), ("siot", 64, "sim"),
              ("mesh_local", 52, "mesh"), ("mesh_local", 64, "mesh"),
              ("rect", 64, None), ("siot", 200, None)]
     out = {"block_spmm": {"cases": []}, "block_spmm_batched": {"cases": []}}
     for where, f, path in cases:
-        ops_, src_rows, a_lib, (n_real, nnz, cvb, cm) = operands[where]
+        ops_, rows, max_col, src_rows, a_lib, (n_real, nnz, cvb, cm) = \
+            operands[where]
+        if rows.nnz != nnz:
+            raise AssertionError(f"{where}: {rows.nnz} compacted entries, "
+                                 f"{nnz} nonzero tile entries")
         for name, batch in (("block_spmm", 1), ("block_spmm_batched", BATCH)):
             shape = (src_rows, f) if batch == 1 else (batch, src_rows, f)
             h = torch.randn(shape, generator=gen, device="cuda")
             kern = getattr(ga, name)
             plain = (ref.block_spmm_ref if batch == 1
                      else ref.block_spmm_batched_ref)
-            got = kern(*ops_, h)
+            rows_plain = (ref.block_spmm_rows_ref if batch == 1
+                          else ref.block_spmm_rows_batched_ref)
+
+            def call():
+                return kern(*ops_, h, rows=rows, max_col=max_col)
+            got = call()
             # The yardstick is the plain version in float64 on the same
             # inputs: it carries no f32 rounding of its own, so the check
-            # sees the kernel's error alone. The f32 plain version's error
-            # against it is reported beside the kernel's.
+            # sees the kernel's error alone. The kernel is held to the
+            # dense plain version over the tiles and to the plain version
+            # over the compacted rows; the f32 plain versions' errors
+            # against it are reported beside the kernel's.
             want = plain(ops_[0].double(), ops_[1], ops_[2].double(),
                          h.double())
+            want_rows = rows_plain(rows, h.double())
             err = errors(got, want)
+            err["rows_f64_max_abs_err"] = errors(got, want_rows)[
+                "max_abs_err"]
             err["plain_f32_max_abs_err"] = errors(plain(*ops_, h), want)[
                 "max_abs_err"]
+            err["rows_plain_f32_max_abs_err"] = errors(
+                rows_plain(rows, h), want)["max_abs_err"]
             check_close(f"{name} {where} F={f}", got.double(), want,
                         KERNEL_RTOL, KERNEL_ATOL)
+            check_close(f"{name} {where} F={f} vs rows", got.double(),
+                        want_rows, KERNEL_RTOL, KERNEL_ATOL)
             if batch > 1:
                 for b in range(batch):   # per example == serial, bitwise
-                    if not torch.equal(got[b], ga.block_spmm(*ops_, h[b])):
+                    if not torch.equal(got[b], ga.block_spmm(
+                            *ops_, h[b], rows=rows, max_col=max_col)):
                         raise AssertionError(
                             f"{name} {where} F={f}: example {b} differs "
                             f"from block_spmm")
@@ -318,22 +405,28 @@ def kernel_cases(ga, ref, csr, g, local):
                 if batch > 1 else lib()
             check_close(f"torch.sparse.mm {where} F={f}", lib_out.double(),
                         want, KERNEL_RTOL, KERNEL_ATOL)
-            k_ms = time_ms(lambda: kern(*ops_, h), reps=20)
-            p_ms = time_ms(lambda: plain(*ops_, h), reps=3, warmup=1)
-            l_ms = time_ms(lib, reps=20)
-            b_ms, b_by = bound(n_real, nnz, cvb, cm, src_rows, f, batch)
+            k_ms = time_ms(call, reps=30)
+            p_ms = time_ms(lambda: rows_plain(rows, h), reps=5, warmup=1)
+            l_ms = time_ms(lib, reps=30)
+            b_ms, b_by = bound(nnz, cvb, cm, src_rows, f, batch)
             rec = {"case": where, "F": f, "B": batch,
                    "src_rows": src_rows, "out_rows": cvb * 128,
                    "real_tiles": n_real, "tile_slots": cvb * cm,
-                   "tile_nonzeros": nnz,
+                   "tile_nonzeros": nnz, "segments": rows.n_seg,
+                   "split_rows": len(rows.split),
                    "path": path, **err, "ms": k_ms, "plain_ms": p_ms,
-                   "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by}
+                   "library_ms": l_ms,
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "host_us": host_us(call),
+                   "library_host_us": host_us(lib)}
             out[name]["cases"].append(rec)
             log(f"  {name:19s} {where:10s} F={f:3d} B={batch} "
                 f"err {err['max_abs_err']:.3g} kernel {k_ms:.4f} ms  "
-                f"plain {p_ms:.4f} ms  sparse.mm {l_ms:.4f} ms  "
-                f"bound {b_ms:.4f} ms ({b_by})")
-            del h, got, want, lib_in, lib_out
+                f"plain {p_ms:.4f} ms  sparse.mm "
+                f"{l_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  host "
+                f"{rec['host_us']:.1f} us (sparse.mm "
+                f"{rec['library_host_us']:.1f})")
+            del h, got, want, want_rows, lib_in, lib_out
     return out
 
 
@@ -371,10 +464,12 @@ def dequant_cases(ga, dq, ref, bsp, halo, halo_real_rows: int):
     rect_src = -(-9000 // 128) * 128
     halo_ops = (halo.blocks, halo.cols, halo.mask)
     operands = {
-        "mesh_halo": (halo_ops, halo.src_rows, halo_real_rows,
+        "mesh_halo": (halo_ops, halo.rows, halo.max_col, halo.src_rows,
+                      halo_real_rows,
                       tile_adjacency(*halo_ops, halo.src_rows),
                       operand_stats(halo.blocks, halo.mask)),
-        "rect": (rect, rect_src, 9000, adjacency(rs, rr, 2048, rect_src),
+        "rect": (rect, ga.compact_block_csr(*rect), int(rect[1].max()),
+                 rect_src, 9000, adjacency(rs, rr, 2048, rect_src),
                  operand_stats(*rect[::2]))}
     cases = [("mesh_halo", 52, torch.uint8, "mesh"),
              ("mesh_halo", 64, torch.uint8, "mesh"),
@@ -383,8 +478,8 @@ def dequant_cases(ga, dq, ref, bsp, halo, halo_real_rows: int):
     out = {"dequant_spmm": {"cases": []},
            "dequant_spmm_batched": {"cases": []}}
     for where, f, dtype, path in cases:
-        ops_, src_rows, real_rows, a_lib, (n_real, nnz, cvb, cm) = \
-            operands[where]
+        (ops_, rows, max_col, src_rows, real_rows, a_lib,
+         (n_real, nnz, cvb, cm)) = operands[where]
         for name, batch in (("dequant_spmm", 1),
                             ("dequant_spmm_batched", BATCH)):
             codes, sc, mn = wire_codes(bsp, gen, rng, batch, src_rows,
@@ -394,7 +489,7 @@ def dequant_cases(ga, dq, ref, bsp, halo, halo_real_rows: int):
             kern = getattr(dq, name)
             plain = (ref.dequant_spmm_ref if batch == 1
                      else ref.dequant_spmm_batched_ref)
-            got = kern(*ops_, codes, sc, mn)
+            got = kern(*ops_, codes, sc, mn, max_col=max_col)
             # float64 yardstick: the very f32 dequantized panel, summed in
             # float64 (float64 blocks promote the plain version).
             want = plain(ops_[0].double(), ops_[1], ops_[2].double(), codes,
@@ -408,13 +503,16 @@ def dequant_cases(ga, dq, ref, bsp, halo, halo_real_rows: int):
                 x[None] for x in (codes, sc, mn))
             for b in range(batch):
                 c, s_, m_ = (x[b] for x in stack)
-                serial = dq.dequant_spmm(*ops_, c, s_, m_)
+                serial = dq.dequant_spmm(*ops_, c, s_, m_, max_col=max_col)
                 if batch > 1 and not torch.equal(got[b], serial):
                     raise AssertionError(f"{name} {where} F={f}: example {b}"
                                          f" differs from dequant_spmm")
-                # The staged panel is bitwise the plain dequantized table.
+                # The staged panel is bitwise the plain dequantized table,
+                # and the dense tile body sums it to the row-compacted
+                # kernel's floats.
                 table = ref.dequant_ref(c, s_, m_)
-                if not torch.equal(serial, ga.block_spmm(*ops_, table)):
+                if not torch.equal(serial, ga.block_spmm(
+                        *ops_, table, rows=rows, max_col=max_col)):
                     raise AssertionError(f"dequant_spmm {where} F={f}: not "
                                          f"bitwise block_spmm over the plain"
                                          f" dequantized table")
@@ -430,11 +528,12 @@ def dequant_cases(ga, dq, ref, bsp, halo, halo_real_rows: int):
                 if batch > 1 else lib()
             check_close(f"library {where} F={f}", lib_out.double(), want,
                         KERNEL_RTOL, KERNEL_ATOL)
-            k_ms = time_ms(lambda: kern(*ops_, codes, sc, mn), reps=20)
+            k_ms = time_ms(lambda: kern(*ops_, codes, sc, mn,
+                                        max_col=max_col), reps=20)
             p_ms = time_ms(lambda: plain(*ops_, codes, sc, mn), reps=3,
                            warmup=1)
             l_ms = time_ms(lib, reps=20)
-            b_ms, b_by = bound(n_real, nnz, cvb, cm, src_rows, f, batch,
+            b_ms, b_by = bound(nnz, cvb, cm, src_rows, f, batch,
                                code_bytes=codes.element_size(), row_bytes=8)
             rec = {"case": where, "F": f, "B": batch,
                    "codes": str(dtype).removeprefix("torch."),
@@ -1124,7 +1223,10 @@ def main() -> int:
     log("phase 2: kernels vs plain versions")
     t0 = time.perf_counter()
     g = datasets.load("siot", 1.0, seed=0)
+    t1 = time.perf_counter()
     csr = ops.block_csr_for(g, device="cuda")
+    torch.cuda.synchronize()
+    block_csr_s = time.perf_counter() - t1
     vb, m = csr.blocks.shape[:2]
     real = int(csr.mask.sum())
     log(f"  siot |V|={g.num_vertices} |E|={g.num_edges} F={g.feature_dim}: "
@@ -1142,6 +1244,13 @@ def main() -> int:
         f"real tiles of {local.mask.numel()}, halo "
         f"{tuple(pg.halo_csr.blocks.shape[:3])} {int(halo.mask.sum())} real "
         f"tiles of {halo.mask.numel()} (compile {gcn_compile_s:.2f} s)")
+    compaction = {
+        "siot": compaction_ms(ga, csr, csr.rows, "BlockCsr build",
+                              block_csr_s),
+        "mesh_local": compaction_ms(ga, local, local.rows, "mesh compile",
+                                    gcn_compile_s),
+        "mesh_halo": compaction_ms(ga, halo, halo.rows, "mesh compile",
+                                   gcn_compile_s)}
     results = kernel_cases(ga, ref, csr, g, local)
     results.update(dequant_cases(ga, dq, ref, bsp, halo,
                                  pg.n * pg.boundary_slots))
@@ -1255,7 +1364,8 @@ def main() -> int:
             "bound_by": main_cases[-1]["bound_by"],
             "library_ms": sum(c["library_ms"] for c in main_cases),
             "cases": rec["cases"]})
-    print(json.dumps({"main_path": served, "mesh_path": meshed,
+    print(json.dumps({"compaction": compaction,
+                      "main_path": served, "mesh_path": meshed,
                       "dequantize_path": dequantized,
                       "serve_path": served_lm, "prefill_path": prefilled,
                       "reduced_serve": reduced}), flush=True)

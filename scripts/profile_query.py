@@ -13,9 +13,10 @@ model, from a ``torch.profiler``
 trace of ``--queries`` back-to-back ``execute`` calls and of one
 ``execute_many`` over 8 feature sets: device busy time (kernels, copies and
 fills from the trace, as a union of intervals), the window's host-clock
-length, the device's idle share, and device time by kernel name. The
-host-clock split of a query into collect / execute / account is
-``chip_smoke.py``'s.
+length, the device's idle share, device time by kernel name, and the
+block-CSR row kernel's (``rows_spmm_kernel``: ``block_spmm`` and
+``block_spmm_batched``) device time and share. The host-clock split of a
+query into collect / execute / account is ``chip_smoke.py``'s.
 
 With ``--transformer`` it traces the transformer serving path instead:
 qwen1.5-0.5b at full width with ``attn_impl="flash"`` (random seeded
@@ -185,9 +186,11 @@ def main() -> int:
         sess.execute_many(stack)                       # warm-up
         rec = {"kind": kind, "executor": args.executor,
                "execute": profile_window(lambda: [
-                   sess.execute(feats) for _ in range(args.queries)]),
+                   sess.execute(feats) for _ in range(args.queries)],
+                   match="rows_spmm_kernel"),
                "execute_many_8": profile_window(
-                   lambda: sess.execute_many(stack))}
+                   lambda: sess.execute_many(stack),
+                   match="rows_spmm_kernel")}
         rec["execute"]["per_query_ms"] = (rec["execute"]["window_ms"]
                                           / args.queries)
         report["models"].append(rec)

@@ -1,65 +1,364 @@
-// Block-CSR (ELL-over-blocks) neighbour aggregation for Hopper (sm_90a).
+// Block-CSR neighbour aggregation for Hopper (sm_90a).
 //
 // Replaces the TPU kernels of src/repro/kernels/gather_aggregate.py and
 // src/repro/kernels/daq_dequant.py:
-//   block_spmm            (_spmm_kernel)                 -> block_spmm_launch
-//   block_spmm_batched    (_spmm_batched_kernel)         -> block_spmm_batched_launch
+//   block_spmm            (_spmm_kernel, :107)           -> block_spmm_launch
+//   block_spmm_batched    (_spmm_batched_kernel, :124)   -> block_spmm_batched_launch
 //   dequant_spmm          (_dequant_spmm_kernel)         -> dequant_spmm_launch
 //   dequant_spmm_batched  (_dequant_spmm_batched_kernel) -> dequant_spmm_batched_launch
 //   dequant               (_dequant_kernel)              -> dequant_launch
 //
-// dequant is the standalone row-wise dequantization (the last section of
-// this file): it writes the table the fused kernels never materialize,
-// with the same panel loader, so its output is bitwise the panel they
-// stage.
-//
-// All four compute, for every row-block i (and every batch element b),
+// All four products compute, for every row-block i (and batch element b),
 //   out[b, i*128 + r, f] = sum_m mask[i, m] * sum_k blocks[i, m, r, k]
 //                                          * h[b, cols[i, m]*128 + k, f]
-// with the layout contract of build_block_csr: M tile slots per row-block,
-// padding slots carry mask 0 and an all-zero tile, so they are skipped here.
-// The dequant kernels read no f32 table h: they read uint8/16/32 codes and
-// one f32 (scale, min) pair per source row, and build each source panel as
-//   h[row, f] = codes[row, f] * scale[row] + min[row]
-// while staging it into shared memory, so the dense table never exists in
-// device memory. The product and the sum are rounded apart (__fmul_rn,
-// __fadd_rn: no FMA contraction), as the plain version rounds them, so the
-// staged panel is bitwise the plain version's dequantized table and the
-// kernels differ from it only in the order of accumulation. A zero-padded
-// source row (code 0, scale 0, min 0) stages as exact zeros.
+// over the ELL-over-blocks layout of build_block_csr (M tile slots per
+// row-block; padding slots carry mask 0 and an all-zero tile).
 //
-// What bounds it on an H100: the adjacency tiles. Every real tile is a dense
-// 128x128 f32 matrix (64 KB) that must be read once from device memory
-// (3.35 TB/s); the source panels (f32, or 1-4 byte codes) and the output
-// are small beside them. The function needs only one FMA per nonzero tile
-// entry per feature, and the graph fills well under 1% of the tile
-// entries, so its floor is the tile bytes. This dense design, though, does 2*128*128*F flops per tile in f32
-// FMA (no tensor cores: the product must stay true f32), zeros included,
-// which at the 67 TFLOP/s f32 CUDA-core peak takes longer than reading the
-// tiles: the kernel is held back by work the function does not need.
+// f32 block_spmm / block_spmm_batched (the first section below) read no
+// tiles. They read the row-compacted operand that compact_block_csr
+// (gather_aggregate.py) builds once per layout from the tiles themselves:
+// per output row its segments, one per real tile slot whose row r holds a
+// nonzero, in slot order; per segment the slot's mask value and its
+// nonzero entries as (global source row cols*128 + k, value) pairs in k
+// order.
 //
-// What the design does about it: one CTA computes a 64-row x 64-feature
-// output slab of one row-block, so each tile byte leaves device memory once
-// per feature chunk and the CTA walks the row-block's real tiles in order.
-// The tile slab and the source panel are staged through shared memory in
-// 64-wide k-chunks (33 KB static), and each thread keeps a 4x4 register
-// block of partial sums, so every shared-memory value feeds four FMAs.
-// Accumulation is plain f32 FMA in a fixed k-order with no atomics, so a
-// result is deterministic. One CTA body serves all four entry points; only
-// its panel loader differs (dense f32 or dequantized codes). A batched
-// launch runs that body per batch element (blockIdx.x), which makes out[b]
-// bitwise equal to the serial kernel on h[b] (the dequant entry points
-// launch one kernel, the serial one with B = 1); batch-adjacent CTAs read
-// the same tiles, which then come from L2. The mesh executor folds its shard axis into the
-// row-block axis (VB = shards x row-blocks per shard): row-blocks are
-// independent, so that is bitwise one launch per shard. The ragged feature
-// edge is masked in the kernel, so any F works. Skipping the zero entries
-// (a sparse-aware format) is later work.
+// What bounds them on an H100: bytes, 8 per nonzero entry (value and
+// source index) plus the source table and the output once per example, at
+// 3.35 TB/s; the multiply-adds, one per nonzero per feature, are far below
+// the f32 CUDA-core peak. In practice the gathers of source rows (F * 4
+// contiguous bytes each, from L2: SIoT's table is 3.4 MB) set the pace:
+// at B = 8 their traffic runs at the rate an L2 gather reaches, and one
+// row's sum is a chain that must run in order, so the longest row (SIoT's
+// hub: 2,631 entries) sets the floor of a small launch. An SM keeps only
+// so many gathers in flight, whatever the occupancy, so a long row
+// must be spread over warps.
+//
+// Skipping the zeros is exact. The dense tile product (the dequant kernels
+// below) builds each output element as one chain part = fmaf(a[k], b[k],
+// part) over k = 0..127 per real slot, folded in slot order by acc =
+// fmaf(mask, part, acc). For a finite b, fmaf(0, b, part) returns part (at
+// most the sign of a zero differs), and a slot whose row is all zero folds
+// in fmaf(1, 0, acc) = acc. So walking only the nonzeros, in the same
+// (slot, k) order, with the same per-slot partial and fold, gives the
+// dense product's floats: chip_smoke.py holds dequant_spmm to block_spmm
+// over the plain dequantized table bit for bit.
+//
+// Design. Rows of up to 512 entries: one warp per (output row, feature
+// chunk, example), the example index fastest, so the B warps of a row read
+// its entries from L1/L2 side by side and each runs the serial code (out[b]
+// is bitwise the serial launch); rows of more than 32 entries are launched
+// first, longest first. Longer rows: one CTA per (row, chunk, example),
+// first in the grid; its 8 warps walk about an eighth of the row's
+// segments each, keep the per-segment partials in shared memory, and one
+// warp folds them in slot order: the same chain, spread over 8 warps. The
+// lanes cover the features, NF = ceil(F / 32) in each lane's registers (F
+// above 256 splits into chunks), masked at the ragged edge. A warp walks a
+// row in batches of 32 entries, loaded coalesced one batch ahead; it stages
+// each batch's (source, value, weight, segment) in shared memory and reads
+// them back as broadcasts, so the chain has no branch and no warp
+// collective, and it issues the feature loads of a group of entries
+// before the group's FMAs. Each segment resets part, runs part =
+// fmaf(value, h, part) in entry order and folds acc = fmaf(mask, part,
+// acc); each output element is stored once. No atomics, no TF32. The
+// kernel fits 64 registers (32 warps an SM), which the batched launches
+// need. Offsets into h and out are 64-bit.
+//
+// The dequant kernels (second section) keep the dense design: one CTA
+// computes a 64-row x 64-feature output slab of one row-block, walking the
+// row-block's real tiles; tile slab and source panel are staged through
+// shared memory in 64-wide k-chunks, each thread keeps a 4x4 register block.
+// Their panel loader reads uint8/16/32 codes and one f32 (scale, min) pair
+// per source row and builds h[row, f] = codes[row, f] * scale[row] +
+// min[row] while staging, so the dense table never exists in device
+// memory. Product and sum are rounded apart (__fmul_rn, __fadd_rn), as the
+// plain version rounds them, so the staged panel is bitwise the plain
+// dequantized table. Bound by the tiles they read (64 KB each) and the
+// products with zero entries they do; a zero-skipping form on the
+// compacted operand is later work. dequant (last section) is the
+// standalone row-wise dequantization with the same rounding.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// f32 block_spmm / block_spmm_batched on the row-compacted operand.
+// ---------------------------------------------------------------------------
+
+constexpr int kRowWarps = 8;  // warps per CTA of the row kernel
+constexpr unsigned kAll = 0xffffffffu;
+
+// Entries whose feature loads one group issues before its FMAs: 16
+// prefetch registers a lane whatever NF, so that the kernel fits 64
+// registers (4 CTAs, 32 warps an SM).
+template <int NF>
+__host__ __device__ constexpr int group_of() {
+  return NF <= 2 ? 8 : (NF <= 4 ? 4 : 2);
+}
+
+// Folds a finished segment's partial into the row's sum, in slot order:
+// acc = fmaf(weight, part, acc) where the entry ends a segment.
+template <int NF>
+struct FoldSum {
+  float acc[NF];
+  __device__ __forceinline__ void at(bool fold, float wt, int /*seg*/,
+                                     const float (&part)[NF]) {
+#pragma unroll
+    for (int j = 0; j < NF; ++j)
+      acc[j] = fold ? fmaf(wt, part[j], acc[j]) : acc[j];
+  }
+};
+
+// Keeps a finished segment's partial (slot seg - base, lane-major:
+// conflict-free) and weight in shared memory, for a later fold in slot
+// order. Every entry stores, those that end no segment into the spare
+// slot `spare`: no branch in the chain.
+template <int NF>
+struct KeepPart {
+  float* parts;
+  float* weights;
+  int base, spare, lane;
+  __device__ __forceinline__ void at(bool fold, float wt, int seg,
+                                     const float (&part)[NF]) {
+    const int slot = fold ? seg - base : spare;
+#pragma unroll
+    for (int j = 0; j < NF; ++j) parts[(slot * NF + j) * 32 + lane] = part[j];
+    if (lane == 0) weights[slot] = wt;
+  }
+};
+
+// One warp walks the entries e .. e_end of a row, which start segment s
+// and end one (seg_ptr[s] == e), for one table and the lane's features:
+// base points at the lane's first column of the table's row 0, its
+// features are base + 32 j for the j with live[j] (the others lie past the
+// ragged feature edge and read nothing), row_bytes is F * 4. In entry
+// order: part = fmaf(value, h, part) per entry; where a segment ends,
+// sink.at(true, weight, segment, part) and part = 0.
+//
+// The entries go in batches of 32, lane i holding entry e + i. Per batch
+// the warp also holds the window of the next 32 segments (lane j: segment
+// s + j; past the row they end past the batch's real entries), enough for
+// every segment that can end in the batch; from it a bit mask of the
+// entries that end a segment and, per entry, the weight and index of the
+// segment it ends. Each lane stages its entry as (source, value, weight,
+// segment) in the warp's 512 bytes of shared memory, and the batch's loop
+// reads them back as broadcasts: it is free of branches and of warp
+// collectives, so all its feature loads issue before its first FMA. The
+// next batch's entries and window load before the FMAs too. Padding
+// entries (past e_end) read source row 0 and end no segment: they come
+// after the walk's last fold and reach no output.
+template <int NF, class Sink>
+__device__ __forceinline__ void walk_segments(
+    const int* __restrict__ seg_ptr, const float* __restrict__ seg_w,
+    const int* __restrict__ src, const float* __restrict__ val, int n_seg,
+    const char* base, const bool (&live)[NF], unsigned row_bytes, int lane,
+    int s, int e, int e_end, int4* stage, Sink& sink) {
+  constexpr int U = group_of<NF>();
+  float part[NF];
+#pragma unroll
+  for (int j = 0; j < NF; ++j) part[j] = 0.0f;
+  int my_src = e + lane < e_end ? __ldg(src + e + lane) : 0;
+  float my_val = e + lane < e_end ? __ldg(val + e + lane) : 0.0f;
+  int my_end = s + lane < n_seg ? __ldg(seg_ptr + s + lane + 1) : 0x7fffffff;
+  float my_w = s + lane < n_seg ? __ldg(seg_w + s + lane) : 0.0f;
+  for (; e < e_end; e += 32) {
+    const int n = min(32, e_end - e);
+    // Bit i: real entry e + i ends a segment, segment s + (number of ends
+    // before i), whose weight lane i fetches.
+    const int rel = my_end - e - 1;  // >= 0 for every segment from s on
+    const unsigned ends =
+        __reduce_or_sync(kAll, rel < n ? 1u << rel : 0u);
+    const int before = __popc(ends & ((1u << lane) - 1u));
+    const float end_w = __shfl_sync(kAll, my_w, before);
+    __syncwarp();  // the previous batch's reads are done
+    stage[lane] = make_int4(my_src, __float_as_int(my_val),
+                            __float_as_int(end_w), s + before);
+    __syncwarp();
+    // The next batch's entries and window, ahead of this batch's chain.
+    s += __popc(ends);
+    const int ahead = e + 32 + lane;
+    my_src = ahead < e_end ? __ldg(src + ahead) : 0;
+    my_val = ahead < e_end ? __ldg(val + ahead) : 0.0f;
+    my_end = s + lane < n_seg ? __ldg(seg_ptr + s + lane + 1) : 0x7fffffff;
+    my_w = s + lane < n_seg ? __ldg(seg_w + s + lane) : 0.0f;
+#pragma unroll 1
+    for (int g = 0; g < n; g += U) {
+      // Every feature load of the group first ...
+      float x[U][NF];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float* hr = reinterpret_cast<const float*>(
+            base + (unsigned long long)(unsigned)stage[g + u].x * row_bytes);
+#pragma unroll
+        for (int j = 0; j < NF; ++j)
+          x[u][j] = live[j] ? __ldg(hr + 32 * j) : 0.0f;
+      }
+      // ... then the chain, in entry order.
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int4 en = stage[g + u];
+        const bool fold = (ends >> (g + u)) & 1u;
+#pragma unroll
+        for (int j = 0; j < NF; ++j)
+          part[j] = fmaf(__int_as_float(en.y), x[u][j], part[j]);
+        sink.at(fold, __int_as_float(en.z), en.w, part);
+#pragma unroll
+        for (int j = 0; j < NF; ++j) part[j] = fold ? 0.0f : part[j];
+      }
+    }
+  }
+}
+
+// Rows in warp_rows[i] = (row, first segment, first entry, end entry),
+// in launch order: one warp per (row, feature chunk, example); warp w is
+// example w % batch of warp row (w / batch) / chunks, chunk (w / batch) %
+// chunks. Rows in split[]: one CTA per (row, chunk, example), in the first
+// CTAs of the grid; its 8 warps walk contiguous runs of about an eighth
+// of the row's entries each (whole segments, at most `round_segs`
+// segments at a time), keep the partials in shared memory, and warp 0
+// folds them in slot order, so the row's sum is the same chain as one
+// warp's. Row `row` has segments row_ptr[row] .. row_ptr[row + 1]. h[b] is
+// [src_rows, f] at b * h_stride, out[b] [n_rows, f] at b * out_stride.
+template <int NF>
+__global__ void __launch_bounds__(kRowWarps * 32, 4)
+rows_spmm_kernel(const int* __restrict__ row_ptr,
+                 const int* __restrict__ seg_ptr,
+                 const float* __restrict__ seg_w, const int* __restrict__ src,
+                 const float* __restrict__ val,
+                 const int4* __restrict__ warp_rows,
+                 const int* __restrict__ split, const float* __restrict__ h,
+                 float* __restrict__ out, int n_seg, long long n_split_ctas,
+                 long long n_warps, int round_segs, int batch, int chunks,
+                 int f, long long h_stride, long long out_stride) {
+  // Split CTAs: [round_segs + 1][NF][32] partials, then round_segs + 1
+  // weights (the last slot of each is the spare).
+  extern __shared__ float parts[];
+  __shared__ int4 stage[kRowWarps][32];
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const bool whole_cta = blockIdx.x < n_split_ctas;
+  const long long w = whole_cta
+      ? (long long)blockIdx.x
+      : (blockIdx.x - n_split_ctas) * kRowWarps + warp;
+  if (!whole_cta && w >= n_warps) return;  // whole warps
+  const long long b = w % batch;
+  const long long rc = w / batch;
+  const int col0 = (int)(rc % chunks) * 32 * NF + lane;
+  const char* base = reinterpret_cast<const char*>(h + b * h_stride + col0);
+  bool live[NF];
+#pragma unroll
+  for (int j = 0; j < NF; ++j) live[j] = col0 + 32 * j < f;
+  const unsigned row_bytes = (unsigned)f * 4u;
+
+  FoldSum<NF> sum;
+#pragma unroll
+  for (int j = 0; j < NF; ++j) sum.acc[j] = 0.0f;
+  int row;
+  if (!whole_cta) {
+    const int4 info = __ldg(warp_rows + rc / chunks);
+    row = info.x;
+    walk_segments<NF>(seg_ptr, seg_w, src, val, n_seg, base, live, row_bytes,
+                      lane, info.y, info.z, info.w, stage[warp], sum);
+  } else {
+    row = __ldg(split + rc / chunks);
+    const int s0 = __ldg(row_ptr + row);
+    const int s1 = __ldg(row_ptr + row + 1);
+    for (int r0 = s0; r0 < s1; r0 += round_segs) {
+      const int r1 = min(r0 + round_segs, s1);
+      // Warp k takes the segments that start in its eighth of the round's
+      // entries: [r0 + (starts below bound k), r0 + (starts below k + 1)).
+      const int e0 = __ldg(seg_ptr + r0);
+      const long long span = __ldg(seg_ptr + r1) - e0;
+      const int lo_bound = e0 + (int)(span * warp / kRowWarps);
+      const int hi_bound = e0 + (int)(span * (warp + 1) / kRowWarps);
+      int lo = r0, hi = r0;
+#pragma unroll 4
+      for (int q = r0; q < r1; q += 32) {
+        const int start = q + lane < r1 ? __ldg(seg_ptr + q + lane)
+                                        : 0x7fffffff;
+        lo += __popc(__ballot_sync(kAll, start < lo_bound));
+        hi += __popc(__ballot_sync(kAll, start < hi_bound));
+      }
+      if (lo < hi) {
+        KeepPart<NF> keep{parts, parts + (round_segs + 1) * NF * 32, r0,
+                          round_segs, lane};
+        walk_segments<NF>(seg_ptr, seg_w, src, val, n_seg, base, live,
+                          row_bytes, lane, lo, __ldg(seg_ptr + lo),
+                          __ldg(seg_ptr + hi), stage[warp], keep);
+      }
+      __syncthreads();
+      if (warp == 0) {
+        const float* weights = parts + (round_segs + 1) * NF * 32;
+#pragma unroll 8
+        for (int q = 0; q < r1 - r0; ++q) {
+          const float* p = parts + q * NF * 32 + lane;
+#pragma unroll
+          for (int j = 0; j < NF; ++j)
+            sum.acc[j] = fmaf(weights[q], p[j * 32], sum.acc[j]);
+        }
+      }
+      __syncthreads();
+    }
+    if (warp != 0) return;
+  }
+  float* ob = out + b * out_stride + (long long)row * f;
+#pragma unroll
+  for (int j = 0; j < NF; ++j)
+    if (live[j]) ob[col0 + 32 * j] = sum.acc[j];
+}
+
+// Dynamic shared memory of a split CTA (partials and weights) stays within
+// the 48 KB a launch may take without opting in, beside the static
+// staging: `round_segs` + 1 is at most this many slots per NF.
+constexpr int kPartSlots = (48 * 1024 - kRowWarps * 32 * 16) / (33 * 4);
+
+int rows_spmm(const int* row_ptr, const int* seg_ptr, const float* seg_w,
+              const int* src, const float* val, const int* warp_rows,
+              const int* split, const float* h, float* out, int batch,
+              int n_rows, int n_seg, int n_warp_rows, int n_split,
+              int split_segs, int f, int src_rows, void* stream) {
+  // Feature chunks of at most 256 (8 a lane), as even as they go.
+  const int chunks = (f + 255) / 256;
+  const int nf = ((f + chunks - 1) / chunks + 31) / 32;
+  const long long n_split_ctas = (long long)n_split * chunks * batch;
+  const long long n_warps = (long long)n_warp_rows * chunks * batch;
+  const long long ctas =
+      n_split_ctas + (n_warps + kRowWarps - 1) / kRowWarps;
+  if (ctas == 0) return (int)cudaSuccess;
+  if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int round_segs = n_split ? min(split_segs, kPartSlots / nf - 1) : 1;
+  const size_t smem =
+      n_split ? (size_t)(round_segs + 1) * (nf * 32 + 1) * sizeof(float) : 0;
+  const long long h_stride = (long long)src_rows * f;
+  const long long out_stride = (long long)n_rows * f;
+  cudaStream_t s = (cudaStream_t)stream;
+#define ROWS_SPMM(NF)                                                        \
+  case NF:                                                                   \
+    rows_spmm_kernel<NF><<<(unsigned)ctas, kRowWarps * 32, smem, s>>>(       \
+        row_ptr, seg_ptr, seg_w, src, val, (const int4*)warp_rows, split, h, \
+        out, n_seg, n_split_ctas, n_warps, round_segs, batch, chunks, f,     \
+        h_stride, out_stride);                                               \
+    break;
+  switch (nf) {
+    ROWS_SPMM(1)
+    ROWS_SPMM(2)
+    ROWS_SPMM(3)
+    ROWS_SPMM(4)
+    ROWS_SPMM(5)
+    ROWS_SPMM(6)
+    ROWS_SPMM(7)
+    ROWS_SPMM(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef ROWS_SPMM
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// dequant_spmm / dequant_spmm_batched: dense tiles, dequantizing loader.
+// ---------------------------------------------------------------------------
 
 constexpr int kBlock = 128;  // adjacency tile edge (block-CSR block size)
 constexpr int kRows = 64;    // output rows per CTA
@@ -68,18 +367,10 @@ constexpr int kChunk = 64;   // k-chunk staged through shared memory
 constexpr int kPad = 4;      // row padding of the tile slab (bank spread)
 constexpr int kThreads = 256;
 
-// Panel loaders: the source value at (row, col) of one batch element's
+// The panel loader: the source value at (row, col) of one batch element's
 // table, for col < f. Sources are read-only for a launch, so every load
 // takes the read-only data cache (__ldg), whatever the compiler can prove
 // about aliasing through the struct.
-struct DensePanel {
-  const float* h;
-  int f;
-  __device__ __forceinline__ float operator()(long long row, int col) const {
-    return __ldg(h + row * f + col);
-  }
-};
-
 template <typename Code>
 struct DequantPanel {
   const Code* codes;
@@ -175,32 +466,6 @@ __device__ __forceinline__ void spmm_cta(
       if (col < f) out[row * f + col] = acc[i][j];
     }
   }
-}
-
-// grid (1, 2 * ceil(F / 64), VB): y = feature chunk * 2 + row half,
-// z = row-block.
-__global__ void __launch_bounds__(kThreads)
-block_spmm_kernel(const float* __restrict__ blocks,
-                  const int* __restrict__ cols,
-                  const float* __restrict__ mask,
-                  const float* __restrict__ h, float* __restrict__ out, int m,
-                  int f) {
-  spmm_cta(blocks, cols, mask, DensePanel{h, f}, out, m, f, blockIdx.z,
-           (blockIdx.y % 2) * kRows, (blockIdx.y / 2) * kFeat);
-}
-
-// grid (B, 2 * ceil(F / 64), VB): x = batch element, fastest-varying so
-// the CTAs that share a row-block's tiles run side by side.
-__global__ void __launch_bounds__(kThreads)
-block_spmm_batched_kernel(const float* __restrict__ blocks,
-                          const int* __restrict__ cols,
-                          const float* __restrict__ mask,
-                          const float* __restrict__ h,
-                          float* __restrict__ out, int m, int f,
-                          long long h_stride, long long out_stride) {
-  const DensePanel panel{h + blockIdx.x * h_stride, f};
-  spmm_cta(blocks, cols, mask, panel, out + blockIdx.x * out_stride, m, f,
-           blockIdx.z, (blockIdx.y % 2) * kRows, (blockIdx.y / 2) * kFeat);
 }
 
 // The batched grid (B = 1 for a serial launch); codes[b] is
@@ -304,26 +569,34 @@ int dequant(const void* codes, const float* scales, const float* mins,
 
 extern "C" {
 
-// out f32[vb*128, f] = A @ h, h f32[src_rows, f]. Returns cudaGetLastError().
-int block_spmm_launch(const float* blocks, const int* cols, const float* mask,
-                      const float* h, float* out, int vb, int m, int f,
+// out f32[n_rows, f] = A @ h, h f32[src_rows, f], A the row-compacted
+// operand (row_ptr i32[n_rows + 1], seg_ptr i32[n_seg + 1], seg_w
+// f32[n_seg], src i32[nnz], val f32[nnz]; warp_rows i32[n_warp_rows, 4]
+// the rows a warp walks, 16-byte aligned; split i32[n_split] the rows a
+// CTA walks, split_segs the most segments of a split row). Returns
+// cudaGetLastError().
+int block_spmm_launch(const int* row_ptr, const int* seg_ptr,
+                      const float* seg_w, const int* src, const float* val,
+                      const int* warp_rows, const int* split, const float* h,
+                      float* out, int n_rows, int n_seg, int n_warp_rows,
+                      int n_split, int split_segs, int f, int src_rows,
                       void* stream) {
-  block_spmm_kernel<<<grid_of(1, vb, f), kThreads, 0,
-                      (cudaStream_t)stream>>>(blocks, cols, mask, h, out, m,
-                                              f);
-  return (int)cudaGetLastError();
+  return rows_spmm(row_ptr, seg_ptr, seg_w, src, val, warp_rows, split, h,
+                   out, 1, n_rows, n_seg, n_warp_rows, n_split, split_segs, f,
+                   src_rows, stream);
 }
 
-// out f32[b, vb*128, f] = A @ h[b], h f32[b, src_rows, f].
-int block_spmm_batched_launch(const float* blocks, const int* cols,
-                              const float* mask, const float* h, float* out,
-                              int batch, int vb, int m, int f, int src_rows,
-                              void* stream) {
-  block_spmm_batched_kernel<<<grid_of(batch, vb, f), kThreads, 0,
-                              (cudaStream_t)stream>>>(
-      blocks, cols, mask, h, out, m, f, (long long)src_rows * f,
-      (long long)vb * kBlock * f);
-  return (int)cudaGetLastError();
+// out f32[b, n_rows, f] = A @ h[b], h f32[b, src_rows, f].
+int block_spmm_batched_launch(const int* row_ptr, const int* seg_ptr,
+                              const float* seg_w, const int* src,
+                              const float* val, const int* warp_rows,
+                              const int* split, const float* h, float* out,
+                              int batch, int n_rows, int n_seg,
+                              int n_warp_rows, int n_split, int split_segs,
+                              int f, int src_rows, void* stream) {
+  return rows_spmm(row_ptr, seg_ptr, seg_w, src, val, warp_rows, split, h,
+                   out, batch, n_rows, n_seg, n_warp_rows, n_split,
+                   split_segs, f, src_rows, stream);
 }
 
 // out f32[vb*128, f] = A @ (codes * scales[:, None] + mins[:, None]),

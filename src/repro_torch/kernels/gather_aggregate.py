@@ -4,10 +4,13 @@ The adjacency is laid out as block-CSR: dense ``B x B`` tiles (B = 128)
 listed per row-block and ELL-padded to ``M`` tiles per row-block, so the
 aggregation ``out = A @ H`` becomes a sequence of tile x panel products
 ``acc += tile[m] @ H[cols[m]]``. ``build_block_csr`` builds that layout on
-the host; ``block_spmm`` and ``block_spmm_batched`` run the products in
-hand-written CUDA kernels (``csrc/block_spmm.cu``, built by
-``kernels.build``) for tensors on a CUDA device and in their plain PyTorch
-versions (``kernels.ref``) for tensors on the CPU.
+the host. The graph fills well under 1 % of the tiles' entries, so the
+CUDA kernels (``csrc/block_spmm.cu``, built by ``kernels.build``) read no
+tiles: ``compact_block_csr`` lists the tiles' nonzeros per output row
+once per layout (a :class:`TileRows`), and ``block_spmm`` /
+``block_spmm_batched`` walk only those, in the dense product's order, so
+their floats are the dense product's. Tensors on the CPU take the plain
+PyTorch versions (``kernels.ref``) over the dense tiles.
 
 Each wrapper counts its kernel launches in a plain integer attribute
 (``block_spmm.launches``), raised by one at every launch and nowhere else,
@@ -16,7 +19,8 @@ so a caller can show that a run really went through the kernel.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import dataclasses
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,7 +29,7 @@ from repro_torch.kernels import build, ref
 
 BLOCK = 128  # adjacency tile edge
 
-_MAX_ROW_BLOCKS = 65535   # grid.z limit of the launch geometry
+_MAX_ROW_BLOCKS = 65535   # grid.z limit of the dequant kernels' launch
 
 
 def padded_feature_dim(f: int) -> int:
@@ -95,9 +99,120 @@ def build_block_csr(senders: np.ndarray, receivers: np.ndarray,
     return blocks, block_cols, block_mask, padded_v
 
 
+#: Rows of more than this many entries are launched first, longest first.
+_LONG_ROW = 32
+#: Rows of more than this many entries are walked by a whole CTA.
+_SPLIT_ROW = 512
+
+
+@dataclasses.dataclass(frozen=True)
+class TileRows:
+    """The nonzeros of a block-CSR operand, listed per output row.
+
+    A segment is one (output row, real tile slot) whose tile row holds at
+    least one nonzero; a row's segments go in slot order, a segment's
+    entries in k order: the order in which the dense tile product sums
+    them. Built by :func:`compact_block_csr`, on the tiles' device, and
+    checked once here (the kernel wrappers check only how it fits their
+    operands).
+    """
+    row_ptr: torch.Tensor    # i32[n_rows + 1]: each row's segments
+    seg_ptr: torch.Tensor    # i32[n_seg + 1]: each segment's entries
+    seg_w: torch.Tensor      # f32[n_seg]: the slot's block_mask value
+    src: torch.Tensor        # i32[nnz]: global source row cols*128 + k
+    val: torch.Tensor        # f32[nnz]: the tile entry
+    #: i32[n, 4], the rows one warp walks in launch order, each as (row,
+    #: first segment, first entry, end entry); 16-byte aligned.
+    warp_rows: torch.Tensor
+    split: torch.Tensor      # i32[n_split]: the rows one CTA walks
+    tiles: Tuple[int, int]   # (VB, M) of the tiles it lists
+    max_src: int             # largest entry of src (-1 when nnz == 0)
+    nnz: int
+    n_seg: int
+    split_segs: int          # most segments of a split row (0 if none)
+
+    def __post_init__(self):
+        n_rows = self.tiles[0] * BLOCK
+        for name, dtype, shape in (
+                ("row_ptr", torch.int32, (n_rows + 1,)),
+                ("seg_ptr", torch.int32, (self.n_seg + 1,)),
+                ("seg_w", torch.float32, (self.n_seg,)),
+                ("src", torch.int32, (self.nnz,)),
+                ("val", torch.float32, (self.nnz,)),
+                ("warp_rows", torch.int32, (len(self.warp_rows), 4)),
+                ("split", torch.int32, (len(self.split),))):
+            t = getattr(self, name)
+            _check_tensor(f"TileRows.{name}", t, (dtype,), self.device)
+            if tuple(t.shape) != shape:
+                raise ValueError(f"TileRows.{name} must be {shape}, got "
+                                 f"{tuple(t.shape)}")
+        if len(self.warp_rows) + len(self.split) != n_rows:
+            raise ValueError(f"TileRows.warp_rows and .split must list the "
+                             f"{n_rows} rows between them")
+        if self.warp_rows.data_ptr() % 16:
+            raise ValueError("TileRows.warp_rows must be 16-byte aligned")
+
+    @property
+    def n_rows(self) -> int:
+        return self.row_ptr.numel() - 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.row_ptr.device
+
+
+def compact_block_csr(blocks: torch.Tensor, block_cols: torch.Tensor,
+                      block_mask: torch.Tensor) -> TileRows:
+    """The :class:`TileRows` of an ELL-block-CSR operand, on its device.
+
+    Its entries are exactly the values the dense product reads: the
+    nonzero entries of the real tiles (``block_mask != 0``), ordered by
+    (row-block, row, slot, k). The kernels walk rows of more than 512
+    entries with a whole CTA (``split``, longest first) and the others
+    with one warp (``warp_rows``: rows of more than 32 entries first,
+    longest first, then the rest in row order).
+    """
+    vb, m = blocks.shape[:2]
+    n_rows = vb * BLOCK
+    real = (block_mask != 0)[:, :, None, None] & (blocks != 0)
+    i, r, t, k = real.permute(0, 2, 1, 3).nonzero(as_tuple=True)
+    nnz = i.numel()
+    if nnz >= 2 ** 31 - 64:
+        raise ValueError(f"{nnz} nonzeros exceed the kernels' int32 offsets")
+    val = blocks[i, t, r, k]
+    src = block_cols[i, t].long() * BLOCK + k
+    row = i * BLOCK + r
+    key = row * m + t
+    first = torch.ones_like(key, dtype=torch.bool)
+    first[1:] = key[1:] != key[:-1]
+    starts = first.nonzero().squeeze(1)
+    n_seg = starts.numel()
+    seg_ptr = torch.cat([starts, starts.new_tensor([nnz])])
+    seg_rows = torch.bincount(row[starts], minlength=n_rows)
+    row_ptr = torch.cat([seg_rows.new_zeros(1), seg_rows.cumsum(0)])
+    entries = seg_ptr[row_ptr[1:]] - seg_ptr[row_ptr[:-1]]
+    lead = torch.sort(torch.where(entries > _LONG_ROW, -entries, 0),
+                      stable=True).indices
+    long_ = entries[lead] > _SPLIT_ROW
+    split, order = lead[long_], lead[~long_]
+    seg0 = row_ptr[order]
+    warp_rows = torch.stack([order, seg0, seg_ptr[seg0],
+                             seg_ptr[row_ptr[order + 1]]], dim=1)
+    i32 = torch.int32
+    return TileRows(row_ptr=row_ptr.to(i32), seg_ptr=seg_ptr.to(i32),
+                    seg_w=block_mask[i[starts], t[starts]].contiguous(),
+                    src=src.to(i32), val=val.contiguous(),
+                    warp_rows=warp_rows.to(i32), split=split.to(i32),
+                    tiles=(vb, m),
+                    max_src=int(src.max()) if nnz else -1, nnz=nnz,
+                    n_seg=n_seg,
+                    split_segs=int(seg_rows[split].max()) if len(split)
+                    else 0)
+
+
 def _check_tensor(name: str, t: torch.Tensor, dtypes, device) -> None:
     if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, the source table on "
+        raise ValueError(f"{name} is on {t.device}, the other operands on "
                          f"{device}")
     if t.dtype not in dtypes:
         raise TypeError(f"{name} must be "
@@ -152,20 +267,46 @@ def _check_operands(blocks, block_cols, block_mask, h, batched: bool,
                          f"{(max_col + 1) * BLOCK})")
 
 
+def _check_rows(rows: TileRows, blocks: torch.Tensor,
+                h: torch.Tensor) -> None:
+    """Raise unless ``rows`` lists ``blocks`` and fits the table ``h``."""
+    if not isinstance(rows, TileRows):
+        raise TypeError(f"rows must be a TileRows (compact_block_csr), got "
+                        f"{type(rows).__name__}")
+    vb, m = blocks.shape[:2]
+    if rows.tiles != (vb, m):
+        raise ValueError(f"rows lists {rows.n_rows} rows of [VB, M] = "
+                         f"{list(rows.tiles)} tiles, blocks are [{vb}, {m}]:"
+                         f" compacted from other tiles")
+    if rows.device != h.device:
+        raise ValueError(f"rows is on {rows.device}, the source table on "
+                         f"{h.device}")
+    # The kernels read source rows src[e] with no bounds check.
+    if rows.max_src >= h.shape[-2]:
+        raise ValueError(f"source table has {h.shape[-2]} rows but rows "
+                         f"reads row {rows.max_src}")
+
+
+_NEEDS_ROWS = ("{} on CUDA reads the row-compacted operand: pass "
+               "rows=compact_block_csr(blocks, block_cols, block_mask), "
+               "built once per layout")
+
+
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
-#: C signatures of csrc/block_spmm.cu: (blocks, cols, mask, source
-#: pointers..., out, ints..., stream). Every pointer and the stream must be
-#: c_void_p, or ctypes would pass them as 32-bit ints and cut them. The
-#: dequant entries (used by ``kernels.daq_dequant``) take codes, scales and
-#: mins as their source; ``dequant_launch`` takes only those.
+#: C signatures of csrc/block_spmm.cu. Every pointer and the stream must
+#: be c_void_p, or ctypes would pass them as 32-bit ints and cut them. The
+#: f32 entries take the TileRows tensors (row_ptr, seg_ptr, seg_w, src,
+#: val, warp_rows, split), h, out, ints, stream; the dequant entries (used by
+#: ``kernels.daq_dequant``) take (blocks, cols, mask, codes, scales, mins,
+#: out, ints..., stream); ``dequant_launch`` takes only the codes' part.
 _SIGNATURES = {
-    "block_spmm_launch": [_P] * 5 + [_I] * 3 + [_P],
-    "block_spmm_batched_launch": [_P] * 5 + [_I] * 5 + [_P],
+    "block_spmm_launch": [_P] * 9 + [_I] * 7 + [_P],
+    "block_spmm_batched_launch": [_P] * 9 + [_I] * 8 + [_P],
     "dequant_spmm_launch": [_P] * 7 + [_I] * 5 + [_P],
     "dequant_spmm_batched_launch": [_P] * 7 + [_I] * 6 + [_P],
     "dequant_launch": [_P] * 4 + [_I] * 3 + [_P],
@@ -185,8 +326,23 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
+def _launch(name: str, rows: TileRows, h: torch.Tensor, out: torch.Tensor,
+            *batch: int) -> int:
+    """Launch a row-compacted entry point; returns its cudaError."""
+    src_rows, f = h.shape[-2:]
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        return _kernel(name)(
+            _ptr(rows.row_ptr), _ptr(rows.seg_ptr), _ptr(rows.seg_w),
+            _ptr(rows.src), _ptr(rows.val), _ptr(rows.warp_rows),
+            _ptr(rows.split), _ptr(h), _ptr(out), *batch, rows.n_rows,
+            rows.n_seg, len(rows.warp_rows), len(rows.split),
+            rows.split_segs, f, src_rows, ctypes.c_void_p(stream))
+
+
 def block_spmm(blocks: torch.Tensor, block_cols: torch.Tensor,
                block_mask: torch.Tensor, h: torch.Tensor, *,
+               rows: Optional[TileRows] = None,
                max_col: Optional[int] = None) -> torch.Tensor:
     """out = A @ h with A in ELL-block-CSR layout (see build_block_csr).
 
@@ -195,50 +351,52 @@ def block_spmm(blocks: torch.Tensor, block_cols: torch.Tensor,
     f32[VB*128, F] has the row space of ``blocks``. ``max_col`` is the
     largest entry of ``block_cols`` when the caller knows it (saves a
     device-to-host read for the bounds check). CUDA tensors launch the
-    CUDA kernel on the current stream; CPU tensors take the plain version.
+    CUDA kernel on the current stream over ``rows``, the operand's
+    :func:`compact_block_csr` (required there, built once per layout); CPU
+    tensors take the plain version over the tiles.
     """
     _check_operands(blocks, block_cols, block_mask, h, False, max_col)
+    if rows is not None:
+        _check_rows(rows, blocks, h)
     if h.device.type == "cpu":
         return ref.block_spmm_ref(blocks, block_cols, block_mask, h)
     if h.device.type != "cuda":
         raise ValueError(f"block_spmm runs on cuda or cpu, not {h.device}")
-    vb, m = blocks.shape[:2]
-    f = h.shape[1]
-    out = torch.empty((vb * BLOCK, f), dtype=torch.float32, device=h.device)
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = _kernel("block_spmm_launch")(
-            _ptr(blocks), _ptr(block_cols), _ptr(block_mask), _ptr(h),
-            _ptr(out), vb, m, f, ctypes.c_void_p(stream))
-        block_spmm.launches += 1
+    if rows is None:
+        raise ValueError(_NEEDS_ROWS.format("block_spmm"))
+    out = torch.empty((rows.n_rows, h.shape[1]), dtype=torch.float32,
+                      device=h.device)
+    err = _launch("block_spmm_launch", rows, h, out)
+    block_spmm.launches += 1
     _raise_on(err, "block_spmm")
     return out
 
 
 def block_spmm_batched(blocks: torch.Tensor, block_cols: torch.Tensor,
                        block_mask: torch.Tensor, h: torch.Tensor, *,
+                       rows: Optional[TileRows] = None,
                        max_col: Optional[int] = None) -> torch.Tensor:
     """out[b] = A @ h[b] for a [B, S, F] feature stack, one launch.
 
     Each ``out[b]`` is bitwise equal to ``block_spmm(..., h[b])``: the
-    batched kernel runs the serial kernel's per-example code.
+    batched kernel runs the serial kernel's per-example code. ``rows`` as
+    for ``block_spmm``.
     """
     _check_operands(blocks, block_cols, block_mask, h, True, max_col)
+    if rows is not None:
+        _check_rows(rows, blocks, h)
     if h.device.type == "cpu":
         return ref.block_spmm_batched_ref(blocks, block_cols, block_mask, h)
     if h.device.type != "cuda":
         raise ValueError(f"block_spmm_batched runs on cuda or cpu, not "
                          f"{h.device}")
-    vb, m = blocks.shape[:2]
-    b, src_rows, f = h.shape
-    out = torch.empty((b, vb * BLOCK, f), dtype=torch.float32,
+    if rows is None:
+        raise ValueError(_NEEDS_ROWS.format("block_spmm_batched"))
+    b, _, f = h.shape
+    out = torch.empty((b, rows.n_rows, f), dtype=torch.float32,
                       device=h.device)
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = _kernel("block_spmm_batched_launch")(
-            _ptr(blocks), _ptr(block_cols), _ptr(block_mask), _ptr(h),
-            _ptr(out), b, vb, m, f, src_rows, ctypes.c_void_p(stream))
-        block_spmm_batched.launches += 1
+    err = _launch("block_spmm_batched_launch", rows, h, out, b)
+    block_spmm_batched.launches += 1
     _raise_on(err, "block_spmm_batched")
     return out
 

@@ -18,7 +18,8 @@ from repro_torch.gnn.graph import Graph
 from repro_torch.kernels.daq_dequant import dequant, dequant_spmm
 from repro_torch.kernels.gather_aggregate import (BLOCK, block_spmm,
                                                   block_spmm_batched,
-                                                  build_block_csr)
+                                                  build_block_csr,
+                                                  compact_block_csr)
 
 
 class BlockCsr:
@@ -43,6 +44,8 @@ class BlockCsr:
         self.blocks = torch.as_tensor(blocks, device=self.device)
         self.cols = torch.as_tensor(cols, device=self.device)
         self.mask = torch.as_tensor(mask, device=self.device)
+        #: the tiles' nonzeros per output row, what the CUDA kernels read
+        self.rows = compact_block_csr(self.blocks, self.cols, self.mask)
 
     def aggregate_traced(self, h: torch.Tensor) -> torch.Tensor:
         """sum-aggregate, tensor in / tensor out on the prepared device.
@@ -58,7 +61,8 @@ class BlockCsr:
                          dtype=torch.float32)
         hp[..., :v, :] = h
         op = block_spmm_batched if h.ndim == 3 else block_spmm
-        out = op(self.blocks, self.cols, self.mask, hp, max_col=self.max_col)
+        out = op(self.blocks, self.cols, self.mask, hp, rows=self.rows,
+                 max_col=self.max_col)
         return out[..., :v, :]
 
     def aggregate(self, h: np.ndarray) -> np.ndarray:

@@ -39,6 +39,29 @@ def block_spmm_batched_ref(blocks: torch.Tensor, block_cols: torch.Tensor,
                         for hb in h])
 
 
+def block_spmm_rows_ref(rows, h: torch.Tensor) -> torch.Tensor:
+    """out = A @ h over the row-compacted operand (``gather_aggregate.
+    compact_block_csr``): the gathered source rows times their entries,
+    summed per segment, the segments weighted by ``seg_w`` and summed per
+    output row. Computes in ``h``'s dtype (float64 for the on-card
+    yardstick). h [S, F] -> [n_rows, F]."""
+    return block_spmm_rows_batched_ref(rows, h[None])[0]
+
+
+def block_spmm_rows_batched_ref(rows, h: torch.Tensor) -> torch.Tensor:
+    """The batched form: out[b] = A @ h[b] for h [B, S, F]."""
+    dev, dt = h.device, h.dtype
+    seg_of = torch.repeat_interleave(
+        torch.arange(rows.n_seg, device=dev), rows.seg_ptr.diff().long())
+    row_of = torch.repeat_interleave(
+        torch.arange(rows.n_rows, device=dev), rows.row_ptr.diff().long())
+    b, f = h.shape[0], h.shape[2]
+    gathered = h[:, rows.src.long()] * rows.val.to(dt)[None, :, None]
+    seg = h.new_zeros((b, rows.n_seg, f)).index_add_(1, seg_of, gathered)
+    return h.new_zeros((b, rows.n_rows, f)).index_add_(
+        1, row_of, seg * rows.seg_w.to(dt)[None, :, None])
+
+
 def dequant_ref(codes: torch.Tensor, scales: torch.Tensor,
                 mins: torch.Tensor) -> torch.Tensor:
     """Row-wise linear dequantization: out[v, f] = codes[v, f]*scale[v]+min[v].

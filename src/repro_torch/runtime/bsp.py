@@ -62,9 +62,11 @@ from repro_torch.gnn.graph import Graph
 from repro_torch.gnn.layers import EdgeList, LAYER_FNS, apply_layer_with_sum
 from repro_torch.kernels.daq_dequant import (dequant_spmm,
                                              dequant_spmm_batched)
-from repro_torch.kernels.gather_aggregate import (BLOCK, block_spmm,
+from repro_torch.kernels.gather_aggregate import (BLOCK, TileRows,
+                                                  block_spmm,
                                                   block_spmm_batched,
-                                                  build_block_csr)
+                                                  build_block_csr,
+                                                  compact_block_csr)
 
 #: legal values of the Engine/Session ``aggregation`` knob.
 AGGREGATIONS = ("segment_sum", "pallas", "auto")
@@ -521,6 +523,7 @@ class _FoldedCsr:
     blocks: torch.Tensor   # f32[n*VB, M, B, B]
     cols: torch.Tensor     # i32[n*VB, M]
     mask: torch.Tensor     # f32[n*VB, M]
+    rows: TileRows         # the tiles' nonzeros per row (CUDA kernels)
     max_col: int           # largest entry of cols (host bounds check)
     src_rows: int          # rows of the source table the launch reads
     out_rows: int          # output rows per shard (VB * B)
@@ -542,7 +545,9 @@ def _fold(csr: BlockShardCsr, device: torch.device,
     def put(a):
         return torch.as_tensor(a.reshape((n * vb,) + a.shape[2:]),
                                device=device)
-    return _FoldedCsr(put(csr.blocks), put(cols), put(csr.mask),
+    blocks, cols_t, mask = put(csr.blocks), put(cols), put(csr.mask)
+    return _FoldedCsr(blocks, cols_t, mask,
+                      compact_block_csr(blocks, cols_t, mask),
                       int(cols.max()), src_rows, csr.out_rows)
 
 
@@ -563,7 +568,7 @@ def _kernel_sum(pg: PartitionedGraph, h: torch.Tensor, lay: _Layout,
     spmm = block_spmm_batched if batched else block_spmm
     loc = _kernel_pad(h.reshape(lead + (n, slots, f)), local.src_rows // n)
     out = spmm(local.blocks, local.cols, local.mask,
-               loc.reshape(lead + (local.src_rows, f)),
+               loc.reshape(lead + (local.src_rows, f)), rows=local.rows,
                max_col=local.max_col)
     hb = h[..., lay.boundary_index, :] * lay.boundary_mask   # [.., n*B, F]
     if halo_quant:
@@ -575,7 +580,8 @@ def _kernel_sum(pg: PartitionedGraph, h: torch.Tensor, lay: _Layout,
                    F.pad(mn, pad), max_col=halo.max_col)
     else:
         out_h = spmm(halo.blocks, halo.cols, halo.mask,
-                     _kernel_pad(hb, halo.src_rows), max_col=halo.max_col)
+                     _kernel_pad(hb, halo.src_rows), rows=halo.rows,
+                     max_col=halo.max_col)
 
     def shard_rows(o):
         o = o.reshape(lead + (n, local.out_rows, f))[..., :slots, :]
