@@ -24,9 +24,16 @@ Phases, in order; any failed check raises and the script exits non-zero:
                 ``torch.sparse.mm``;
                 dequant_spmm(_batched): the mesh's folded halo operand over
                 its 16,128-row table with uint8 wire codes, F = 52 and 64,
-                B = 1 and 8, plus one uint16 and one rectangular case;
+                B = 1 and 8, plus one uint16 and one rectangular case, over
+                the same compacted rows; held to the dense plain version
+                and to the rows plain version in float64 (which agree to
+                1e-12); on CUDA without ``rows`` the wrappers must raise;
                 also bitwise ``block_spmm`` over the plain dequantized
-                table (the dense tile body against the row-compacted one);
+                table. Both walk the compacted rows, so that check holds
+                the dequantizing loader to the f32 one; no dense tile
+                kernel is left to witness on the card that the compacted
+                walk gives the dense tile body's floats (the CPU tests hold
+                the rows plain version to the dense one in float64);
                 yardstick ``codes.float() * s + m`` then
                 ``torch.sparse.mm`` (two calls);
                 flash_attention (plain version in float64 per head; f32
@@ -471,6 +478,19 @@ def dequant_cases(ga, dq, ref, bsp, halo, halo_real_rows: int):
         "rect": (rect, ga.compact_block_csr(*rect), int(rect[1].max()),
                  rect_src, 9000, adjacency(rs, rr, 2048, rect_src),
                  operand_stats(*rect[::2]))}
+    # On a CUDA tensor the wrappers need the compacted operand: no fallback.
+    for name in ("dequant_spmm", "dequant_spmm_batched"):
+        lead = (1,) * (name != "dequant_spmm")
+        c = torch.zeros(lead + (halo.src_rows, 8), dtype=torch.uint8,
+                        device="cuda")
+        s_ = torch.zeros(lead + (halo.src_rows,), device="cuda")
+        try:
+            getattr(dq, name)(*halo_ops, c, s_, s_, max_col=halo.max_col)
+        except ValueError as e:
+            if "compact_block_csr" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{name} ran on CUDA without rows")
     cases = [("mesh_halo", 52, torch.uint8, "mesh"),
              ("mesh_halo", 64, torch.uint8, "mesh"),
              ("mesh_halo", 64, torch.uint16, None),
@@ -480,6 +500,9 @@ def dequant_cases(ga, dq, ref, bsp, halo, halo_real_rows: int):
     for where, f, dtype, path in cases:
         (ops_, rows, max_col, src_rows, real_rows, a_lib,
          (n_real, nnz, cvb, cm)) = operands[where]
+        if rows.nnz != nnz:
+            raise AssertionError(f"{where}: {rows.nnz} compacted entries, "
+                                 f"{nnz} nonzero tile entries")
         for name, batch in (("dequant_spmm", 1),
                             ("dequant_spmm_batched", BATCH)):
             codes, sc, mn = wire_codes(bsp, gen, rng, batch, src_rows,
@@ -489,27 +512,44 @@ def dequant_cases(ga, dq, ref, bsp, halo, halo_real_rows: int):
             kern = getattr(dq, name)
             plain = (ref.dequant_spmm_ref if batch == 1
                      else ref.dequant_spmm_batched_ref)
-            got = kern(*ops_, codes, sc, mn, max_col=max_col)
-            # float64 yardstick: the very f32 dequantized panel, summed in
-            # float64 (float64 blocks promote the plain version).
+            rows_plain = (ref.dequant_spmm_rows_ref if batch == 1
+                          else ref.dequant_spmm_rows_batched_ref)
+
+            def call():
+                return kern(*ops_, codes, sc, mn, rows=rows, max_col=max_col)
+            got = call()
+            # float64 yardsticks: the very f32 dequantized table, summed in
+            # float64 over the dense tiles (float64 blocks promote the plain
+            # version) and over the compacted rows; the two agree to 1e-12.
             want = plain(ops_[0].double(), ops_[1], ops_[2].double(), codes,
                          sc, mn)
+            want_rows = rows_plain(rows, codes, sc, mn, dtype=torch.float64)
+            check_close(f"{name} {where} F={f}: dense vs rows plain",
+                        want_rows, want, 1e-12, 1e-12)
             err = errors(got, want)
+            err["rows_f64_max_abs_err"] = errors(got, want_rows)[
+                "max_abs_err"]
             err["plain_f32_max_abs_err"] = errors(
                 plain(*ops_, codes, sc, mn), want)["max_abs_err"]
+            err["rows_plain_f32_max_abs_err"] = errors(
+                rows_plain(rows, codes, sc, mn), want)["max_abs_err"]
             check_close(f"{name} {where} F={f} {dtype}", got.double(), want,
                         KERNEL_RTOL, KERNEL_ATOL)
+            check_close(f"{name} {where} F={f} {dtype} vs rows",
+                        got.double(), want_rows, KERNEL_RTOL, KERNEL_ATOL)
             stack = (codes, sc, mn) if batch > 1 else tuple(
                 x[None] for x in (codes, sc, mn))
             for b in range(batch):
                 c, s_, m_ = (x[b] for x in stack)
-                serial = dq.dequant_spmm(*ops_, c, s_, m_, max_col=max_col)
+                serial = dq.dequant_spmm(*ops_, c, s_, m_, rows=rows,
+                                         max_col=max_col)
                 if batch > 1 and not torch.equal(got[b], serial):
                     raise AssertionError(f"{name} {where} F={f}: example {b}"
                                          f" differs from dequant_spmm")
-                # The staged panel is bitwise the plain dequantized table,
-                # and the dense tile body sums it to the row-compacted
-                # kernel's floats.
+                # Both kernels walk the same compacted rows: the values the
+                # dequantizing loader builds in registers are bitwise the
+                # plain dequantized table, so the chain gives block_spmm's
+                # floats over that table.
                 table = ref.dequant_ref(c, s_, m_)
                 if not torch.equal(serial, ga.block_spmm(
                         *ops_, table, rows=rows, max_col=max_col)):
@@ -528,26 +568,33 @@ def dequant_cases(ga, dq, ref, bsp, halo, halo_real_rows: int):
                 if batch > 1 else lib()
             check_close(f"library {where} F={f}", lib_out.double(), want,
                         KERNEL_RTOL, KERNEL_ATOL)
-            k_ms = time_ms(lambda: kern(*ops_, codes, sc, mn,
-                                        max_col=max_col), reps=20)
-            p_ms = time_ms(lambda: plain(*ops_, codes, sc, mn), reps=3,
+            k_ms = time_ms(call, reps=30)
+            p_ms = time_ms(lambda: rows_plain(rows, codes, sc, mn), reps=5,
                            warmup=1)
-            l_ms = time_ms(lib, reps=20)
+            dense_ms = time_ms(lambda: plain(*ops_, codes, sc, mn), reps=3,
+                               warmup=1)
+            l_ms = time_ms(lib, reps=30)
             b_ms, b_by = bound(nnz, cvb, cm, src_rows, f, batch,
                                code_bytes=codes.element_size(), row_bytes=8)
             rec = {"case": where, "F": f, "B": batch,
                    "codes": str(dtype).removeprefix("torch."),
                    "src_rows": src_rows, "out_rows": cvb * 128,
                    "real_tiles": n_real, "tile_slots": cvb * cm,
-                   "tile_nonzeros": nnz,
+                   "tile_nonzeros": nnz, "segments": rows.n_seg,
+                   "split_rows": len(rows.split),
                    "path": path, **err, "ms": k_ms, "plain_ms": p_ms,
-                   "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by}
+                   "dense_plain_ms": dense_ms,
+                   "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "host_us": host_us(call),
+                   "library_host_us": host_us(lib)}
             out[name]["cases"].append(rec)
             log(f"  {name:21s} {where:9s} F={f:3d} B={batch} "
                 f"{rec['codes']:6s} err {err['max_abs_err']:.3g} kernel "
-                f"{k_ms:.4f} ms  plain {p_ms:.4f} ms  library {l_ms:.4f} ms"
-                f"  bound {b_ms:.4f} ms ({b_by})")
-            del codes, sc, mn, got, want, lib_out
+                f"{k_ms:.4f} ms  plain {p_ms:.4f} ms (dense {dense_ms:.4f})"
+                f"  library {l_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  "
+                f"host {rec['host_us']:.1f} us (library "
+                f"{rec['library_host_us']:.1f})")
+            del codes, sc, mn, got, want, want_rows, lib_out
     return out
 
 

@@ -14,9 +14,11 @@ trace of ``--queries`` back-to-back ``execute`` calls and of one
 ``execute_many`` over 8 feature sets: device busy time (kernels, copies and
 fills from the trace, as a union of intervals), the window's host-clock
 length, the device's idle share, device time by kernel name, and the
-block-CSR row kernel's (``rows_spmm_kernel``: ``block_spmm`` and
-``block_spmm_batched``) device time and share. The host-clock split of a
-query into collect / execute / account is ``chip_smoke.py``'s.
+block-CSR row kernels' device time and share: ``rows_spmm_kernel``
+(``block_spmm`` and ``block_spmm_batched``) and ``dequant_rows_kernel``
+(``dequant_spmm`` and ``dequant_spmm_batched``, the DAQ halo wire of
+``mesh-bsp``). The host-clock split of a query into collect / execute /
+account is ``chip_smoke.py``'s.
 
 With ``--transformer`` it traces the transformer serving path instead:
 qwen1.5-0.5b at full width with ``attn_impl="flash"`` (random seeded
@@ -44,6 +46,8 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+#: The port's block-CSR row kernels, by the name the trace gives them.
+GNN_KERNELS = ("rows_spmm_kernel", "dequant_rows_kernel")
 
 
 def device_intervals(prof):
@@ -68,10 +72,10 @@ def busy_us(intervals) -> float:
     return total
 
 
-def profile_window(fn, match: str = "") -> dict:
+def profile_window(fn, match=()) -> dict:
     """Run ``fn`` under the profiler; device busy vs host-clock window.
-    With ``match``, also the device time of the kernels whose name holds
-    it and their share of the window and of the busy time."""
+    For each name in ``match``, also the device time of the kernels whose
+    name holds it and their share of the window and of the busy time."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -92,11 +96,11 @@ def profile_window(fn, match: str = "") -> dict:
            "device_idle_share": 1.0 - busy / wall_us,
            "kernel_launches": sum(cat == "kernel" for _, _, cat, _ in iv),
            "device_ms_by_name": {k: v / 1e3 for k, v in top}}
-    if match:
-        hit = busy_us([x for x in iv if match in x[3]])
-        out.update({f"{match}_ms": hit / 1e3,
-                    f"{match}_share_of_window": hit / wall_us,
-                    f"{match}_share_of_busy": hit / busy})
+    for name in match:
+        hit = busy_us([x for x in iv if name in x[3]])
+        out.update({f"{name}_ms": hit / 1e3,
+                    f"{name}_share_of_window": hit / wall_us,
+                    f"{name}_share_of_busy": hit / busy})
     return out
 
 
@@ -141,7 +145,7 @@ def profile_transformer() -> list:
                          ("serve_batch_B4", serve_batch)):
             fn()                                        # warm-up
             rec = {"arch": cfg.name, "case": name,
-                   **profile_window(fn, match="flash_kernel")}
+                   **profile_window(fn, match=("flash_kernel",))}
             recs.append(rec)
             print(json.dumps(rec), flush=True)
     return recs
@@ -187,10 +191,10 @@ def main() -> int:
         rec = {"kind": kind, "executor": args.executor,
                "execute": profile_window(lambda: [
                    sess.execute(feats) for _ in range(args.queries)],
-                   match="rows_spmm_kernel"),
+                   match=GNN_KERNELS),
                "execute_many_8": profile_window(
                    lambda: sess.execute_many(stack),
-                   match="rows_spmm_kernel")}
+                   match=GNN_KERNELS)}
         rec["execute"]["per_query_ms"] = (rec["execute"]["window_ms"]
                                           / args.queries)
         report["models"].append(rec)

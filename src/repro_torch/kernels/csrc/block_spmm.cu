@@ -12,36 +12,47 @@
 //   out[b, i*128 + r, f] = sum_m mask[i, m] * sum_k blocks[i, m, r, k]
 //                                          * h[b, cols[i, m]*128 + k, f]
 // over the ELL-over-blocks layout of build_block_csr (M tile slots per
-// row-block; padding slots carry mask 0 and an all-zero tile).
+// row-block; padding slots carry mask 0 and an all-zero tile); the dequant
+// products take h = codes * scale[row] + min[row].
 //
-// f32 block_spmm / block_spmm_batched (the first section below) read no
-// tiles. They read the row-compacted operand that compact_block_csr
-// (gather_aggregate.py) builds once per layout from the tiles themselves:
-// per output row its segments, one per real tile slot whose row r holds a
-// nonzero, in slot order; per segment the slot's mask value and its
-// nonzero entries as (global source row cols*128 + k, value) pairs in k
-// order.
+// They read no tiles. They read the row-compacted operand that
+// compact_block_csr (gather_aggregate.py) builds once per layout from the
+// tiles themselves: per output row its segments, one per real tile slot
+// whose row r holds a nonzero, in slot order; per segment the slot's mask
+// value and its nonzero entries as (global source row cols*128 + k, value)
+// pairs in k order. One walker serves all four; a row loader says where
+// an entry's source row comes from:
+//   F32Rows             the lane's features of an f32 table row
+//                       (block_spmm, block_spmm_batched);
+//   DequantRows<Code>   the lane's uint8/16/32 codes of the row, each
+//                       built in registers as __fadd_rn(__fmul_rn(code,
+//                       scale), min) from the row's (scale, min)
+//                       (dequant_spmm, dequant_spmm_batched). Product and
+//                       sum are rounded apart, as the plain version rounds
+//                       them, so each value is bitwise the plain
+//                       dequantized table's and the dense f32 table never
+//                       exists in device memory.
 //
 // What bounds them on an H100: bytes, 8 per nonzero entry (value and
-// source index) plus the source table and the output once per example, at
+// source index) plus the source table (F * 4 bytes a row, or F code bytes
+// and 8 bytes of row parameters) and the output once per example, at
 // 3.35 TB/s; the multiply-adds, one per nonzero per feature, are far below
-// the f32 CUDA-core peak. In practice the gathers of source rows (F * 4
-// contiguous bytes each, from L2: SIoT's table is 3.4 MB) set the pace:
-// at B = 8 their traffic runs at the rate an L2 gather reaches, and one
-// row's sum is a chain that must run in order, so the longest row (SIoT's
-// hub: 2,631 entries) sets the floor of a small launch. An SM keeps only
-// so many gathers in flight, whatever the occupancy, so a long row
-// must be spread over warps.
+// the f32 CUDA-core peak. In practice the gathers of source rows (from L2:
+// SIoT's f32 table is 3.4 MB) set the pace: at B = 8 their traffic runs at
+// the rate an L2 gather reaches, and one row's sum is a chain that must
+// run in order, so the longest row (SIoT's hub: 2,631 entries) sets the
+// floor of a small launch. An SM keeps only so many gathers in flight,
+// whatever the occupancy, so a long row must be spread over warps.
 //
-// Skipping the zeros is exact. The dense tile product (the dequant kernels
-// below) builds each output element as one chain part = fmaf(a[k], b[k],
-// part) over k = 0..127 per real slot, folded in slot order by acc =
-// fmaf(mask, part, acc). For a finite b, fmaf(0, b, part) returns part (at
-// most the sign of a zero differs), and a slot whose row is all zero folds
-// in fmaf(1, 0, acc) = acc. So walking only the nonzeros, in the same
-// (slot, k) order, with the same per-slot partial and fold, gives the
-// dense product's floats: chip_smoke.py holds dequant_spmm to block_spmm
-// over the plain dequantized table bit for bit.
+// Skipping the zeros is exact. The dense tile product builds each output
+// element as one chain part = fmaf(a[k], b[k], part) over k = 0..127 per
+// real slot, folded in slot order by acc = fmaf(mask, part, acc). For a
+// finite b, fmaf(0, b, part) returns part (at most the sign of a zero
+// differs), and a slot whose row is all zero folds in fmaf(1, 0, acc) =
+// acc. So walking only the nonzeros, in the same (slot, k) order, with the
+// same per-slot partial and fold, gives the dense product's floats; a
+// dequantized code is finite. Both loaders feed the same chain, so
+// dequant_spmm is bitwise block_spmm over the plain dequantized table.
 //
 // Design. Rows of up to 512 entries: one warp per (output row, feature
 // chunk, example), the example index fastest, so the B warps of a row read
@@ -52,29 +63,19 @@
 // segments each, keep the per-segment partials in shared memory, and one
 // warp folds them in slot order: the same chain, spread over 8 warps. The
 // lanes cover the features, NF = ceil(F / 32) in each lane's registers (F
-// above 256 splits into chunks), masked at the ragged edge. A warp walks a
-// row in batches of 32 entries, loaded coalesced one batch ahead; it stages
-// each batch's (source, value, weight, segment) in shared memory and reads
-// them back as broadcasts, so the chain has no branch and no warp
-// collective, and it issues the feature loads of a group of entries
-// before the group's FMAs. Each segment resets part, runs part =
-// fmaf(value, h, part) in entry order and folds acc = fmaf(mask, part,
-// acc); each output element is stored once. No atomics, no TF32. The
-// kernel fits 64 registers (32 warps an SM), which the batched launches
-// need. Offsets into h and out are 64-bit.
-//
-// The dequant kernels (second section) keep the dense design: one CTA
-// computes a 64-row x 64-feature output slab of one row-block, walking the
-// row-block's real tiles; tile slab and source panel are staged through
-// shared memory in 64-wide k-chunks, each thread keeps a 4x4 register block.
-// Their panel loader reads uint8/16/32 codes and one f32 (scale, min) pair
-// per source row and builds h[row, f] = codes[row, f] * scale[row] +
-// min[row] while staging, so the dense table never exists in device
-// memory. Product and sum are rounded apart (__fmul_rn, __fadd_rn), as the
-// plain version rounds them, so the staged panel is bitwise the plain
-// dequantized table. Bound by the tiles they read (64 KB each) and the
-// products with zero entries they do; a zero-skipping form on the
-// compacted operand is later work. dequant (last section) is the
+// above 256 splits into chunks), masked at the ragged edge; a warp's 32
+// lanes read 32 neighbouring elements of a row, so a uint8 row is read a
+// byte a lane (rows of F code bytes are not 4-byte aligned: no vector
+// loads). A warp walks a row in batches of 32 entries, loaded coalesced
+// one batch ahead; it stages each batch's (source, value, weight, segment)
+// in shared memory, the dequant loader also each entry's (scale, min), and
+// reads them back as broadcasts, so the chain has no branch and no warp
+// collective, and it issues the source loads of a group of entries before
+// the group's FMAs. Each segment resets part, runs part = fmaf(value, h,
+// part) in entry order and folds acc = fmaf(mask, part, acc); each output
+// element is stored once. No atomics, no TF32. The kernels fit 64
+// registers (32 warps an SM), which the batched launches need. Offsets
+// into the tables and out are 64-bit. dequant (last section) is the
 // standalone row-wise dequantization with the same rounding.
 
 #include <cuda_runtime.h>
@@ -82,20 +83,135 @@
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// f32 block_spmm / block_spmm_batched on the row-compacted operand.
-// ---------------------------------------------------------------------------
-
-constexpr int kRowWarps = 8;  // warps per CTA of the row kernel
+constexpr int kRowWarps = 8;  // warps per CTA of the row kernels
 constexpr unsigned kAll = 0xffffffffu;
 
-// Entries whose feature loads one group issues before its FMAs: 16
-// prefetch registers a lane whatever NF, so that the kernel fits 64
-// registers (4 CTAs, 32 warps an SM).
+// Entries whose source loads one group issues before its FMAs, for an f32
+// table: 16 prefetch registers a lane whatever NF, so that the kernels fit
+// 64 registers (4 CTAs, 32 warps an SM). Each loader picks its own.
 template <int NF>
 __host__ __device__ constexpr int group_of() {
   return NF <= 2 ? 8 : (NF <= 4 ? 4 : 2);
 }
+
+// ---------------------------------------------------------------------------
+// Row loaders. Per entry a loader may fetch a Param (one batch ahead) and
+// stage it beside the entry; per group it loads a Raw value for each of
+// the lane's features of the entry's source row, and the chain turns it
+// into the f32 source value.
+// ---------------------------------------------------------------------------
+
+struct NoParam {};
+
+// An f32 table: base points at the lane's first column of the example's
+// row 0, row_bytes is F * 4.
+struct F32Rows {
+  using Param = NoParam;
+  using Raw = float;
+  struct Stage {
+    int4 entry[32];
+  };
+  const char* base;
+  unsigned row_bytes;
+
+  template <int NF>
+  __host__ __device__ static constexpr int group() {
+    return group_of<NF>();
+  }
+  __device__ __forceinline__ Param param(int) const { return {}; }
+  __device__ __forceinline__ static void put(Stage&, int, Param) {}
+  __device__ __forceinline__ static Param staged(const Stage&, int) {
+    return {};
+  }
+  __device__ __forceinline__ Raw load(int src, int j) const {
+    return __ldg(reinterpret_cast<const float*>(
+                     base + (unsigned long long)(unsigned)src * row_bytes) +
+                 32 * j);
+  }
+  __device__ __forceinline__ static float value(Param, Raw x) { return x; }
+};
+
+// A table of uint8/16/32 codes with one f32 (scale, min) per row: base
+// points at the lane's first code of the example's row 0, scales / mins
+// at the example's row parameters, f is the codes a row. Sources are
+// read-only for a launch, so every load takes the read-only data cache.
+template <typename Code>
+struct DequantRows {
+  using Param = float2;  // (scale, min) of the entry's source row
+  using Raw = Code;
+  struct Stage {
+    int4 entry[32];
+    float2 param[32];
+  };
+  const Code* base;
+  const float* scales;
+  const float* mins;
+  unsigned f;
+
+  // Half the f32 group: the loader's pointers and each entry's (scale,
+  // min) take the registers of the other half. With the full group the
+  // uint8 NF = 2 instantiation (F = 52, 64) spilled about 100 bytes at 64
+  // registers and ran 30 % slower at B = 8 on an H100.
+  template <int NF>
+  __host__ __device__ static constexpr int group() {
+    return group_of<NF>() > 1 ? group_of<NF>() / 2 : 1;
+  }
+  __device__ __forceinline__ Param param(int src) const {
+    return make_float2(__ldg(scales + src), __ldg(mins + src));
+  }
+  __device__ __forceinline__ static void put(Stage& st, int lane, Param p) {
+    st.param[lane] = p;
+  }
+  __device__ __forceinline__ static Param staged(const Stage& st, int i) {
+    return st.param[i];
+  }
+  __device__ __forceinline__ Raw load(int src, int j) const {
+    return __ldg(base + (unsigned long long)(unsigned)src * f + 32 * j);
+  }
+  __device__ __forceinline__ static float value(Param p, Raw code) {
+    return __fadd_rn(__fmul_rn((float)code, p.x), p.y);
+  }
+};
+
+// The source tables of a launch: at(b, col0) is the loader of example b
+// for the lane whose first feature is col0.
+struct F32Table {
+  using Rows = F32Rows;
+  const float* h;
+  long long stride;  // src_rows * f
+  int f;
+  __device__ __forceinline__ Rows at(long long b, int col0) const {
+    return {reinterpret_cast<const char*>(h + b * stride + col0),
+            (unsigned)f * 4u};
+  }
+};
+
+template <typename Code>
+struct CodeTable {
+  using Rows = DequantRows<Code>;
+  const Code* codes;
+  const float* scales;
+  const float* mins;
+  long long src_rows;
+  int f;
+  __device__ __forceinline__ Rows at(long long b, int col0) const {
+    return {codes + b * src_rows * f + col0, scales + b * src_rows,
+            mins + b * src_rows, (unsigned)f};
+  }
+};
+
+// Dynamic shared memory of a split CTA (partials and weights) stays within
+// the 48 KB a launch may take without opting in, beside the static
+// staging: `round_segs` + 1 is at most this many slots per NF.
+template <class Rows>
+constexpr int part_slots() {
+  return (48 * 1024 - kRowWarps * (int)sizeof(typename Rows::Stage)) /
+         (33 * 4);
+}
+
+// ---------------------------------------------------------------------------
+// The row walker and the row kernels.
+// ---------------------------------------------------------------------------
 
 // Folds a finished segment's partial into the row's sum, in slot order:
 // acc = fmaf(weight, part, acc) where the entry ends a segment.
@@ -130,11 +246,10 @@ struct KeepPart {
 
 // One warp walks the entries e .. e_end of a row, which start segment s
 // and end one (seg_ptr[s] == e), for one table and the lane's features:
-// base points at the lane's first column of the table's row 0, its
-// features are base + 32 j for the j with live[j] (the others lie past the
-// ragged feature edge and read nothing), row_bytes is F * 4. In entry
-// order: part = fmaf(value, h, part) per entry; where a segment ends,
-// sink.at(true, weight, segment, part) and part = 0.
+// `rows` loads them, for the j with live[j] (the others lie past the
+// ragged feature edge and read nothing). In entry order: part =
+// fmaf(value, h, part) per entry; where a segment ends, sink.at(true,
+// weight, segment, part) and part = 0.
 //
 // The entries go in batches of 32, lane i holding entry e + i. Per batch
 // the warp also holds the window of the next 32 segments (lane j: segment
@@ -142,19 +257,21 @@ struct KeepPart {
 // every segment that can end in the batch; from it a bit mask of the
 // entries that end a segment and, per entry, the weight and index of the
 // segment it ends. Each lane stages its entry as (source, value, weight,
-// segment) in the warp's 512 bytes of shared memory, and the batch's loop
-// reads them back as broadcasts: it is free of branches and of warp
-// collectives, so all its feature loads issue before its first FMA. The
-// next batch's entries and window load before the FMAs too. Padding
-// entries (past e_end) read source row 0 and end no segment: they come
-// after the walk's last fold and reach no output.
-template <int NF, class Sink>
+// segment), and the loader's Param beside it, in the warp's shared memory,
+// and the batch's loop reads them back as broadcasts: it is free of
+// branches and of warp collectives, so all its source loads issue before
+// its first FMA. The next batch's entries and window load before the FMAs
+// too; its Params (a load that needs the entries' sources) after them,
+// when the sources have arrived. Padding entries (past e_end) read source
+// row 0 and end no segment: they come after the walk's last fold and
+// reach no output.
+template <int NF, class Rows, class Sink>
 __device__ __forceinline__ void walk_segments(
     const int* __restrict__ seg_ptr, const float* __restrict__ seg_w,
     const int* __restrict__ src, const float* __restrict__ val, int n_seg,
-    const char* base, const bool (&live)[NF], unsigned row_bytes, int lane,
-    int s, int e, int e_end, int4* stage, Sink& sink) {
-  constexpr int U = group_of<NF>();
+    const Rows& rows, const bool (&live)[NF], int lane, int s, int e,
+    int e_end, typename Rows::Stage& stage, Sink& sink) {
+  constexpr int U = Rows::template group<NF>();
   float part[NF];
 #pragma unroll
   for (int j = 0; j < NF; ++j) part[j] = 0.0f;
@@ -162,6 +279,7 @@ __device__ __forceinline__ void walk_segments(
   float my_val = e + lane < e_end ? __ldg(val + e + lane) : 0.0f;
   int my_end = s + lane < n_seg ? __ldg(seg_ptr + s + lane + 1) : 0x7fffffff;
   float my_w = s + lane < n_seg ? __ldg(seg_w + s + lane) : 0.0f;
+  typename Rows::Param my_p = rows.param(my_src);
   for (; e < e_end; e += 32) {
     const int n = min(32, e_end - e);
     // Bit i: real entry e + i ends a segment, segment s + (number of ends
@@ -172,8 +290,9 @@ __device__ __forceinline__ void walk_segments(
     const int before = __popc(ends & ((1u << lane) - 1u));
     const float end_w = __shfl_sync(kAll, my_w, before);
     __syncwarp();  // the previous batch's reads are done
-    stage[lane] = make_int4(my_src, __float_as_int(my_val),
-                            __float_as_int(end_w), s + before);
+    stage.entry[lane] = make_int4(my_src, __float_as_int(my_val),
+                                  __float_as_int(end_w), s + before);
+    Rows::put(stage, lane, my_p);
     __syncwarp();
     // The next batch's entries and window, ahead of this batch's chain.
     s += __popc(ends);
@@ -184,29 +303,31 @@ __device__ __forceinline__ void walk_segments(
     my_w = s + lane < n_seg ? __ldg(seg_w + s + lane) : 0.0f;
 #pragma unroll 1
     for (int g = 0; g < n; g += U) {
-      // Every feature load of the group first ...
-      float x[U][NF];
+      // Every source load of the group first ...
+      typename Rows::Raw x[U][NF];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        const float* hr = reinterpret_cast<const float*>(
-            base + (unsigned long long)(unsigned)stage[g + u].x * row_bytes);
+        const int from = stage.entry[g + u].x;
 #pragma unroll
         for (int j = 0; j < NF; ++j)
-          x[u][j] = live[j] ? __ldg(hr + 32 * j) : 0.0f;
+          x[u][j] = live[j] ? rows.load(from, j) : typename Rows::Raw(0);
       }
       // ... then the chain, in entry order.
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        const int4 en = stage[g + u];
+        const int4 en = stage.entry[g + u];
+        const typename Rows::Param p = Rows::staged(stage, g + u);
         const bool fold = (ends >> (g + u)) & 1u;
 #pragma unroll
         for (int j = 0; j < NF; ++j)
-          part[j] = fmaf(__int_as_float(en.y), x[u][j], part[j]);
+          part[j] = fmaf(__int_as_float(en.y), Rows::value(p, x[u][j]),
+                         part[j]);
         sink.at(fold, __int_as_float(en.z), en.w, part);
 #pragma unroll
         for (int j = 0; j < NF; ++j) part[j] = fold ? 0.0f : part[j];
       }
     }
+    my_p = rows.param(my_src);
   }
 }
 
@@ -218,23 +339,23 @@ __device__ __forceinline__ void walk_segments(
 // of the row's entries each (whole segments, at most `round_segs`
 // segments at a time), keep the partials in shared memory, and warp 0
 // folds them in slot order, so the row's sum is the same chain as one
-// warp's. Row `row` has segments row_ptr[row] .. row_ptr[row + 1]. h[b] is
-// [src_rows, f] at b * h_stride, out[b] [n_rows, f] at b * out_stride.
-template <int NF>
-__global__ void __launch_bounds__(kRowWarps * 32, 4)
-rows_spmm_kernel(const int* __restrict__ row_ptr,
-                 const int* __restrict__ seg_ptr,
-                 const float* __restrict__ seg_w, const int* __restrict__ src,
-                 const float* __restrict__ val,
-                 const int4* __restrict__ warp_rows,
-                 const int* __restrict__ split, const float* __restrict__ h,
-                 float* __restrict__ out, int n_seg, long long n_split_ctas,
-                 long long n_warps, int round_segs, int batch, int chunks,
-                 int f, long long h_stride, long long out_stride) {
+// warp's. Row `row` has segments row_ptr[row] .. row_ptr[row + 1]. The
+// example's sources come from table.at(b, ...), out[b] is [n_rows, f] at
+// b * out_stride.
+template <int NF, class Table>
+__device__ __forceinline__ void rows_spmm_body(
+    const int* __restrict__ row_ptr, const int* __restrict__ seg_ptr,
+    const float* __restrict__ seg_w, const int* __restrict__ src,
+    const float* __restrict__ val, const int4* __restrict__ warp_rows,
+    const int* __restrict__ split, const Table& table,
+    float* __restrict__ out, int n_seg, long long n_split_ctas,
+    long long n_warps, int round_segs, int batch, int chunks, int f,
+    long long out_stride) {
+  using Rows = typename Table::Rows;
   // Split CTAs: [round_segs + 1][NF][32] partials, then round_segs + 1
   // weights (the last slot of each is the spare).
   extern __shared__ float parts[];
-  __shared__ int4 stage[kRowWarps][32];
+  __shared__ typename Rows::Stage stage[kRowWarps];
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   const bool whole_cta = blockIdx.x < n_split_ctas;
@@ -245,11 +366,10 @@ rows_spmm_kernel(const int* __restrict__ row_ptr,
   const long long b = w % batch;
   const long long rc = w / batch;
   const int col0 = (int)(rc % chunks) * 32 * NF + lane;
-  const char* base = reinterpret_cast<const char*>(h + b * h_stride + col0);
+  const Rows rows = table.at(b, col0);
   bool live[NF];
 #pragma unroll
   for (int j = 0; j < NF; ++j) live[j] = col0 + 32 * j < f;
-  const unsigned row_bytes = (unsigned)f * 4u;
 
   FoldSum<NF> sum;
 #pragma unroll
@@ -258,8 +378,8 @@ rows_spmm_kernel(const int* __restrict__ row_ptr,
   if (!whole_cta) {
     const int4 info = __ldg(warp_rows + rc / chunks);
     row = info.x;
-    walk_segments<NF>(seg_ptr, seg_w, src, val, n_seg, base, live, row_bytes,
-                      lane, info.y, info.z, info.w, stage[warp], sum);
+    walk_segments<NF>(seg_ptr, seg_w, src, val, n_seg, rows, live, lane,
+                      info.y, info.z, info.w, stage[warp], sum);
   } else {
     row = __ldg(split + rc / chunks);
     const int s0 = __ldg(row_ptr + row);
@@ -283,9 +403,9 @@ rows_spmm_kernel(const int* __restrict__ row_ptr,
       if (lo < hi) {
         KeepPart<NF> keep{parts, parts + (round_segs + 1) * NF * 32, r0,
                           round_segs, lane};
-        walk_segments<NF>(seg_ptr, seg_w, src, val, n_seg, base, live,
-                          row_bytes, lane, lo, __ldg(seg_ptr + lo),
-                          __ldg(seg_ptr + hi), stage[warp], keep);
+        walk_segments<NF>(seg_ptr, seg_w, src, val, n_seg, rows, live, lane,
+                          lo, __ldg(seg_ptr + lo), __ldg(seg_ptr + hi),
+                          stage[warp], keep);
       }
       __syncthreads();
       if (warp == 0) {
@@ -308,39 +428,91 @@ rows_spmm_kernel(const int* __restrict__ row_ptr,
     if (live[j]) ob[col0 + 32 * j] = sum.acc[j];
 }
 
-// Dynamic shared memory of a split CTA (partials and weights) stays within
-// the 48 KB a launch may take without opting in, beside the static
-// staging: `round_segs` + 1 is at most this many slots per NF.
-constexpr int kPartSlots = (48 * 1024 - kRowWarps * 32 * 16) / (33 * 4);
+// block_spmm(_batched): h[b] is [src_rows, f] at b * h_stride.
+template <int NF>
+__global__ void __launch_bounds__(kRowWarps * 32, 4)
+rows_spmm_kernel(const int* __restrict__ row_ptr,
+                 const int* __restrict__ seg_ptr,
+                 const float* __restrict__ seg_w, const int* __restrict__ src,
+                 const float* __restrict__ val,
+                 const int4* __restrict__ warp_rows,
+                 const int* __restrict__ split, const float* __restrict__ h,
+                 float* __restrict__ out, int n_seg, long long n_split_ctas,
+                 long long n_warps, int round_segs, int batch, int chunks,
+                 int f, long long h_stride, long long out_stride) {
+  rows_spmm_body<NF>(row_ptr, seg_ptr, seg_w, src, val, warp_rows, split,
+                     F32Table{h, h_stride, f}, out, n_seg, n_split_ctas,
+                     n_warps, round_segs, batch, chunks, f, out_stride);
+}
+
+// dequant_spmm(_batched): codes[b] is [src_rows, f], scales[b] / mins[b]
+// [src_rows].
+template <int NF, typename Code>
+__global__ void __launch_bounds__(kRowWarps * 32, 4)
+dequant_rows_kernel(const int* __restrict__ row_ptr,
+                    const int* __restrict__ seg_ptr,
+                    const float* __restrict__ seg_w,
+                    const int* __restrict__ src,
+                    const float* __restrict__ val,
+                    const int4* __restrict__ warp_rows,
+                    const int* __restrict__ split,
+                    const Code* __restrict__ codes,
+                    const float* __restrict__ scales,
+                    const float* __restrict__ mins, float* __restrict__ out,
+                    int n_seg, long long n_split_ctas, long long n_warps,
+                    int round_segs, int batch, int chunks, int f,
+                    long long src_rows, long long out_stride) {
+  rows_spmm_body<NF>(row_ptr, seg_ptr, seg_w, src, val, warp_rows, split,
+                     CodeTable<Code>{codes, scales, mins, src_rows, f}, out,
+                     n_seg, n_split_ctas, n_warps, round_segs, batch, chunks,
+                     f, out_stride);
+}
+
+// The grid of a row-kernel launch.
+struct RowGrid {
+  int chunks, nf, round_segs;
+  long long n_split_ctas, n_warps, ctas;
+  size_t smem;
+};
+
+template <class Rows>
+RowGrid row_grid(int batch, int n_warp_rows, int n_split, int split_segs,
+                 int f) {
+  RowGrid g;
+  // Feature chunks of at most 256 (8 a lane), as even as they go.
+  g.chunks = (f + 255) / 256;
+  g.nf = ((f + g.chunks - 1) / g.chunks + 31) / 32;
+  g.n_split_ctas = (long long)n_split * g.chunks * batch;
+  g.n_warps = (long long)n_warp_rows * g.chunks * batch;
+  g.ctas = g.n_split_ctas + (g.n_warps + kRowWarps - 1) / kRowWarps;
+  g.round_segs =
+      n_split ? min(split_segs, part_slots<Rows>() / g.nf - 1) : 1;
+  g.smem = n_split
+      ? (size_t)(g.round_segs + 1) * (g.nf * 32 + 1) * sizeof(float)
+      : 0;
+  return g;
+}
 
 int rows_spmm(const int* row_ptr, const int* seg_ptr, const float* seg_w,
               const int* src, const float* val, const int* warp_rows,
               const int* split, const float* h, float* out, int batch,
               int n_rows, int n_seg, int n_warp_rows, int n_split,
               int split_segs, int f, int src_rows, void* stream) {
-  // Feature chunks of at most 256 (8 a lane), as even as they go.
-  const int chunks = (f + 255) / 256;
-  const int nf = ((f + chunks - 1) / chunks + 31) / 32;
-  const long long n_split_ctas = (long long)n_split * chunks * batch;
-  const long long n_warps = (long long)n_warp_rows * chunks * batch;
-  const long long ctas =
-      n_split_ctas + (n_warps + kRowWarps - 1) / kRowWarps;
-  if (ctas == 0) return (int)cudaSuccess;
-  if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int round_segs = n_split ? min(split_segs, kPartSlots / nf - 1) : 1;
-  const size_t smem =
-      n_split ? (size_t)(round_segs + 1) * (nf * 32 + 1) * sizeof(float) : 0;
+  const RowGrid g =
+      row_grid<F32Rows>(batch, n_warp_rows, n_split, split_segs, f);
+  if (g.ctas == 0) return (int)cudaSuccess;
+  if (g.ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const long long h_stride = (long long)src_rows * f;
   const long long out_stride = (long long)n_rows * f;
   cudaStream_t s = (cudaStream_t)stream;
+  switch (g.nf) {
 #define ROWS_SPMM(NF)                                                        \
   case NF:                                                                   \
-    rows_spmm_kernel<NF><<<(unsigned)ctas, kRowWarps * 32, smem, s>>>(       \
+    rows_spmm_kernel<NF><<<(unsigned)g.ctas, kRowWarps * 32, g.smem, s>>>(   \
         row_ptr, seg_ptr, seg_w, src, val, (const int4*)warp_rows, split, h, \
-        out, n_seg, n_split_ctas, n_warps, round_segs, batch, chunks, f,     \
-        h_stride, out_stride);                                               \
+        out, n_seg, g.n_split_ctas, g.n_warps, g.round_segs, batch,          \
+        g.chunks, f, h_stride, out_stride);                                  \
     break;
-  switch (nf) {
     ROWS_SPMM(1)
     ROWS_SPMM(2)
     ROWS_SPMM(3)
@@ -349,28 +521,82 @@ int rows_spmm(const int* row_ptr, const int* seg_ptr, const float* seg_w,
     ROWS_SPMM(6)
     ROWS_SPMM(7)
     ROWS_SPMM(8)
+#undef ROWS_SPMM
     default:
       return (int)cudaErrorInvalidValue;
   }
-#undef ROWS_SPMM
   return (int)cudaGetLastError();
 }
 
+template <typename Code>
+int dequant_rows(const int* row_ptr, const int* seg_ptr, const float* seg_w,
+                 const int* src, const float* val, const int* warp_rows,
+                 const int* split, const Code* codes, const float* scales,
+                 const float* mins, float* out, int batch, int n_rows,
+                 int n_seg, int n_warp_rows, int n_split, int split_segs,
+                 int f, int src_rows, void* stream) {
+  const RowGrid g = row_grid<DequantRows<Code>>(batch, n_warp_rows, n_split,
+                                                split_segs, f);
+  if (g.ctas == 0) return (int)cudaSuccess;
+  if (g.ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const long long out_stride = (long long)n_rows * f;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (g.nf) {
+#define DEQUANT_ROWS(NF)                                                   \
+  case NF:                                                                 \
+    dequant_rows_kernel<NF, Code>                                          \
+        <<<(unsigned)g.ctas, kRowWarps * 32, g.smem, s>>>(                 \
+            row_ptr, seg_ptr, seg_w, src, val, (const int4*)warp_rows,     \
+            split, codes, scales, mins, out, n_seg, g.n_split_ctas,        \
+            g.n_warps, g.round_segs, batch, g.chunks, f,                   \
+            (long long)src_rows, out_stride);                              \
+    break;
+    DEQUANT_ROWS(1)
+    DEQUANT_ROWS(2)
+    DEQUANT_ROWS(3)
+    DEQUANT_ROWS(4)
+    DEQUANT_ROWS(5)
+    DEQUANT_ROWS(6)
+    DEQUANT_ROWS(7)
+    DEQUANT_ROWS(8)
+#undef DEQUANT_ROWS
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+int dequant_spmm(const int* row_ptr, const int* seg_ptr, const float* seg_w,
+                 const int* src, const float* val, const int* warp_rows,
+                 const int* split, const void* codes, const float* scales,
+                 const float* mins, float* out, int batch, int n_rows,
+                 int n_seg, int n_warp_rows, int n_split, int split_segs,
+                 int f, int src_rows, int code_bytes, void* stream) {
+#define BY_CODE(CODE)                                                       \
+  dequant_rows(row_ptr, seg_ptr, seg_w, src, val, warp_rows, split,         \
+               (const CODE*)codes, scales, mins, out, batch, n_rows, n_seg, \
+               n_warp_rows, n_split, split_segs, f, src_rows, stream)
+  switch (code_bytes) {
+    case 1:
+      return BY_CODE(uint8_t);
+    case 2:
+      return BY_CODE(uint16_t);
+    case 4:
+      return BY_CODE(uint32_t);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef BY_CODE
+}
+
 // ---------------------------------------------------------------------------
-// dequant_spmm / dequant_spmm_batched: dense tiles, dequantizing loader.
+// dequant: standalone row-wise dequantization.
 // ---------------------------------------------------------------------------
 
-constexpr int kBlock = 128;  // adjacency tile edge (block-CSR block size)
-constexpr int kRows = 64;    // output rows per CTA
-constexpr int kFeat = 64;    // features per CTA
-constexpr int kChunk = 64;   // k-chunk staged through shared memory
-constexpr int kPad = 4;      // row padding of the tile slab (bank spread)
 constexpr int kThreads = 256;
 
-// The panel loader: the source value at (row, col) of one batch element's
-// table, for col < f. Sources are read-only for a launch, so every load
-// takes the read-only data cache (__ldg), whatever the compiler can prove
-// about aliasing through the struct.
+// The source value at (row, col) of a code table, for col < f, rounded
+// as DequantRows rounds it.
 template <typename Code>
 struct DequantPanel {
   const Code* codes;
@@ -383,142 +609,6 @@ struct DequantPanel {
                      __ldg(mins + row));
   }
 };
-
-template <class Panel>
-__device__ __forceinline__ void spmm_cta(
-    const float* __restrict__ blocks, const int* __restrict__ cols,
-    const float* __restrict__ mask, const Panel panel,
-    float* __restrict__ out, int m, int f, int row_block, int row0,
-    int feat0) {
-  __shared__ __align__(16) float a_s[kRows][kChunk + kPad];
-  __shared__ __align__(16) float b_s[kChunk][kFeat];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // feature lane: features tx + 16*j
-  const int ty = tid / 16;  // row lane: rows ty + 16*i
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int t = 0; t < m; ++t) {
-    const float w = mask[row_block * m + t];
-    if (w == 0.0f) continue;  // ELL padding slot: all-zero tile
-    const long long src0 = (long long)cols[row_block * m + t] * kBlock;
-    const float* tile =
-        blocks + ((long long)row_block * m + t) * kBlock * kBlock;
-
-    float part[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) part[i][j] = 0.0f;
-
-    for (int k0 = 0; k0 < kBlock; k0 += kChunk) {
-      // Tile slab rows row0..row0+63, columns k0..k0+63 (float4 loads).
-#pragma unroll
-      for (int p = 0; p < (kRows * kChunk / 4) / kThreads; ++p) {
-        const int q = tid + p * kThreads;
-        const int r = q / (kChunk / 4);
-        const int c4 = q % (kChunk / 4);
-        const float4 v = *reinterpret_cast<const float4*>(
-            tile + (long long)(row0 + r) * kBlock + k0 + 4 * c4);
-        *reinterpret_cast<float4*>(&a_s[r][4 * c4]) = v;
-      }
-      // Source panel rows src0+k0..+63, features feat0..feat0+63.
-#pragma unroll
-      for (int p = 0; p < (kChunk * kFeat) / kThreads; ++p) {
-        const int q = tid + p * kThreads;
-        const int kk = q / kFeat;
-        const int c = q % kFeat;
-        const int col = feat0 + c;
-        b_s[kk][c] = col < f ? panel(src0 + k0 + kk, col) : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < kChunk; ++kk) {
-        float a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = a_s[ty + 16 * i][kk];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = b_s[kk][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) part[i][j] = fmaf(a[i], b[j], part[i][j]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(w, part[i][j], acc[i][j]);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long row = (long long)row_block * kBlock + row0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = feat0 + tx + 16 * j;
-      if (col < f) out[row * f + col] = acc[i][j];
-    }
-  }
-}
-
-// The batched grid (B = 1 for a serial launch); codes[b] is
-// [src_rows, f], scales[b] / mins[b] [src_rows].
-template <typename Code>
-__global__ void __launch_bounds__(kThreads)
-dequant_spmm_kernel(const float* __restrict__ blocks,
-                    const int* __restrict__ cols,
-                    const float* __restrict__ mask,
-                    const Code* __restrict__ codes,
-                    const float* __restrict__ scales,
-                    const float* __restrict__ mins, float* __restrict__ out,
-                    int m, int f, long long src_rows, long long out_stride) {
-  const long long b = blockIdx.x;
-  const DequantPanel<Code> panel{codes + b * src_rows * f,
-                                 scales + b * src_rows, mins + b * src_rows,
-                                 f};
-  spmm_cta(blocks, cols, mask, panel, out + b * out_stride, m, f, blockIdx.z,
-           (blockIdx.y % 2) * kRows, (blockIdx.y / 2) * kFeat);
-}
-
-dim3 grid_of(int batch, int vb, int f) {
-  return dim3(batch, 2 * ((f + kFeat - 1) / kFeat), vb);
-}
-
-int dequant_spmm(const float* blocks, const int* cols, const float* mask,
-                 const void* codes, const float* scales, const float* mins,
-                 float* out, int batch, int vb, int m, int f, int src_rows,
-                 int code_bytes, void* stream) {
-  const dim3 grid = grid_of(batch, vb, f);
-  const long long out_stride = (long long)vb * kBlock * f;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (code_bytes) {
-    case 1:
-      dequant_spmm_kernel<uint8_t><<<grid, kThreads, 0, s>>>(
-          blocks, cols, mask, (const uint8_t*)codes, scales, mins, out, m, f,
-          src_rows, out_stride);
-      break;
-    case 2:
-      dequant_spmm_kernel<uint16_t><<<grid, kThreads, 0, s>>>(
-          blocks, cols, mask, (const uint16_t*)codes, scales, mins, out, m,
-          f, src_rows, out_stride);
-      break;
-    case 4:
-      dequant_spmm_kernel<uint32_t><<<grid, kThreads, 0, s>>>(
-          blocks, cols, mask, (const uint32_t*)codes, scales, mins, out, m,
-          f, src_rows, out_stride);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
 
 // Standalone dequantization, out[row, col] = codes * scale[row] +
 // min[row], rounded twice like the plain version. Bound by bytes: it reads
@@ -599,26 +689,38 @@ int block_spmm_batched_launch(const int* row_ptr, const int* seg_ptr,
                    split_segs, f, src_rows, stream);
 }
 
-// out f32[vb*128, f] = A @ (codes * scales[:, None] + mins[:, None]),
-// codes uint{8,16,32}[src_rows, f] (code_bytes 1, 2 or 4).
-int dequant_spmm_launch(const float* blocks, const int* cols,
-                        const float* mask, const void* codes,
-                        const float* scales, const float* mins, float* out,
-                        int vb, int m, int f, int src_rows, int code_bytes,
-                        void* stream) {
-  return dequant_spmm(blocks, cols, mask, codes, scales, mins, out, 1, vb, m,
-                      f, src_rows, code_bytes, stream);
+// out f32[n_rows, f] = A @ (codes * scales[:, None] + mins[:, None]), A
+// the row-compacted operand as for block_spmm_launch, codes
+// uint{8,16,32}[src_rows, f] (code_bytes 1, 2 or 4), scales / mins
+// f32[src_rows].
+int dequant_spmm_launch(const int* row_ptr, const int* seg_ptr,
+                        const float* seg_w, const int* src, const float* val,
+                        const int* warp_rows, const int* split,
+                        const void* codes, const float* scales,
+                        const float* mins, float* out, int n_rows, int n_seg,
+                        int n_warp_rows, int n_split, int split_segs, int f,
+                        int src_rows, int code_bytes, void* stream) {
+  return dequant_spmm(row_ptr, seg_ptr, seg_w, src, val, warp_rows, split,
+                      codes, scales, mins, out, 1, n_rows, n_seg,
+                      n_warp_rows, n_split, split_segs, f, src_rows,
+                      code_bytes, stream);
 }
 
-// out f32[b, vb*128, f] = A @ dequant(codes[b]), codes [b, src_rows, f],
+// out f32[b, n_rows, f] = A @ dequant(codes[b]), codes [b, src_rows, f],
 // scales / mins f32[b, src_rows].
-int dequant_spmm_batched_launch(const float* blocks, const int* cols,
-                                const float* mask, const void* codes,
+int dequant_spmm_batched_launch(const int* row_ptr, const int* seg_ptr,
+                                const float* seg_w, const int* src,
+                                const float* val, const int* warp_rows,
+                                const int* split, const void* codes,
                                 const float* scales, const float* mins,
-                                float* out, int batch, int vb, int m, int f,
-                                int src_rows, int code_bytes, void* stream) {
-  return dequant_spmm(blocks, cols, mask, codes, scales, mins, out, batch,
-                      vb, m, f, src_rows, code_bytes, stream);
+                                float* out, int batch, int n_rows, int n_seg,
+                                int n_warp_rows, int n_split, int split_segs,
+                                int f, int src_rows, int code_bytes,
+                                void* stream) {
+  return dequant_spmm(row_ptr, seg_ptr, seg_w, src, val, warp_rows, split,
+                      codes, scales, mins, out, batch, n_rows, n_seg,
+                      n_warp_rows, n_split, split_segs, f, src_rows,
+                      code_bytes, stream);
 }
 
 // out f32[rows, f] = codes * scales[:, None] + mins[:, None], codes

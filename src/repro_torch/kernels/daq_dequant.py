@@ -4,19 +4,23 @@ aggregation.
 The mesh executor's halo rows cross the wire as 8-bit codes plus one f32
 (scale, min) pair per row (paper §III-D's degree-aware quantization,
 applied to the BSP exchange). ``dequant_spmm`` aggregates straight from
-those codes: the CUDA kernel (``csrc/block_spmm.cu``, the block-CSR CTA
-with a dequantizing panel loader) builds each source panel as
-``codes * scale[row] + min[row]`` while staging it into shared memory, so
-the dense f32 table never exists in device memory. ``dequant_spmm_batched``
-does the same over a [B, S, F] stack of codes in one launch, each
-``out[b]`` bitwise ``dequant_spmm`` on example ``b``. ``dequant`` writes
-the dense f32 table itself (``ops.dequantize_features``), with the same
-two roundings, so it is bitwise the panel the fused kernels stage.
+those codes. Its CUDA kernel (``csrc/block_spmm.cu``, the block-CSR row
+walker with a dequantizing row loader) reads no tiles: it walks the
+operand's row-compacted nonzeros (``rows``, a
+``gather_aggregate.TileRows``), gathers each entry's codes and its source
+row's (scale, min), and builds ``codes * scale[row] + min[row]`` in
+registers, so the dense f32 table never exists in device memory. Its
+floats are ``block_spmm`` over the plain dequantized table, bit for bit.
+``dequant_spmm_batched`` does the same over a [B, S, F] stack of codes in
+one launch, each ``out[b]`` bitwise ``dequant_spmm`` on example ``b``.
+``dequant`` writes the dense f32 table itself (``ops.dequantize_features``),
+with the same two roundings.
 
-CUDA tensors launch the kernel on the current stream; CPU tensors take the
-plain versions (``kernels.ref``). Each wrapper counts its launches in a
-plain integer attribute (``dequant_spmm.launches``), raised by one at
-every launch and nowhere else.
+CUDA tensors launch the kernel on the current stream, and the fused
+products need ``rows`` there; CPU tensors take the dense plain versions
+(``kernels.ref``). Each wrapper counts its launches in a plain integer
+attribute (``dequant_spmm.launches``), raised by one at every launch and
+nowhere else.
 """
 from __future__ import annotations
 
@@ -26,16 +30,19 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.gather_aggregate import (BLOCK, _check_operands,
-                                                  _check_tensor, _kernel,
-                                                  _ptr, _raise_on)
+from repro_torch.kernels.gather_aggregate import (_NEEDS_ROWS, TileRows,
+                                                  _check_operands,
+                                                  _check_rows, _check_tensor,
+                                                  _kernel, _launch, _ptr,
+                                                  _raise_on)
 
 #: code dtypes the kernels take -> bytes per code.
 CODE_BYTES = {torch.uint8: 1, torch.uint16: 2, torch.uint32: 4}
 
 
 def _check(blocks, block_cols, block_mask, codes, scales, mins,
-           batched: bool, max_col: Optional[int]) -> None:
+           batched: bool, max_col: Optional[int],
+           rows: Optional[TileRows]) -> None:
     _check_operands(blocks, block_cols, block_mask, codes, batched, max_col,
                     h_name="codes", h_dtypes=tuple(CODE_BYTES))
     for name, t in (("scales", scales), ("mins", mins)):
@@ -43,11 +50,14 @@ def _check(blocks, block_cols, block_mask, codes, scales, mins,
         if tuple(t.shape) != tuple(codes.shape[:-1]):
             raise ValueError(f"{name} must be {tuple(codes.shape[:-1])} "
                              f"(one per source row), got {tuple(t.shape)}")
+    if rows is not None:
+        _check_rows(rows, blocks, codes)
 
 
 def dequant_spmm(blocks: torch.Tensor, block_cols: torch.Tensor,
                  block_mask: torch.Tensor, codes: torch.Tensor,
                  scales: torch.Tensor, mins: torch.Tensor, *,
+                 rows: Optional[TileRows] = None,
                  max_col: Optional[int] = None) -> torch.Tensor:
     """out = A @ (codes * scales[:, None] + mins[:, None]), fused.
 
@@ -56,27 +66,26 @@ def dequant_spmm(blocks: torch.Tensor, block_cols: torch.Tensor,
     a multiple of 128 covering every ``block_cols`` entry) and
     ``scales``/``mins`` are its f32[S] row parameters. Zero-padded rows
     (code 0, scale 0, min 0) contribute exactly 0. ``max_col`` is the
-    largest entry of ``block_cols`` when the caller knows it.
+    largest entry of ``block_cols`` when the caller knows it. CUDA tensors
+    launch the kernel over ``rows``, the operand's ``compact_block_csr``
+    (required there, built once per layout); CPU tensors take the dense
+    plain version.
     """
     _check(blocks, block_cols, block_mask, codes, scales, mins, False,
-           max_col)
+           max_col, rows)
     if codes.device.type == "cpu":
         return ref.dequant_spmm_ref(blocks, block_cols, block_mask, codes,
                                     scales, mins)
     if codes.device.type != "cuda":
         raise ValueError(f"dequant_spmm runs on cuda or cpu, not "
                          f"{codes.device}")
-    vb, m = blocks.shape[:2]
-    src_rows, f = codes.shape
-    out = torch.empty((vb * BLOCK, f), dtype=torch.float32,
+    if rows is None:
+        raise ValueError(_NEEDS_ROWS.format("dequant_spmm"))
+    out = torch.empty((rows.n_rows, codes.shape[1]), dtype=torch.float32,
                       device=codes.device)
-    with torch.cuda.device(codes.device):
-        stream = torch.cuda.current_stream(codes.device).cuda_stream
-        err = _kernel("dequant_spmm_launch")(
-            _ptr(blocks), _ptr(block_cols), _ptr(block_mask), _ptr(codes),
-            _ptr(scales), _ptr(mins), _ptr(out), vb, m, f, src_rows,
-            CODE_BYTES[codes.dtype], ctypes.c_void_p(stream))
-        dequant_spmm.launches += 1
+    err = _launch("dequant_spmm_launch", rows, (codes, scales, mins), out,
+                  last=(CODE_BYTES[codes.dtype],))
+    dequant_spmm.launches += 1
     _raise_on(err, "dequant_spmm")
     return out
 
@@ -84,29 +93,28 @@ def dequant_spmm(blocks: torch.Tensor, block_cols: torch.Tensor,
 def dequant_spmm_batched(blocks: torch.Tensor, block_cols: torch.Tensor,
                          block_mask: torch.Tensor, codes: torch.Tensor,
                          scales: torch.Tensor, mins: torch.Tensor, *,
+                         rows: Optional[TileRows] = None,
                          max_col: Optional[int] = None) -> torch.Tensor:
     """out[b] = A @ dequant(codes[b]) for codes [B, S, F] and f32[B, S]
     row parameters, one launch. Each ``out[b]`` is bitwise
-    ``dequant_spmm(..., codes[b], scales[b], mins[b])``."""
+    ``dequant_spmm(..., codes[b], scales[b], mins[b])``. ``rows`` as for
+    ``dequant_spmm``."""
     _check(blocks, block_cols, block_mask, codes, scales, mins, True,
-           max_col)
+           max_col, rows)
     if codes.device.type == "cpu":
         return ref.dequant_spmm_batched_ref(blocks, block_cols, block_mask,
                                             codes, scales, mins)
     if codes.device.type != "cuda":
         raise ValueError(f"dequant_spmm_batched runs on cuda or cpu, not "
                          f"{codes.device}")
-    vb, m = blocks.shape[:2]
-    b, src_rows, f = codes.shape
-    out = torch.empty((b, vb * BLOCK, f), dtype=torch.float32,
+    if rows is None:
+        raise ValueError(_NEEDS_ROWS.format("dequant_spmm_batched"))
+    b, _, f = codes.shape
+    out = torch.empty((b, rows.n_rows, f), dtype=torch.float32,
                       device=codes.device)
-    with torch.cuda.device(codes.device):
-        stream = torch.cuda.current_stream(codes.device).cuda_stream
-        err = _kernel("dequant_spmm_batched_launch")(
-            _ptr(blocks), _ptr(block_cols), _ptr(block_mask), _ptr(codes),
-            _ptr(scales), _ptr(mins), _ptr(out), b, vb, m, f, src_rows,
-            CODE_BYTES[codes.dtype], ctypes.c_void_p(stream))
-        dequant_spmm_batched.launches += 1
+    err = _launch("dequant_spmm_batched_launch", rows, (codes, scales, mins),
+                  out, b, last=(CODE_BYTES[codes.dtype],))
+    dequant_spmm_batched.launches += 1
     _raise_on(err, "dequant_spmm_batched")
     return out
 

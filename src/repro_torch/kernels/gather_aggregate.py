@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,8 +28,6 @@ import torch
 from repro_torch.kernels import build, ref
 
 BLOCK = 128  # adjacency tile edge
-
-_MAX_ROW_BLOCKS = 65535   # grid.z limit of the dequant kernels' launch
 
 
 def padded_feature_dim(f: int) -> int:
@@ -252,9 +250,6 @@ def _check_operands(blocks, block_cols, block_mask, h, batched: bool,
     if src_rows % BLOCK or f < 1 or (batched and h.shape[0] < 1):
         raise ValueError(f"{h_name} rows must be a multiple of {BLOCK} and "
                          f"F, B >= 1, got {tuple(h.shape)}")
-    if vb > _MAX_ROW_BLOCKS:
-        raise ValueError(f"{vb} row-blocks exceed the launch limit "
-                         f"{_MAX_ROW_BLOCKS}")
     # The kernels read source rows cols*B .. +B with no bounds check.
     if max_col is None:
         lo, hi = torch.aminmax(block_cols)
@@ -300,15 +295,16 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 #: C signatures of csrc/block_spmm.cu. Every pointer and the stream must
 #: be c_void_p, or ctypes would pass them as 32-bit ints and cut them. The
-#: f32 entries take the TileRows tensors (row_ptr, seg_ptr, seg_w, src,
-#: val, warp_rows, split), h, out, ints, stream; the dequant entries (used by
-#: ``kernels.daq_dequant``) take (blocks, cols, mask, codes, scales, mins,
-#: out, ints..., stream); ``dequant_launch`` takes only the codes' part.
+#: product entries take the TileRows tensors (row_ptr, seg_ptr, seg_w, src,
+#: val, warp_rows, split), the source table (h; or codes, scales, mins for
+#: the dequant entries, used by ``kernels.daq_dequant``), out, ints (the
+#: dequant entries end them with code_bytes), stream; ``dequant_launch``
+#: takes only the codes' part.
 _SIGNATURES = {
     "block_spmm_launch": [_P] * 9 + [_I] * 7 + [_P],
     "block_spmm_batched_launch": [_P] * 9 + [_I] * 8 + [_P],
-    "dequant_spmm_launch": [_P] * 7 + [_I] * 5 + [_P],
-    "dequant_spmm_batched_launch": [_P] * 7 + [_I] * 6 + [_P],
+    "dequant_spmm_launch": [_P] * 11 + [_I] * 8 + [_P],
+    "dequant_spmm_batched_launch": [_P] * 11 + [_I] * 9 + [_P],
     "dequant_launch": [_P] * 4 + [_I] * 3 + [_P],
 }
 
@@ -326,18 +322,22 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
-def _launch(name: str, rows: TileRows, h: torch.Tensor, out: torch.Tensor,
-            *batch: int) -> int:
-    """Launch a row-compacted entry point; returns its cudaError."""
+def _launch(name: str, rows: TileRows, tables: Sequence[torch.Tensor],
+            out: torch.Tensor, *batch: int, last: Tuple[int, ...] = ()
+            ) -> int:
+    """Launch a row-compacted entry point over the source ``tables`` (h,
+    or codes, scales, mins: the first gives the table's shape) and the
+    trailing ints ``last``; returns its cudaError."""
+    h = tables[0]
     src_rows, f = h.shape[-2:]
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         return _kernel(name)(
             _ptr(rows.row_ptr), _ptr(rows.seg_ptr), _ptr(rows.seg_w),
             _ptr(rows.src), _ptr(rows.val), _ptr(rows.warp_rows),
-            _ptr(rows.split), _ptr(h), _ptr(out), *batch, rows.n_rows,
-            rows.n_seg, len(rows.warp_rows), len(rows.split),
-            rows.split_segs, f, src_rows, ctypes.c_void_p(stream))
+            _ptr(rows.split), *map(_ptr, tables), _ptr(out), *batch,
+            rows.n_rows, rows.n_seg, len(rows.warp_rows), len(rows.split),
+            rows.split_segs, f, src_rows, *last, ctypes.c_void_p(stream))
 
 
 def block_spmm(blocks: torch.Tensor, block_cols: torch.Tensor,
@@ -366,7 +366,7 @@ def block_spmm(blocks: torch.Tensor, block_cols: torch.Tensor,
         raise ValueError(_NEEDS_ROWS.format("block_spmm"))
     out = torch.empty((rows.n_rows, h.shape[1]), dtype=torch.float32,
                       device=h.device)
-    err = _launch("block_spmm_launch", rows, h, out)
+    err = _launch("block_spmm_launch", rows, (h,), out)
     block_spmm.launches += 1
     _raise_on(err, "block_spmm")
     return out
@@ -395,7 +395,7 @@ def block_spmm_batched(blocks: torch.Tensor, block_cols: torch.Tensor,
     b, _, f = h.shape
     out = torch.empty((b, rows.n_rows, f), dtype=torch.float32,
                       device=h.device)
-    err = _launch("block_spmm_batched_launch", rows, h, out, b)
+    err = _launch("block_spmm_batched_launch", rows, (h,), out, b)
     block_spmm_batched.launches += 1
     _raise_on(err, "block_spmm_batched")
     return out

@@ -84,7 +84,7 @@ class BlockCsr:
         out = dequant_spmm(self.blocks, self.cols, self.mask, padded(codes),
                            padded(np.asarray(scales, np.float32)),
                            padded(np.asarray(mins, np.float32)),
-                           max_col=self.max_col)
+                           rows=self.rows, max_col=self.max_col)
         return out[:v].cpu().numpy()
 
 

@@ -68,8 +68,9 @@ def dequant_ref(codes: torch.Tensor, scales: torch.Tensor,
 
     codes: uint{8,16,32}[V, F];  scales/mins: f32[V]. The product and the
     sum are two roundings (two tensor ops), which the CUDA kernels repeat.
+    A [B, V, F] stack with f32[B, V] parameters dequantizes per example.
     """
-    return codes.to(torch.float32) * scales[:, None] + mins[:, None]
+    return codes.to(torch.float32) * scales[..., None] + mins[..., None]
 
 
 def dequant_spmm_ref(blocks: torch.Tensor, block_cols: torch.Tensor,
@@ -96,6 +97,27 @@ def dequant_spmm_batched_ref(blocks: torch.Tensor, block_cols: torch.Tensor,
     return torch.stack([dequant_spmm_ref(blocks, block_cols, block_mask,
                                          c, s, m)
                         for c, s, m in zip(codes, scales, mins)])
+
+
+def dequant_spmm_rows_ref(rows, codes: torch.Tensor, scales: torch.Tensor,
+                          mins: torch.Tensor,
+                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The fused kernel's plain version over the row-compacted operand:
+    ``block_spmm_rows_ref`` over the f32 dequantized table, computed in
+    ``dtype`` (float64 for the on-card yardstick). codes [S, F] ->
+    [n_rows, F]."""
+    return block_spmm_rows_ref(rows, dequant_ref(codes, scales, mins).to(
+        dtype))
+
+
+def dequant_spmm_rows_batched_ref(rows, codes: torch.Tensor,
+                                  scales: torch.Tensor, mins: torch.Tensor,
+                                  dtype: torch.dtype = torch.float32
+                                  ) -> torch.Tensor:
+    """The batched form: out[b] = A @ dequant(codes[b]) for codes [B, S, F]
+    and f32[B, S] row parameters."""
+    return block_spmm_rows_batched_ref(
+        rows, dequant_ref(codes, scales, mins).to(dtype))
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

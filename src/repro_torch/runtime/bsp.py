@@ -577,7 +577,7 @@ def _kernel_sum(pg: PartitionedGraph, h: torch.Tensor, lay: _Layout,
         dq = dequant_spmm_batched if batched else dequant_spmm
         out_h = dq(halo.blocks, halo.cols, halo.mask,
                    _kernel_pad(codes, halo.src_rows), F.pad(sc, pad),
-                   F.pad(mn, pad), max_col=halo.max_col)
+                   F.pad(mn, pad), rows=halo.rows, max_col=halo.max_col)
     else:
         out_h = spmm(halo.blocks, halo.cols, halo.mask,
                      _kernel_pad(hb, halo.src_rows), rows=halo.rows,

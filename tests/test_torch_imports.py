@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: it never imports JAX or the JAX package.
 
-Every module under ``src/repro_torch/`` and the root ``chip_smoke.py`` are
-checked by AST for ``jax``, ``jaxlib`` and ``repro`` imports (``repro_torch``
+Every module under ``src/repro_torch/``, the root ``chip_smoke.py`` and the
+port's GPU scripts are checked by AST for ``jax``, ``jaxlib`` and ``repro`` imports (``repro_torch``
 itself is fine), and a fresh interpreter that imports every port module
 must end with none of those in ``sys.modules``.
 """
@@ -16,8 +16,9 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = {"jax", "jaxlib", "repro"}
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                     ROOT / "scripts" / "profile_query.py"]
+FILES = sorted(PORT.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_query.py",
+    ROOT / "scripts" / "phase2_kernels.py"]
 
 
 def _imported_roots(path: Path):

@@ -264,3 +264,23 @@ def test_folded_mesh_operands_carry_rows_built_once_per_layout(monkeypatch):
             tref.block_spmm_ref(op.blocks.double(), op.cols,
                                 op.mask.double(), h).numpy(),
             rtol=1e-12, atol=1e-12)
+    # The DAQ wire's halo product takes the halo operand's rows too: a DAQ
+    # layout compacts its two operands once, and every halo product of its
+    # queries and batches is handed the halo's rows.
+    halo_rows = []
+    inner = tbsp.dequant_spmm
+
+    def spy(*args, **kwargs):
+        halo_rows.append(kwargs.get("rows"))
+        return inner(*args, **kwargs)
+    monkeypatch.setattr(tbsp, "dequant_spmm", spy)
+    daq = Engine((params, "gcn"), device="cpu", executor="mesh-bsp",
+                 cluster="1A+2B+1C", aggregation="pallas",
+                 compressor="daq").compile(g).session()
+    first = daq.query().embeddings
+    assert count.calls == 4
+    assert np.array_equal(daq.query().embeddings, first)
+    daq.execute_many(np.stack([daq.collect()] * 2))
+    assert count.calls == 4
+    _, halo = tbsp._folded_csrs(daq.partitioned(), plan.device)
+    assert len(halo_rows) == 4 and all(r is halo.rows for r in halo_rows)
