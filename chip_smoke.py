@@ -6,7 +6,10 @@
 Phases, in order; any failed check raises and the script exits non-zero:
 
   1. build    nvcc-compiles every CUDA source of ``repro_torch.kernels``
-              (sm_90a) into ``build/repro_torch/`` and prints the time.
+              (sm_90a) into ``build/repro_torch/`` and prints the time, the
+              ``ptxas`` report and the number of ``HGMMA`` (wgmma) and
+              ``UTMALDG`` (TMA load) instructions in the flash library's
+              SASS (``cuobjdump -sass``; none fails the run).
   2. kernels  holds each kernel against its plain PyTorch version on the
               card, evaluated in float64 on the same inputs (rtol 1e-5 /
               atol 1e-4), at the main paths' shapes, and checks that every
@@ -41,9 +44,19 @@ Phases, in order; any failed check raises and the script exits non-zero:
                 rtol 2**-8 + 1e-5 / atol 1e-4): qwen1.5-0.5b prefill B = 2,
                 H = 16, dh = 64, S = T = 4096 in bf16 and f32, its serve
                 shape (B = 4, S = 16), starcoder2's GQA (H = 24, KV = 2,
-                dh = 128, S = 2048), a window = 4096 case at S = 8192 and a
-                q_offset case (S = 1024 against T = 4096); yardstick
+                dh = 128, S = 2048), a dh = 32 case, a window = 4096 case
+                at S = 8192 and a q_offset case (S = 1024 against T =
+                4096), the last two in f32 and in bf16 (every bf16 head dim
+                and mask branch of the wgmma kernel); yardstick
                 ``F.scaled_dot_product_attention``;
+                segment_sum: the fixed-order sum of full-scale SIoT's edge
+                list (F = 52 and 64, the sim path's widths), of GAT's
+                self-looped list (F = 64 and its F = 1 denominators) and of
+                the mesh's folded halo list, held to the float64 plain
+                version; two launches bitwise equal; reported: how far the
+                card lies from the CPU port (the same order, so 0 is
+                expected), for the kernel and for ``layers.aggregate_sum``;
+                yardstick ``index_add_``;
                 dequant: the uint8 and uint16 groups of ``daq_pack`` on
                 full-scale SIoT features (also against ``daq_unpack``'s
                 float64) and benchmarks/run.py's 128-feature shape,
@@ -56,8 +69,14 @@ Phases, in order; any failed check raises and the script exits non-zero:
               launch counters set to 0 just before and read just after;
               checks K launches per query and per batch, batched == serial
               bitwise, and the embeddings against the float64 forward on the
-              card (rtol 1e-4 / atol 1e-5), reporting beside it how far
-              ``aggregation="segment_sum"`` lies.
+              CPU (rtol 1e-4 / atol 1e-5). Then, driven on their own with
+              the counters set to 0 again, GCN, SAGE and GAT on
+              ``aggregation="segment_sum"``: two executes of the same input
+              bitwise equal, an ``execute_many`` of 8 bitwise 8 serial
+              executes, exactly K (GAT 2K) segment-sum launches an execute
+              and 8 times that a batch, and the embeddings against the
+              float64 forward on the CPU at the same bar (gating GCN and
+              GAT, printed for SAGE), with their execute times.
   3b. mesh    serves the same models through ``Engine(...,
               executor="mesh-bsp", aggregation="pallas", compressor="daq",
               device="cuda")`` (6 fogs, the default cluster), counters again
@@ -68,7 +87,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
               reference's DAQ bar of the float64 forward (|d| <= 5e-2 *
               max(max|want|, 1); gating the kinds in DAQ_GATED_KINDS,
               printed for all), and one ``compressor="none"`` query (2K
-              ``block_spmm``) at rtol 1e-4 / atol 1e-5. Afterwards a small
+              ``block_spmm``) at rtol 1e-4 / atol 1e-5; then, driven on
+              their own, the segment-sum gates of phase 3 on the mesh
+              (its halo rows cross as f32 there). Afterwards a small
               graph is served on the card and on the CPU, on both
               executors, and compared.
   3c. dequantize  ``ops.dequantize_features(..., device="cuda")`` on the
@@ -87,7 +108,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
               gated: the bf16 logits' distance from it and how many of 8
               greedy tokens agree. Afterwards a reduced qwen1.5-0.5b is
               served on the card and on the CPU and compared.
-  4. report   one ``{"kernels": [...]}`` JSON line (all six kernels), the
+  4. report   one ``{"kernels": [...]}`` JSON line (all seven kernels), the
               ``nvidia-smi`` name and power limit, and as the last line
               ``{"ok": true, "device": {...}}``. A kernel's top-level
               numbers sum its main-path cases on the path named in
@@ -144,6 +165,18 @@ SERVE = dict(requests=24, tokens=16, pods="1.0,1.6,2.4", batch_size=4,
              placement="iep")
 PREFILL_B, PREFILL_S = 2, 4096
 GREEDY = 8
+#: Kinds held to segment-sum determinism on the card (GAT has no other
+#: path), and the segment sums a layer of each launches (GAT: its softmax
+#: denominators and its weighted messages).
+SEGMENT_KINDS = ("gcn", "sage", "gat")
+SEGMENT_SUMS = {"gcn": 1, "sage": 1, "gat": 2}
+#: Kinds whose segment-sum embeddings (both executors) gate the run
+#: against the float64 forward at the embedding bar. SAGE's are printed: its
+#: unit-normalised 2-wide rows amplify any float32 rounding of a row with
+#: a small norm to about the bar, so whether a float32 forward passes
+#: depends on the weights drawn (the pallas path's SAGE gate in phase 3
+#: holds at its seed).
+SEGMENT_F64_GATED_KINDS = ("gcn", "gat")
 
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"block_spmm": CSRC + "block_spmm.cu",
@@ -151,7 +184,8 @@ SOURCES = {"block_spmm": CSRC + "block_spmm.cu",
            "dequant_spmm": CSRC + "block_spmm.cu",
            "dequant_spmm_batched": CSRC + "block_spmm.cu",
            "dequant": CSRC + "block_spmm.cu",
-           "flash_attention": CSRC + "flash_attention.cu"}
+           "flash_attention": CSRC + "flash_attention.cu",
+           "segment_sum": CSRC + "segment_sum.cu"}
 REPLACES = {
     "block_spmm": "src/repro/kernels/gather_aggregate.py:194",
     "block_spmm_batched": "src/repro/kernels/gather_aggregate.py:149",
@@ -159,15 +193,22 @@ REPLACES = {
     "dequant_spmm_batched": "src/repro/kernels/daq_dequant.py:149",
     "dequant": "src/repro/kernels/daq_dequant.py:38",
     "flash_attention": "src/repro/kernels/flash_attention.py:67",
+    # Not a Pallas kernel: the XLA segment sum of the reference's layers.
+    "segment_sum": "src/repro/gnn/layers.py:67",
 }
 #: The path whose main-path cases make a kernel's top-level numbers.
 ROW_PATH = {"block_spmm": "sim", "block_spmm_batched": "sim",
             "dequant_spmm": "mesh", "dequant_spmm_batched": "mesh",
-            "dequant": "dequantize", "flash_attention": "prefill"}
+            "dequant": "dequantize", "flash_attention": "prefill",
+            "segment_sum": "sim"}
+#: The mesh path's four block kernels, in the order its counts are read.
+MESH_KERNELS = ("block_spmm", "block_spmm_batched", "dequant_spmm",
+                "dequant_spmm_batched")
 #: The kernels each driven path must launch.
 PATH_KERNELS = {"sim": ("block_spmm", "block_spmm_batched"),
-                "mesh": ("block_spmm", "block_spmm_batched", "dequant_spmm",
-                         "dequant_spmm_batched"),
+                "sim-segment": ("segment_sum",),
+                "mesh": MESH_KERNELS,
+                "mesh-segment": ("segment_sum",),
                 "dequantize": ("dequant",),
                 "serve": ("flash_attention",),
                 "prefill": ("flash_attention",)}
@@ -665,31 +706,19 @@ def serve(Engine, models, g, kind: str, ga):
             raise AssertionError(f"{kind}: batched example {b} is not "
                                  f"bitwise the serial execute")
 
-    # Embeddings against the same forward in float64 on the card (the
-    # port's segment-sum layers on float64 parameters and features): a fixed
-    # yardstick with no float32 rounding, and the kernel path is
-    # deterministic, so this check gives the same verdict on every run.
-    # Reported beside it, gating nothing: aggregation="segment_sum" in
-    # float32, summed with atomics in a run-dependent order. On SAGE's
-    # unit-normalised 2-wide output any two float32 orders move a few
-    # entries by ~1e-5, as much as the bar: rows whose pre-normalisation
-    # norm is small amplify any rounding.
-    p64 = [{n: v.double() for n, v in p.items()} for p in plan.model.params]
-    seg = plan.session(aggregation="segment_sum")
-    checks = {}
-    for name, f_in, got in (("query", feats, emb),
-                            ("batch[3]", stack[3], many[3])):
-        with torch.no_grad():
-            h64 = torch.as_tensor(f_in, dtype=torch.float64, device="cuda")
-            exact = models.gnn_apply(p64, kind, h64, plan.edges).cpu().numpy()
-        checks[name] = {"pallas_vs_f64": emb_errors(got, exact),
-                        "pallas_vs_segment_sum": emb_errors(
-                            got, seg.execute(f_in))}
-        log(f"  {kind} {name}: " + "  ".join(
-            f"{c} max {v['max_abs']:.3g} ratio {v['tol_ratio']:.3g} "
-            f"beyond {v['beyond_bar']}" for c, v in checks[name].items()))
-    for name in checks:
-        if checks[name]["pallas_vs_f64"]["beyond_bar"]:
+    # Embeddings against the same forward in float64 on the CPU (the
+    # port's layers on float64 parameters and features): a fixed yardstick
+    # with no float32 rounding that launches no kernel, and the kernel path
+    # is deterministic, so this check gives the same verdict on every run.
+    exact = f64_forward(models, plan, kind)
+    checks = {name: {"pallas_vs_f64": emb_errors(got, exact(f_in))}
+              for name, f_in, got in (("query", feats, emb),
+                                      ("batch[3]", stack[3], many[3]))}
+    for name, c in checks.items():
+        c = c["pallas_vs_f64"]
+        log(f"  {kind} {name}: pallas vs f64 max {c['max_abs']:.3g} ratio "
+            f"{c['tol_ratio']:.3g} beyond {c['beyond_bar']}")
+        if c["beyond_bar"]:
             raise AssertionError(f"{kind} {name}: pallas vs the float64 "
                                  f"forward beyond rtol {EMB_RTOL} / atol "
                                  f"{EMB_ATOL}")
@@ -699,6 +728,96 @@ def serve(Engine, models, g, kind: str, ga):
             **{name: statistics.median(v) for name, v in stages.items()},
             "batch_ms": batch_s * 1e3, "serial_batch_ms": serial_s * 1e3,
             "batch_size": BATCH, "embedding_checks": checks}
+
+
+def f64_forward(models, plan, kind: str):
+    """f_in -> the float64 forward of ``plan``'s model on ``f_in``, on the
+    CPU (parameters, features and edge list copied there), so the
+    yardstick launches no kernel of the port."""
+    edges = type(plan.edges)(*(t.cpu() if torch.is_tensor(t) else t
+                               for t in plan.edges))
+    p64 = [{n: v.detach().cpu().double() for n, v in p.items()}
+           for p in plan.model.params]
+
+    def exact(f_in) -> np.ndarray:
+        with torch.no_grad():
+            h64 = torch.as_tensor(f_in, dtype=torch.float64)
+            return models.gnn_apply(p64, kind, h64, edges).numpy()
+    return exact
+
+
+def segment_gates(Engine, models, g, kind: str, executor: str, sg) -> dict:
+    """Phases 3 and 3b, ``aggregation="segment_sum"`` for one kind on one
+    executor (seeded weights; on the mesh the halo rows cross as f32, since
+    the DAQ halo wire runs only on the kernel path): two executes of the
+    same features must be bitwise equal, and an ``execute_many`` of BATCH
+    bitwise BATCH serial executes; an execute launches the segment-sum
+    kernel SEGMENT_SUMS[kind] times a layer, a batch BATCH times that
+    (``sg`` is the kernel's module). The embeddings are held to the
+    float64 forward on the CPU at the embedding bar, gating the kinds in
+    SEGMENT_F64_GATED_KINDS and printed for all. Returns the execute times
+    (host clock, ending in the copy back) and the checks."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = models.gnn_init(gen, kind, [g.feature_dim, DIMS_HIDDEN,
+                                         DIMS_OUT])
+    plan = Engine((params, kind), executor=executor,
+                  aggregation="segment_sum", device="cuda").compile(g)
+    sess = plan.session()
+    per_execute = plan.model.num_layers * SEGMENT_SUMS[kind]
+    what = f"{kind} {executor} segment_sum"
+
+    def launched(fn, want, call):
+        before = sg.segment_sum.launches
+        out = fn()
+        if sg.segment_sum.launches - before != want:
+            raise AssertionError(f"{what}: {call} launched "
+                                 f"{sg.segment_sum.launches - before} "
+                                 f"segment sums, expected {want}")
+        return out
+
+    feats = sess.collect()
+    first = launched(lambda: sess.execute(feats), per_execute, "an execute")
+    if first.shape != (g.num_vertices, DIMS_OUT) or \
+            not np.isfinite(first).all():
+        raise AssertionError(f"{what}: bad embeddings {first.shape}")
+    execute_ms = []
+    for _ in range(QUERIES):
+        t0 = time.perf_counter()
+        again = sess.execute(feats)
+        execute_ms.append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(again, first):
+            raise AssertionError(f"{what}: two executes of the same input "
+                                 f"differ (max {np.abs(again - first).max()})")
+    rng = np.random.default_rng(7)
+    stack = np.stack([sess.collect(g.features + rng.normal(
+        scale=0.1, size=g.features.shape)) for _ in range(BATCH)])
+    t0 = time.perf_counter()
+    many = launched(lambda: sess.execute_many(stack), BATCH * per_execute,
+                    f"a batch of {BATCH}")
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    for b in range(BATCH):
+        if not np.array_equal(many[b], sess.execute(stack[b])):
+            raise AssertionError(f"{what}: batched example {b} is not "
+                                 f"bitwise the serial execute")
+    exact = f64_forward(models, plan, kind)
+    checks = {}
+    for name, f_in, got in (("query", feats, first),
+                            ("batch[3]", stack[3], many[3])):
+        c = checks[name] = emb_errors(got, exact(f_in))
+        log(f"  {what} {name}: vs f64 max {c['max_abs']:.3g} ratio "
+            f"{c['tol_ratio']:.3g} beyond {c['beyond_bar']}")
+        if kind in SEGMENT_F64_GATED_KINDS and c["beyond_bar"]:
+            raise AssertionError(f"{what} {name}: vs the float64 forward "
+                                 f"beyond rtol {EMB_RTOL} / atol "
+                                 f"{EMB_ATOL}")
+    rec = {"kind": kind, "executor": executor,
+           "execute_ms": statistics.median(execute_ms),
+           "batch_ms": batch_ms, "batch_size": BATCH,
+           "launches_per_execute": per_execute, "embedding_checks": checks}
+    log(f"  {what}: two executes equal, batch of {BATCH} == serial "
+        f"(bitwise), {per_execute} launches an execute; execute "
+        f"{rec['execute_ms']:.2f} ms, batch {batch_ms:.2f} ms")
+    return rec
 
 
 def mesh_plan(Engine, models, g, kind: str):
@@ -725,7 +844,7 @@ def daq_errors(got: np.ndarray, want: np.ndarray) -> dict:
 
 def serve_mesh(models, g, kind: str, plan, compile_s: float, kernels):
     """Phase 3b for one model kind. ``kernels`` are the four wrappers in
-    the order of REPLACES. Returns timings and checks everything."""
+    the order of MESH_KERNELS. Returns timings and checks everything."""
     k = plan.model.num_layers
     sess = plan.session()
 
@@ -736,8 +855,8 @@ def serve_mesh(models, g, kind: str, plan, compile_s: float, kernels):
         got = counts() - before
         if list(got) != list(want):
             raise AssertionError(f"{kind} mesh: {what} launched "
-                                 f"{dict(zip(REPLACES, got.tolist()))}, "
-                                 f"expected {dict(zip(REPLACES, want))}")
+                                 f"{dict(zip(MESH_KERNELS, got.tolist()))}, "
+                                 f"expected {dict(zip(MESH_KERNELS, want))}")
 
     query_s = []
     for _ in range(QUERIES):
@@ -778,16 +897,11 @@ def serve_mesh(models, g, kind: str, plan, compile_s: float, kernels):
             raise AssertionError(f"{kind} mesh: batched example {b} is not "
                                  f"bitwise the serial execute")
 
-    # The DAQ wire against the float64 single-program forward of the same
-    # collected features, to the reference's DAQ bar; then one f32-wire
+    # The DAQ wire against the float64 single-program forward (on the CPU)
+    # of the same collected features, to the reference's DAQ bar; then one f32-wire
     # query (compressor "none": raw features, f32 halo rows) against the
     # float64 forward at the embedding bar.
-    p64 = [{n: v.double() for n, v in p.items()} for p in plan.model.params]
-
-    def exact(f_in):
-        with torch.no_grad():
-            h64 = torch.as_tensor(f_in, dtype=torch.float64, device="cuda")
-            return models.gnn_apply(p64, kind, h64, plan.edges).cpu().numpy()
+    exact = f64_forward(models, plan, kind)
     checks = {"query": daq_errors(emb, exact(feats)),
               "batch[3]": daq_errors(many[3], exact(stack[3]))}
     for name, c in checks.items():
@@ -898,6 +1012,12 @@ FLASH_CASES = [
      0, None),
     ("q_offset", "folded", 1, 1024, 4096, 16, 16, 64, torch.float32, 0,
      3072, None),
+    ("dh32", "model", 2, 2048, 2048, 16, 16, 32, torch.bfloat16, 0, 0,
+     None),
+    ("qwen window", "model", 1, 8192, 8192, 16, 16, 64, torch.bfloat16,
+     4096, 0, None),
+    ("q_offset", "folded", 1, 1024, 4096, 16, 16, 64, torch.bfloat16, 0,
+     3072, None),
 ]
 
 
@@ -988,6 +1108,90 @@ def flash_cases(fa, ref) -> dict:
             f"({b_by})")
         del q, k, v, got, want, ql, kl, vl
         torch.cuda.empty_cache()
+    return out
+
+
+def segment_bound(e: int, v: int, f: int) -> tuple:
+    """Least time (ms) of one fixed-order segment sum, the larger of two
+    floors: every message entry read once and every output written once (4
+    bytes each) plus the order (4 bytes an edge) and offsets (4 bytes a
+    segment) at the HBM rate; one add per message entry at the f32
+    CUDA-core peak."""
+    t_bytes = 4 * (e * f + v * f + e + v + 1) / PEAK_BYTES_PER_S * 1e3
+    t_ops = e * f / PEAK_F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def segment_cases(sg, ref, layers, bsp, g, pg) -> dict:
+    """Phase 2, the fixed-order segment sum on full-scale SIoT's edge list
+    (the sim path's widths), GAT's self-looped list and the mesh's folded
+    halo list (``pg``). Returns {"segment_sum": {"cases": [...]}}."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    edges = layers.EdgeList.from_graph(g, device="cuda")
+    halo = bsp._edges(pg, torch.device("cuda"), "halo", "gcn")
+    cases = [("siot", edges, 52, "sim"), ("siot", edges, 64, "sim"),
+             ("siot gat", edges.self_looped, 64, None),
+             ("siot gat", edges.self_looped, 1, None),
+             ("mesh halo", halo, 64, None)]
+    out = {"segment_sum": {"cases": []}}
+    for name, el, f, path in cases:
+        e, v = el.receivers.shape[0], el.num_vertices
+        # Messages as the layers make them: 0 on masked (padding) edges,
+        # which the order leaves out and index_add_ adds.
+        x = torch.randn((e, f) if f > 1 else (e,), generator=gen,
+                        device="cuda")
+        x *= el.mask[:, None] if f > 1 else el.mask
+        recv = el.receivers.long()
+
+        def call():
+            return sg.segment_sum(x, el.order, el.offsets)
+
+        def plain():
+            return ref.segment_sum_ref(x, el.order, el.offsets)
+
+        def lib():
+            return x.new_zeros((v,) + tuple(x.shape[1:])).index_add_(
+                0, recv, x)
+        got = call()
+        if not torch.equal(got, call()):
+            raise AssertionError(f"segment_sum {name} F={f}: two launches "
+                                 f"differ")
+        want = ref.segment_sum_ref(x.double(), el.order, el.offsets)
+        err = errors(got, want)
+        err["plain_f32_max_abs_err"] = errors(plain(), want)["max_abs_err"]
+        host = sg.segment_sum(x.cpu(), el.order.cpu(), el.offsets.cpu())
+        err["card_vs_cpu_max_abs"] = float((got.cpu() - host).abs().max())
+        check_close(f"segment_sum {name} F={f}", got.double(), want,
+                    KERNEL_RTOL, KERNEL_ATOL)
+        check_close(f"index_add_ {name} F={f}", lib().double(), want,
+                    KERNEL_RTOL, KERNEL_ATOL)
+        k_ms = time_ms(call, reps=30)
+        p_ms = time_ms(plain, reps=10)
+        l_ms = time_ms(lib, reps=30)
+        # The work this data needs: the summed (unmasked) edges.
+        b_ms, b_by = segment_bound(el.order.shape[0], v, f)
+        rec = {"case": name, "F": f, "E": e, "summed": el.order.shape[0],
+               "V": v, "path": path, **err,
+               "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+               "bound_ms": b_ms, "bound_by": b_by}
+        out["segment_sum"]["cases"].append(rec)
+        log(f"  segment_sum {name:9s} F={f:2d} E={e} err "
+            f"{err['max_abs_err']:.3g} (card vs CPU port "
+            f"{err['card_vs_cpu_max_abs']:.3g}) kernel {k_ms:.4f} ms  plain "
+            f"{p_ms:.4f} ms  index_add_ {l_ms:.4f} ms  bound {b_ms:.4f} ms "
+            f"({b_by})")
+        del x, got, want, host
+    # The layer's sum on the card against the CPU port: same edge order,
+    # adds without FMA, so 0 is expected (reported, not gated).
+    h = torch.as_tensor(g.features, dtype=torch.float32)
+    card = layers.aggregate_sum(h.cuda(), edges).cpu()
+    host = layers.aggregate_sum(h, layers.EdgeList.from_graph(g))
+    d = float((card - host).abs().max())
+    out["segment_sum"]["aggregate_sum_card_vs_cpu_max_abs"] = d
+    same = "bitwise equal" if torch.equal(card, host) else "not bitwise"
+    log(f"  aggregate_sum on full SIoT (F={g.feature_dim}): card vs CPU port "
+        f"max abs {d} ({same})")
     return out
 
 
@@ -1240,11 +1444,12 @@ def main() -> int:
     from repro_torch.api import Engine
     from repro_torch.configs import registry
     from repro_torch.core import compression
-    from repro_torch.gnn import datasets, models
+    from repro_torch.gnn import datasets, layers, models
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import daq_dequant as dq
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gather_aggregate as ga
+    from repro_torch.kernels import segment_sum as sg
     from repro_torch.launch import serve as sv
     from repro_torch.models import transformer as tf
     from repro_torch.runtime import bsp
@@ -1266,6 +1471,16 @@ def main() -> int:
             for line in report.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
+    # The bf16 flash kernel must run on the tensor cores, fed by TMA.
+    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(build.library_path("flash_attention"))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    hgmma, utmaldg = sass.count("HGMMA"), sass.count("UTMALDG")
+    log(f"  flash_attention SASS: {hgmma} HGMMA, {utmaldg} UTMALDG")
+    if not hgmma or not utmaldg:
+        raise AssertionError("the flash library has no wgmma or no TMA load")
 
     log("phase 2: kernels vs plain versions")
     t0 = time.perf_counter()
@@ -1302,6 +1517,7 @@ def main() -> int:
     results.update(dequant_cases(ga, dq, ref, bsp, halo,
                                  pg.n * pg.boundary_slots))
     del local, halo
+    results.update(segment_cases(sg, ref, layers, bsp, g, pg))
     tables = dequant_tables(g, compression, datasets)
     results.update(dequant_kernel_cases(dq, ref, tables))
     results.update(flash_cases(fa, ref))
@@ -1311,7 +1527,8 @@ def main() -> int:
                 "dequant_spmm": dq.dequant_spmm,
                 "dequant_spmm_batched": dq.dequant_spmm_batched,
                 "dequant": dq.dequant,
-                "flash_attention": fa.flash_attention}
+                "flash_attention": fa.flash_attention,
+                "segment_sum": sg.segment_sum}
     kernels = [wrappers[n] for n in REPLACES]
     launches = {}
 
@@ -1333,6 +1550,9 @@ def main() -> int:
     log("phase 3: main path (single program)")
     served = drive("sim", lambda: [serve(Engine, models, g, kind, ga)
                                    for kind in ("gcn", "sage")])
+    seg_sim = drive("sim-segment", lambda: [
+        segment_gates(Engine, models, g, kind, "sim", sg)
+        for kind in SEGMENT_KINDS])
     for s in served:
         log(f"  {s['kind']}: compile {s['compile_s']:.2f} s, query "
             f"{s['query_ms']:.1f} ms (first {s['first_query_ms']:.1f}; "
@@ -1343,7 +1563,7 @@ def main() -> int:
 
     log("phase 3b: mesh path (mesh-bsp, DAQ halo wire)")
 
-    mesh_kernels = [wrappers[n] for n in PATH_KERNELS["mesh"]]
+    mesh_kernels = [wrappers[n] for n in MESH_KERNELS]
 
     def mesh_kinds():
         out = [serve_mesh(models, g, "gcn", gcn_mesh, gcn_compile_s,
@@ -1353,6 +1573,9 @@ def main() -> int:
                               mesh_kernels))
         return out
     meshed = drive("mesh", mesh_kinds)
+    seg_mesh = drive("mesh-segment", lambda: [
+        segment_gates(Engine, models, g, kind, "mesh-bsp", sg)
+        for kind in SEGMENT_KINDS])
     del gcn_mesh, pg
     for s in meshed:
         log(f"  {s['kind']} mesh: {s['fogs']} fogs, compile "
@@ -1410,9 +1633,12 @@ def main() -> int:
             "bound_ms": sum(c["bound_ms"] for c in main_cases),
             "bound_by": main_cases[-1]["bound_by"],
             "library_ms": sum(c["library_ms"] for c in main_cases),
+            **{k: v for k, v in rec.items() if k != "cases"},
             "cases": rec["cases"]})
     print(json.dumps({"compaction": compaction,
                       "main_path": served, "mesh_path": meshed,
+                      "segment_sum_path": {"sim": seg_sim,
+                                           "mesh": seg_mesh},
                       "dequantize_path": dequantized,
                       "serve_path": served_lm, "prefill_path": prefilled,
                       "reduced_serve": reduced}), flush=True)

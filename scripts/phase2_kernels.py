@@ -1,31 +1,84 @@
 #!/usr/bin/env python3
-"""Phase 2 of ``chip_smoke.py`` for the block-CSR products alone, for a
-given tree, so that two trees can be timed in turns on one card.
+"""Phase 2 of ``chip_smoke.py`` for one group of kernels, for a given tree,
+so that two trees can be timed in turns on one card.
 
-    python3 scripts/phase2_kernels.py [TREE]
+    python3 scripts/phase2_kernels.py [TREE] [--flash | --segment]
 
 TREE (default: this repository) is the root of a checkout that holds
 ``chip_smoke.py`` and ``src/repro_torch`` (for example the parent commit
 unpacked with ``git archive`` under the git-ignored ``build/``). Builds
-that tree's kernels, runs its ``kernel_cases`` (``block_spmm(_batched)``)
-and ``dequant_cases`` (``dequant_spmm(_batched)``) on full-scale SIoT and
-the 6-fog mesh, with every check they hold, and prints the ``ptxas``
-report of ``block_spmm.cu`` and, as the last line, one JSON object of the
-per-case times and errors. Run ``parent, change, change, parent`` in one
-call to compare two versions. Needs a CUDA card.
+that tree's kernels and prints the ``ptxas`` report of the source in
+question and, as the last line, one JSON object of per-case times and
+errors:
+
+* default: the tree's ``kernel_cases`` (``block_spmm(_batched)``) and
+  ``dequant_cases`` (``dequant_spmm(_batched)``) on full-scale SIoT and the
+  6-fog mesh, with every check they hold;
+* ``--flash``: the tree's ``flash_cases`` (``flash_attention``, bf16 and
+  f32), with every check they hold;
+* ``--segment``: ``Session.execute`` with ``aggregation="segment_sum"`` for
+  GCN, SAGE and GAT on the ``sim`` and ``mesh-bsp`` executors on full-scale
+  SIoT (host clock ending in the copy back; median of 20 after a warm-up),
+  through the public API only, so any tree of the port can run it.
+
+Run ``parent, change, change, parent`` in one call to compare two versions.
+Needs a CUDA card.
 """
+import argparse
 import json
+import statistics
 import sys
+import time
 from pathlib import Path
 
-root = Path(sys.argv[1] if len(sys.argv) > 1
-            else Path(__file__).resolve().parents[1]).resolve()
+ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+ap.add_argument("tree", nargs="?",
+                default=str(Path(__file__).resolve().parents[1]))
+group = ap.add_mutually_exclusive_group()
+group.add_argument("--flash", action="store_true")
+group.add_argument("--segment", action="store_true")
+args = ap.parse_args()
+root = Path(args.tree).resolve()
 sys.path.insert(0, str(root / "src"))
 sys.path.insert(0, str(root))
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-KEYS = ("case", "F", "B", "codes", "ms", "library_ms", "plain_ms",
-        "bound_ms", "max_abs_err")
+KEYS = ("case", "F", "B", "codes", "dtype", "S", "dh", "window", "q_offset",
+        "ms", "library_ms", "plain_ms", "bound_ms", "max_abs_err",
+        "tol_ratio")
+
+
+def segment_times(Engine, models, g) -> list:
+    """Execute times of the segment-sum path, every kind and executor."""
+    out = []
+    for executor in ("sim", "mesh-bsp"):
+        for kind in ("gcn", "sage", "gat"):
+            params = models.gnn_init(torch.Generator(device="cuda")
+                                     .manual_seed(0), kind,
+                                     [g.feature_dim, 64, 2])
+            knobs = {"compressor": "daq"} if executor == "mesh-bsp" else {}
+            sess = Engine((params, kind), executor=executor,
+                          aggregation="segment_sum", device="cuda",
+                          **knobs).compile(g).session()
+            feats = sess.collect()
+            sess.execute(feats)
+            times = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                sess.execute(feats)
+                times.append((time.perf_counter() - t0) * 1e3)
+            stack = np.stack([feats] * 8)
+            sess.execute_many(stack)
+            t0 = time.perf_counter()
+            sess.execute_many(stack)
+            out.append({"executor": executor, "kind": kind,
+                        "execute_ms": statistics.median(times),
+                        "batch8_ms": (time.perf_counter() - t0) * 1e3})
+            print(f"  {executor} {kind}: execute {out[-1]['execute_ms']:.3f}"
+                  f" ms, batch of 8 {out[-1]['batch8_ms']:.2f} ms",
+                  flush=True)
+    return out
 
 
 def main() -> int:
@@ -44,22 +97,30 @@ def main() -> int:
         raise RuntimeError(f"imported {ga.__file__}, not the tree {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"tree {root}: built {build.build()}", flush=True)
-    report = Path(str(build.library_path("block_spmm")) + ".log")
+    source = "flash_attention" if args.flash else "block_spmm"
+    report = Path(str(build.library_path(source)) + ".log")
     for line in report.read_text().splitlines():
         if any(w in line for w in ("Compiling entry", "registers", "spill")):
             print("  ptxas", line.strip())
-    g = datasets.load("siot", 1.0, seed=0)
-    csr = ops.block_csr_for(g, device="cuda")
-    plan, _ = cs.mesh_plan(Engine, models, g, "gcn")
-    pg = plan.partitioned
-    local, halo = bsp._folded_csrs(pg, plan.device)
-    res = cs.kernel_cases(ga, ref, csr, g, local)
-    res.update(cs.dequant_cases(ga, dq, ref, bsp, halo,
-                                pg.n * pg.boundary_slots))
+    if args.flash:
+        from repro_torch.kernels import flash_attention as fa
+        res = cs.flash_cases(fa, ref)
+    elif args.segment:
+        g = datasets.load("siot", 1.0, seed=0)
+        res = {"segment_sum_path": segment_times(Engine, models, g)}
+    else:
+        g = datasets.load("siot", 1.0, seed=0)
+        csr = ops.block_csr_for(g, device="cuda")
+        plan, _ = cs.mesh_plan(Engine, models, g, "gcn")
+        pg = plan.partitioned
+        local, halo = bsp._folded_csrs(pg, plan.device)
+        res = cs.kernel_cases(ga, ref, csr, g, local)
+        res.update(cs.dequant_cases(ga, dq, ref, bsp, halo,
+                                    pg.n * pg.boundary_slots))
     print(json.dumps({
         "tree": str(root), "device": torch.cuda.get_device_name(0),
-        "cases": {name: [{k: c[k] for k in KEYS if k in c}
-                         for c in rec["cases"]]
+        "cases": {name: rec if args.segment else
+                  [{k: c[k] for k in KEYS if k in c} for c in rec["cases"]]
                   for name, rec in res.items()}}), flush=True)
     return 0
 

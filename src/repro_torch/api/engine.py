@@ -59,9 +59,10 @@ class Engine:
       partitioner / placement / compressor / exchange / executor: registry
         keys for the five pluggable stages. Unknown keys raise immediately
         with the list of available options.
-      aggregation: "segment_sum" (gather + ``index_add_``), "pallas" (the
-        hand-written block-CSR SpMM kernels; strict — raises for GAT) or
-        "auto" (the kernels on a CUDA device, else segment_sum).
+      aggregation: "segment_sum" (gather + the fixed-order segment sum of
+        ``kernels.segment_sum``), "pallas" (the hand-written block-CSR
+        SpMM kernels; strict — raises for GAT) or "auto" (the kernels on a
+        CUDA device, else segment_sum).
       device: torch device of the numerics, "cuda" by default. Requesting
         CUDA where there is none raises; pass "cpu" to run on the CPU.
       network: collection-network profile ("wifi" / "4g" / "5g").

@@ -2,8 +2,8 @@
 
 Host-side representation is numpy (partitioning, placement, compression all
 operate on the host, as in the paper's metadata server); device-side compute
-uses COO edge lists (``index_add_``) or the block-CSR SpMM kernels built
-from them.
+uses COO edge lists (a fixed-order segment sum) or the block-CSR SpMM
+kernels built from them.
 
 Terminology follows the paper: *vertex* = graph vertex, *node* = fog server.
 """

@@ -1,7 +1,10 @@
 """GNN layers in PyTorch, matching the paper's Table I inference functions.
 
 All layers consume COO edge lists (senders, receivers) plus an edge mask
-(0 for padding edges) and aggregate with ``index_add_``. Aggregation can be
+(0 for padding edges) and aggregate with a fixed-order segment sum: each
+receiver's messages in edge order, from 0, with no atomics
+(``kernels.segment_sum``), so a sum is the same on every run, and on the
+CPU it is the serial ``index_add_``. Aggregation can be
 routed through the block-CSR SpMM kernels (see repro_torch.kernels.ops) by
 the executor, which then runs only the dense tail here
 (``apply_layer_with_sum``).
@@ -16,11 +19,14 @@ stacked [B, V, F] micro-batch and runs the dense tail example by example.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.segment_sum import receiver_order, segment_sum
 
 
 def _glorot(generator: torch.Generator, shape) -> torch.Tensor:
@@ -31,12 +37,29 @@ def _glorot(generator: torch.Generator, shape) -> torch.Tensor:
     return u * (2.0 * lim) - lim
 
 
-class EdgeList(NamedTuple):
-    """COO connectivity on one device."""
+class _Edges(NamedTuple):
     senders: torch.Tensor    # int32[E]
     receivers: torch.Tensor  # int32[E]
     mask: torch.Tensor       # float32[E] — 0 for padding edges
     num_vertices: int
+    order: torch.Tensor      # int32: unmasked edges sorted by receiver
+    offsets: torch.Tensor    # int32[V + 1]: receiver v's slice of order
+
+
+class EdgeList(_Edges):
+    """COO connectivity on one device, with the receivers' summation order
+    (``kernels.segment_sum.receiver_order`` over the unmasked edges),
+    computed once where the edge list is built unless given. Masked edges
+    carry no message: they are left out of every sum, so an inf or NaN in
+    a masked edge's source row does not reach its receiver (the
+    reference's ``segment_sum`` of ``src * 0`` would add NaN)."""
+
+    def __new__(cls, senders, receivers, mask, num_vertices: int,
+                order=None, offsets=None):
+        if order is None:
+            order, offsets = receiver_order(receivers, num_vertices, mask)
+        return super().__new__(cls, senders, receivers, mask, num_vertices,
+                               order, offsets)
 
     @classmethod
     def from_graph(cls, g, pad_to: Optional[int] = None,
@@ -53,27 +76,42 @@ class EdgeList(NamedTuple):
                    torch.as_tensor(r, dtype=torch.int32, device=device),
                    torch.as_tensor(mask, device=device), g.num_vertices)
 
+    @functools.cached_property
+    def self_looped(self) -> "EdgeList":
+        """These edges, then one self edge per vertex (GAT's N(v) u {v}),
+        with their own order; built once per edge list."""
+        v_ids = torch.arange(self.num_vertices, dtype=self.senders.dtype,
+                             device=self.senders.device)
+        ones = torch.ones(self.num_vertices, dtype=torch.float32,
+                          device=self.mask.device)
+        return EdgeList(torch.cat([self.senders, v_ids]),
+                        torch.cat([self.receivers, v_ids]),
+                        torch.cat([self.mask, ones]), self.num_vertices)
 
-def _segment_sum(x: torch.Tensor, segments: torch.Tensor,
-                 num_segments: int) -> torch.Tensor:
-    out = x.new_zeros((num_segments,) + tuple(x.shape[1:]))
-    return out.index_add_(0, segments, x)
+
+def _segment_sum(x: torch.Tensor, edges: EdgeList) -> torch.Tensor:
+    """Each receiver's rows of ``x`` (one per edge) summed in edge order."""
+    return segment_sum(x, edges.order, edges.offsets)
 
 
 def masked_degree(edges: EdgeList) -> torch.Tensor:
-    """float32[V] in-degree under the edge mask."""
-    return _segment_sum(edges.mask, edges.receivers, edges.num_vertices)
+    """float32[V] in-degree under the edge mask. ``index_add_`` may sum in
+    any order here: the terms are 0/1 and every partial sum is an integer
+    below 2^24, so every order gives the same float."""
+    out = edges.mask.new_zeros(edges.num_vertices)
+    return out.index_add_(0, edges.receivers, edges.mask)
 
 
 def aggregate_sum(h: torch.Tensor, edges: EdgeList,
                   h_src: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """a_v = sum_{u in N(v)} h_u via gather + ``index_add_``.
+    """a_v = sum_{u in N(v)} h_u via gather + the fixed-order segment sum.
 
-    ``h_src`` (defaults to ``h``) is the table senders index into.
+    ``h_src`` (defaults to ``h``) is the table senders index into. Only
+    unmasked edges are summed (see ``EdgeList``).
     """
     src = h if h_src is None else h_src
     msgs = src[edges.senders] * edges.mask[:, None]
-    return _segment_sum(msgs, edges.receivers, edges.num_vertices)
+    return _segment_sum(msgs, edges)
 
 
 def aggregate_mean(h: torch.Tensor, edges: EdgeList,
@@ -121,28 +159,23 @@ def gat_layer(params, h, edges: EdgeList, *, activation=F.elu, h_src=None):
     # Self loops: include v in its own neighborhood (Table I: N_v u {v}),
     # unless the caller indexes a different source table.
     if h_src is None:
-        v_ids = torch.arange(v, dtype=edges.senders.dtype,
-                             device=edges.senders.device)
-        s = torch.cat([edges.senders, v_ids])
-        r = torch.cat([edges.receivers, v_ids])
-        m = torch.cat([edges.mask, torch.ones(v, dtype=torch.float32,
-                                              device=edges.mask.device)])
-    else:
-        s, r, m = edges.senders, edges.receivers, edges.mask
+        edges = edges.self_looped
+    s, r, m = edges.senders, edges.receivers, edges.mask
     logits = F.leaky_relu(alpha_src[s] + alpha_dst[r], 0.2)
     logits = torch.where(m > 0, logits, -torch.inf)
     # Segment softmax over each receiver's incoming edges; receivers with
-    # no edge keep -inf and are zeroed by the isfinite guard.
+    # no edge keep -inf and are zeroed by the isfinite guard. The max is
+    # exact in any order.
     seg_max = torch.full((v,), -torch.inf, dtype=logits.dtype,
                          device=logits.device)
     seg_max = seg_max.scatter_reduce(0, r.long(), logits, "amax",
                                      include_self=False)
     seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
     ex = torch.where(m > 0, torch.exp(logits - seg_max[r]), 0.0)
-    denom = _segment_sum(ex, r, v)
+    denom = _segment_sum(ex, edges)
     coef = ex / torch.clamp_min(denom[r], 1e-16)
     msgs = wh_src[s] * coef[:, None]
-    a = _segment_sum(msgs, r, v)
+    a = _segment_sum(msgs, edges)
     return activation(a) if activation is not None else a
 
 

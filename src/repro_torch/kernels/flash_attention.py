@@ -5,11 +5,13 @@
 k/v [BH, T, dh]; ``gqa_flash`` the model layout, q [B, S, H, dh] and k/v
 [B, T, KV, dh]. Both keep the JAX package's signatures and argument
 checks (its assertions raise ``ValueError`` here). On CUDA tensors both
-launch the hand-written kernel of ``csrc/flash_attention.cu``, which reads
-the model layout in place through strides and indexes the GQA kv head as
-``h // group`` (no repeated K/V copy); on CPU tensors they run the plain
-versions of ``kernels.ref``. f32 or bf16 inputs, f32 softmax statistics,
-output in q's dtype; head_dim 32, 64 or 128.
+launch the hand-written kernels of ``csrc/flash_attention.cu``, which read
+the model layout in place through strides and index the GQA kv head as
+``h // group`` (no repeated K/V copy): bf16 on the tensor cores (wgmma,
+K/V by TMA), f32 in IEEE f32 on the CUDA cores. On CPU tensors they run
+the plain versions of ``kernels.ref``. f32 softmax statistics, output in
+q's dtype; head_dim 32, 64 or 128. TMA reads bf16 tensors in place, so on
+CUDA they need 16-byte aligned data and strides (``check_tma_layout``).
 
 The kernel counts its launches in ``flash_attention.launches``, raised by
 one at every launch (from either wrapper) and nowhere else.
@@ -62,6 +64,21 @@ def _check_inputs(q, k, v, name: str) -> None:
         raise ValueError(f"{name}: the head_dim axis must be contiguous")
 
 
+def check_tma_layout(name: str, *tensors: torch.Tensor) -> None:
+    """What the bf16 kernel's TMA reads need of each [B, S, H, dh] view:
+    a 16-byte aligned first element and batch, position and head strides
+    that are whole multiples of 16 bytes. Raises ``ValueError`` otherwise
+    (pure pointer and stride arithmetic: CPU tensors reach it too)."""
+    for t in tensors:
+        size = t.element_size()
+        if t.data_ptr() % 16 or any(st * size % 16 for st in t.stride()[:3]):
+            raise ValueError(
+                f"{name}: the bf16 kernel reads by TMA and needs a 16-byte "
+                f"aligned base and 16-byte multiple strides, got offset "
+                f"{t.data_ptr() % 16} and strides {t.stride()[:3]} "
+                f"(elements of {size} bytes); pass a contiguous copy")
+
+
 def _check_blocks(s: int, t: int, bq: int, bk: int, q_offset: int) -> None:
     """The reference's block checks (flash_attention.py:81-83)."""
     bq, bk = min(bq, s), min(bk, t)
@@ -81,6 +98,8 @@ def _launch(q, k, v, out, *, heads: int, group: int, causal: bool,
     if b * heads > _MAX_BATCH_HEADS:
         raise ValueError(f"batch x heads = {b * heads} exceeds the launch "
                          f"limit {_MAX_BATCH_HEADS}")
+    if q.dtype == torch.bfloat16:
+        check_tma_layout("flash_attention", q, k, v)
     strides = (ctypes.c_longlong * 12)(*(st for x in (q, k, v, out)
                                          for st in x.stride()[:3]))
     with torch.cuda.device(q.device):

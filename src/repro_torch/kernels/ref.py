@@ -160,3 +160,13 @@ def gqa_flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     vf = vx.transpose(1, 2).reshape(b * h, t, vx.shape[-1])
     o = flash_attention_ref(qf, kf, vf, window=window)
     return o.reshape(b, h, s, -1).transpose(1, 2)
+
+
+def segment_sum_ref(x: torch.Tensor, order: torch.Tensor,
+                    offsets: torch.Tensor) -> torch.Tensor:
+    """Fixed-order segment sum: out[v] = 0 + x[order[o]] + ... over o in
+    offsets[v] .. offsets[v + 1] - 1, left to right, for x [E] or [E, F]
+    -> [V] or [V, F]. With ``order`` the edges stably sorted by receiver
+    these are the floats of a serial ``index_add_`` into zeros."""
+    return torch.segment_reduce(x.index_select(0, order.long()), "sum",
+                                offsets=offsets.long(), axis=0)

@@ -27,7 +27,8 @@ programs.
 Shard-local aggregation runs on one of two numerically equivalent paths,
 selected by the ``aggregation`` knob:
 
-  * ``"segment_sum"`` — gather + ``index_add_`` over the COO edge list.
+  * ``"segment_sum"`` — gather + the fixed-order segment sum
+    (``kernels.segment_sum``) over the COO edge list.
   * ``"pallas"``      — the hand-written block-CSR SpMM kernels (the knob
     keeps the reference's name for the kernel path): per layer one
     ``block_spmm`` over every shard's local rows plus one over the shared

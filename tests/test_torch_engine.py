@@ -63,8 +63,11 @@ def test_query_matches_jax(executor, kind, aggregation):
     assert tr.backend == jr.backend
 
 
-@pytest.mark.parametrize("aggregation", ["pallas", "segment_sum"])
-@pytest.mark.parametrize("kind", ["gcn", "sage"])
+@pytest.mark.parametrize(
+    "kind,aggregation",
+    [(kind, agg) for kind in ("gcn", "sage") for agg in ("pallas",
+                                                         "segment_sum")]
+    + [("gat", "segment_sum")])
 def test_execute_many_is_serial_execute_bitwise(kind, aggregation):
     _, gt, _, tparams = _setup(kind)
     sess = Engine((tparams, kind), device="cpu", compressor="none",

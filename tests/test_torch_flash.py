@@ -158,3 +158,20 @@ def test_wrappers_reject_what_the_reference_or_kernel_does_not_take():
         tfa.gqa_flash(torch.zeros(1, 200, 4, 64),
                       torch.zeros(1, 200, 2, 64),
                       torch.zeros(1, 200, 2, 64))
+
+
+def test_tma_preconditions_raise_on_misaligned_views():
+    """The bf16 kernel reads q, k and v by TMA: a view whose first element
+    or strides are not 16-byte multiples raises ``ValueError`` before any
+    launch (the check is pointer and stride arithmetic, so CPU tensors
+    reach it), and a contiguous [B, S, H, dh] table passes."""
+    aligned = torch.zeros(2, 128, 4, 64, dtype=torch.bfloat16)
+    tfa.check_tma_layout("gqa_flash", aligned, aligned, aligned)
+    shifted = torch.zeros(aligned.numel() + 1, dtype=torch.bfloat16)[1:]
+    with pytest.raises(ValueError, match="16-byte aligned base"):
+        tfa.check_tma_layout("gqa_flash", aligned,
+                             shifted.view(2, 128, 4, 64), aligned)
+    # Rows of 68 elements: head stride 136 bytes, not a multiple of 16.
+    wide = torch.zeros(2, 128, 4, 68, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match=r"strides \(34816, 272, 68\)"):
+        tfa.check_tma_layout("gqa_flash", wide, aligned, aligned)

@@ -51,11 +51,12 @@ def test_port_has_the_slice_modules():
               "core.placement", "core.scheduler", "core.compression",
               "core.simulation", "kernels.gather_aggregate", "kernels.ref",
               "kernels.daq_dequant", "kernels.ops", "kernels.build",
-              "kernels.flash_attention", "runtime.bsp", "models.config",
+              "kernels.flash_attention", "kernels.segment_sum",
+              "runtime.bsp", "models.config",
               "models.layers", "models.attention", "models.transformer",
               "configs.registry", "configs.qwen1_5_0_5b", "launch.serve"):
         assert f"repro_torch.{m}" in mods, m
-    for src in ("block_spmm.cu", "flash_attention.cu"):
+    for src in ("block_spmm.cu", "flash_attention.cu", "segment_sum.cu"):
         assert (PORT / "kernels" / "csrc" / src).is_file()
 
 
