@@ -49,19 +49,28 @@ Phases, in order; any failed check raises and the script exits non-zero:
                 4096), the last two in f32 and in bf16 (every bf16 head dim
                 and mask branch of the wgmma kernel); yardstick
                 ``F.scaled_dot_product_attention``;
-                segment_sum: the fixed-order sum of full-scale SIoT's edge
-                list (F = 52 and 64, the sim path's widths), of GAT's
-                self-looped list (F = 64 and its F = 1 denominators) and of
-                the mesh's folded halo list, held to the float64 plain
-                version; two launches bitwise equal; reported: how far the
-                card lies from the CPU port (the same order, so 0 is
-                expected), for the kernel and for ``layers.aggregate_sum``;
-                yardstick ``index_add_``;
+                segment_sum: the fused gather-and-sum at the layers'
+                inputs: full-scale SIoT's edge list over its table (F = 52
+                and 64, the sim path's widths), GAT's self-looped list
+                (weighted messages at F = 64 and 2, and the F = 1
+                denominators) and the mesh's folded halo list, held to the
+                float64 plain version and bitwise to the old composition
+                (messages gathered, masked and weighted, then summed); two
+                launches bitwise equal; reported: how far the card lies
+                from the CPU port (the same order, so 0 is expected), for
+                the kernel and for ``layers.aggregate_sum``; the old
+                composition's time, the longest segment summed alone and
+                one launch over one empty segment (the launch floor of
+                these timings); yardsticks ``index_add_`` on the
+                messages and ``torch.sparse.mm`` of the summed edges as a
+                CSR matrix, the faster as the library time;
                 dequant: the uint8 and uint16 groups of ``daq_pack`` on
                 full-scale SIoT features (also against ``daq_unpack``'s
-                float64) and benchmarks/run.py's 128-feature shape,
-                bitwise the plain version; yardstick
-                ``codes.float() * s + m``.
+                float64) and benchmarks/run.py's 128-feature shape, each
+                as ``ops.dequantize_features`` sends it (unpadded) and
+                padded to the reference's 256 x 128 tiling, plus a
+                streaming 131,072 x 128 uint8 table, all bitwise the plain
+                version; yardstick ``codes.float() * s + m``.
   3. main     serves GCN and SAGE [52, 64, 2] through
               ``Engine(..., executor="sim", aggregation="pallas",
               device="cuda")`` on full-scale SIoT: a few ``query()`` calls
@@ -1111,77 +1120,186 @@ def flash_cases(fa, ref) -> dict:
     return out
 
 
-def segment_bound(e: int, v: int, f: int) -> tuple:
-    """Least time (ms) of one fixed-order segment sum, the larger of two
-    floors: every message entry read once and every output written once (4
-    bytes each) plus the order (4 bytes an edge) and offsets (4 bytes a
-    segment) at the HBM rate; one add per message entry at the f32
-    CUDA-core peak."""
-    t_bytes = 4 * (e * f + v * f + e + v + 1) / PEAK_BYTES_PER_S * 1e3
-    t_ops = e * f / PEAK_F32_FLOP_PER_S * 1e3
+def segment_bound(rows_read: int, f: int, summed: int, v: int,
+                  weighted: bool) -> tuple:
+    """Least time (ms) of one fused gather-and-sum, the larger of two
+    floors: the bytes the function must move at the HBM rate (each
+    distinct source row read once, 4 F bytes; idx once, and order and w
+    too when weighted, 4 bytes an entry each; the offsets and the output
+    once), and its operations at the f32 CUDA-core peak (one add, and one
+    product when weighted, per summed entry and feature)."""
+    nbytes = 4 * (rows_read * f + summed * (3 if weighted else 1)
+                  + (v + 1) + v * f)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = summed * f * (2 if weighted else 1) / PEAK_F32_FLOP_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
 
 def segment_cases(sg, ref, layers, bsp, g, pg) -> dict:
-    """Phase 2, the fixed-order segment sum on full-scale SIoT's edge list
-    (the sim path's widths), GAT's self-looped list and the mesh's folded
-    halo list (``pg``). Returns {"segment_sum": {"cases": [...]}}."""
+    """Phase 2, the fixed-order gather-and-sum at the layers' inputs: on
+    full-scale SIoT's edge list over the [V, F] table (aggregate_sum, F =
+    52 and 64, the sim path's widths), on GAT's self-looped list (its
+    weighted messages at F = 64 and at the last layer's F = 2, and its
+    F = 1 softmax denominators, one term per edge) and on the mesh's
+    folded halo list over the [n*P | n*B] table (``pg``); and, for the
+    kernel's other row layouts (a generic ring stride for the hub's CTAs,
+    float2 and scalar lane groups), SIoT's list at F = 7 and 8, weighted
+    and not. Beside each fused call, for the record, the same call without
+    the long-segment CTAs (every segment on a lane group: what the CTAs
+    earn), the old composition (messages gathered over every edge, masked
+    and weighted, then the kernel) and two library calls: ``index_add_``
+    on those messages and ``torch.sparse.mm`` of the summed edges as a CSR
+    matrix over the table. Returns {"segment_sum": {"cases": [...]}}."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     edges = layers.EdgeList.from_graph(g, device="cuda")
+    looped = edges.self_looped
     halo = bsp._edges(pg, torch.device("cuda"), "halo", "gcn")
-    cases = [("siot", edges, 52, "sim"), ("siot", edges, 64, "sim"),
-             ("siot gat", edges.self_looped, 64, None),
-             ("siot gat", edges.self_looped, 1, None),
-             ("mesh halo", halo, 64, None)]
+    halo_rows = pg.n * (pg.slots + pg.boundary_slots)
+    # (name, edges, F, source rows (None: one term per edge), weighted,
+    # path)
+    cases = [("siot", edges, 52, g.num_vertices, False, "sim"),
+             ("siot", edges, 64, g.num_vertices, False, "sim"),
+             ("siot gat", looped, 64, g.num_vertices, True, None),
+             ("siot gat", looped, 2, g.num_vertices, True, None),
+             ("siot gat denom", looped, 1, None, False, None),
+             ("mesh halo", halo, 64, halo_rows, False, None),
+             ("siot", edges, 7, g.num_vertices, False, None),
+             ("siot", edges, 7, g.num_vertices, True, None),
+             ("siot", edges, 8, g.num_vertices, False, None),
+             ("siot", edges, 8, g.num_vertices, True, None)]
     out = {"segment_sum": {"cases": []}}
-    for name, el, f, path in cases:
+    for name, el, f, rows, weighted, path in cases:
         e, v = el.receivers.shape[0], el.num_vertices
-        # Messages as the layers make them: 0 on masked (padding) edges,
-        # which the order leaves out and index_add_ adds.
-        x = torch.randn((e, f) if f > 1 else (e,), generator=gen,
+        per_edge = rows is None
+        idx = el.order if per_edge else el.gather
+        x = torch.randn((e,) if per_edge else (rows, f), generator=gen,
                         device="cuda")
-        x *= el.mask[:, None] if f > 1 else el.mask
+        if per_edge:   # denominators: exp terms, 0 on masked edges
+            x = x.abs() * el.mask
+        w = None
+        if weighted:   # softmax coefficients, 0 on masked edges
+            w = torch.rand(e, generator=gen, device="cuda") * el.mask
         recv = el.receivers.long()
+        longs = el.long_segments(f)
 
         def call():
-            return sg.segment_sum(x, el.order, el.offsets)
+            return sg.segment_sum(x, el.order, el.offsets, idx=idx, w=w,
+                                  long=longs)
+
+        def lanes_only():
+            return sg.segment_sum(x, el.order, el.offsets, idx=idx, w=w)
 
         def plain():
-            return ref.segment_sum_ref(x, el.order, el.offsets)
+            return ref.gather_segment_sum_ref(x, idx, el.offsets,
+                                              order=el.order, w=w)
 
-        def lib():
-            return x.new_zeros((v,) + tuple(x.shape[1:])).index_add_(
-                0, recv, x)
+        def messages():
+            if per_edge:
+                return x
+            m = x.index_select(0, el.senders.long()) * el.mask[:, None]
+            return m if w is None else m * w[:, None]
+
+        def composition():
+            return sg.segment_sum(messages(), el.order, el.offsets,
+                                  long=longs)
+        msgs = messages()
+
+        def index_add():
+            return msgs.new_zeros((v,) + tuple(msgs.shape[1:])).index_add_(
+                0, recv, msgs)
+        vals = (torch.ones(el.order.shape[0], device="cuda") if w is None
+                else w.index_select(0, el.order.long()))
+        a_csr = torch.sparse_csr_tensor(
+            el.offsets.long(), idx.long(), vals,
+            size=(v, e if per_edge else rows))
+        x2 = x[:, None] if per_edge else x
+
+        def sparse_mm():
+            return torch.sparse.mm(a_csr, x2)
         got = call()
         if not torch.equal(got, call()):
             raise AssertionError(f"segment_sum {name} F={f}: two launches "
                                  f"differ")
-        want = ref.segment_sum_ref(x.double(), el.order, el.offsets)
+        if not torch.equal(got, lanes_only()):
+            raise AssertionError(f"segment_sum {name} F={f}: the sum "
+                                 f"without long-segment CTAs differs")
+        if not torch.equal(got, composition()):
+            raise AssertionError(f"segment_sum {name} F={f}: the fused sum "
+                                 f"is not the gather + mask + sum "
+                                 f"composition bitwise")
+        want = ref.gather_segment_sum_ref(
+            x.double(), idx, el.offsets, order=el.order,
+            w=None if w is None else w.double())
         err = errors(got, want)
         err["plain_f32_max_abs_err"] = errors(plain(), want)["max_abs_err"]
-        host = sg.segment_sum(x.cpu(), el.order.cpu(), el.offsets.cpu())
+        host = sg.segment_sum(x.cpu(), el.order.cpu(), el.offsets.cpu(),
+                              idx=idx.cpu(),
+                              w=None if w is None else w.cpu())
         err["card_vs_cpu_max_abs"] = float((got.cpu() - host).abs().max())
         check_close(f"segment_sum {name} F={f}", got.double(), want,
                     KERNEL_RTOL, KERNEL_ATOL)
-        check_close(f"index_add_ {name} F={f}", lib().double(), want,
+        check_close(f"index_add_ {name} F={f}", index_add().double(), want,
                     KERNEL_RTOL, KERNEL_ATOL)
+        check_close(f"sparse.mm {name} F={f}",
+                    sparse_mm().reshape(got.shape).double(), want,
+                    KERNEL_RTOL, KERNEL_ATOL)
+        # The longest segment summed alone (its CTAs, the launch): the
+        # fixed-order chain the whole call waits for.
+        counts = el.offsets[1:] - el.offsets[:-1]
+        top = int(torch.argmax(counts))
+        lo, hi = int(el.offsets[top]), int(el.offsets[top + 1])
+        one = torch.tensor([0, hi - lo], dtype=torch.int32, device="cuda")
+        h_idx, h_ord = idx[lo:hi].contiguous(), el.order[lo:hi].contiguous()
+        h_long = sg.LongSegments(one, f)
+
+        def longest():
+            return sg.segment_sum(x, h_ord, one, idx=h_idx, w=w,
+                                  long=h_long)
+        if not torch.equal(longest()[0], got[top]):
+            raise AssertionError(f"segment_sum {name} F={f}: the longest "
+                                 f"segment alone differs")
         k_ms = time_ms(call, reps=30)
+        h_ms = time_ms(longest, reps=30)
+        n_ms = time_ms(lanes_only, reps=30)
         p_ms = time_ms(plain, reps=10)
-        l_ms = time_ms(lib, reps=30)
-        # The work this data needs: the summed (unmasked) edges.
-        b_ms, b_by = segment_bound(el.order.shape[0], v, f)
-        rec = {"case": name, "F": f, "E": e, "summed": el.order.shape[0],
-               "V": v, "path": path, **err,
-               "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+        c_ms = time_ms(composition, reps=30)
+        i_ms = time_ms(index_add, reps=30)
+        s_ms = time_ms(sparse_mm, reps=30)
+        # The work this data needs: the summed (unmasked) entries and the
+        # distinct source rows they read.
+        summed = el.order.shape[0]
+        rows_read = int(torch.unique(idx).numel())
+        b_ms, b_by = segment_bound(rows_read, f, summed, v, weighted)
+        rec = {"case": name, "F": f, "E": e, "summed": summed, "V": v,
+               "source_rows": rows_read, "weighted": weighted,
+               "longest_segment": hi - lo, "longest_segment_ms": h_ms,
+               "long_segments": int(longs.ids.numel()),
+               "long_threshold": longs.threshold, "path": path, **err,
+               "ms": k_ms, "no_long_ctas_ms": n_ms, "plain_ms": p_ms,
+               "composition_ms": c_ms,
+               "index_add_ms": i_ms, "sparse_mm_ms": s_ms,
+               "library_ms": min(i_ms, s_ms),
+               "library": "index_add_" if i_ms <= s_ms else "sparse.mm",
                "bound_ms": b_ms, "bound_by": b_by}
         out["segment_sum"]["cases"].append(rec)
-        log(f"  segment_sum {name:9s} F={f:2d} E={e} err "
+        log(f"  segment_sum {name:14s} F={f:2d} E={e} err "
             f"{err['max_abs_err']:.3g} (card vs CPU port "
-            f"{err['card_vs_cpu_max_abs']:.3g}) kernel {k_ms:.4f} ms  plain "
-            f"{p_ms:.4f} ms  index_add_ {l_ms:.4f} ms  bound {b_ms:.4f} ms "
-            f"({b_by})")
-        del x, got, want, host
+            f"{err['card_vs_cpu_max_abs']:.3g}) fused {k_ms:.4f} ms  "
+            f"without long CTAs {n_ms:.4f} ms  "
+            f"composition {c_ms:.4f} ms  plain {p_ms:.4f} ms  index_add_ "
+            f"{i_ms:.4f} ms  sparse.mm {s_ms:.4f} ms  bound {b_ms:.4f} ms "
+            f"({b_by}); longest segment ({hi - lo} entries) alone "
+            f"{h_ms:.4f} ms; {rec['long_segments']} segments over the "
+            f"long threshold ({longs.threshold})")
+        del x, w, msgs, a_csr, got, want, host
+    # The launch floor of this timing: one launch over one empty segment.
+    none = torch.zeros(2, dtype=torch.int32, device="cuda")
+    table = torch.zeros((1, 64), device="cuda")
+    floor = time_ms(lambda: sg.segment_sum(table, none[:0], none), reps=30)
+    out["segment_sum"]["empty_launch_ms"] = floor
+    log(f"  segment_sum over one empty segment (the launch floor of these "
+        f"timings): {floor:.4f} ms")
     # The layer's sum on the card against the CPU port: same edge order,
     # adds without FMA, so 0 is expected (reported, not gated).
     h = torch.as_tensor(g.features, dtype=torch.float32)
@@ -1193,6 +1311,11 @@ def segment_cases(sg, ref, layers, bsp, g, pg) -> dict:
     log(f"  aggregate_sum on full SIoT (F={g.feature_dim}): card vs CPU port "
         f"max abs {d} ({same})")
     return out
+
+
+#: The streaming dequant table: rows x features of uint8 codes (about 84
+#: MB moved: 16.8 MB of codes in, 67 MB of f32 out), seeded.
+STREAM_TABLE, STREAM_SEED = (131_072, 128), 17
 
 
 def dequant_tables(g, compression, datasets) -> list:
@@ -1216,23 +1339,43 @@ def dequant_tables(g, compression, datasets) -> list:
     return out
 
 
+def streaming_table() -> tuple:
+    """The streaming case's (codes, scales, mins), seeded."""
+    rng = np.random.default_rng(STREAM_SEED)
+    v, f = STREAM_TABLE
+    return (rng.integers(0, 256, (v, f)).astype(np.uint8),
+            rng.uniform(0.01, 1, v).astype(np.float32),
+            rng.normal(size=v).astype(np.float32))
+
+
 def dequant_kernel_cases(dq, ref, tables) -> dict:
-    """Phase 2, the standalone dequant kernel on each table, padded to the
-    256 x 128 tiling as ``ops.dequantize_features`` pads it."""
+    """Phase 2, the standalone dequant kernel on each table as
+    ``ops.dequantize_features`` sends it (unpadded: the ``dequantize``
+    path's cases), padded to the reference's 256 x 128 tiling (the layout
+    the caller used to send, kept for comparison), and on one streaming
+    table that separates the launch floor from the streaming rate. Each is
+    bitwise its plain version."""
     out = {"dequant": {"cases": []}}
-    for name, codes, sc, mn, exact in tables:
+    runs = [(name, codes, sc, mn, exact, pad)
+            for name, codes, sc, mn, exact in tables
+            for pad in (True, False)]
+    runs.append(("streaming", *streaming_table(), None, False))
+    for name, codes, sc, mn, exact, pad in runs:
         v, f = codes.shape
-        vp, fp = -(-v // 256) * 256, -(-f // 128) * 128
+        vp, fp = (-(-v // 256) * 256, -(-f // 128) * 128) if pad else (v, f)
         cp = np.zeros((vp, fp), codes.dtype)
         cp[:v, :f] = codes
         c = torch.as_tensor(cp).cuda()
         s_, m_ = (torch.as_tensor(np.pad(x, (0, vp - v))).cuda()
                   for x in (sc, mn))
-        got = dq.dequant(c, s_, m_)
+
+        def call():
+            return dq.dequant(c, s_, m_, v_tile=vp, f_tile=fp)
+        got = call()
         plain = ref.dequant_ref(c, s_, m_)
         if not torch.equal(got, plain):
-            raise AssertionError(f"dequant {name}: not bitwise the plain "
-                                 f"version")
+            raise AssertionError(f"dequant {name} [{vp}, {fp}]: not "
+                                 f"bitwise the plain version")
         want = (c.double() * s_.double()[:, None] + m_.double()[:, None])
         err = errors(got, want)
         if exact is not None:
@@ -1249,19 +1392,23 @@ def dequant_kernel_cases(dq, ref, tables) -> dict:
 
         def lib():
             return c.float() * s_[:, None] + m_[:, None]
-        k_ms = time_ms(lambda: dq.dequant(c, s_, m_), reps=50)
+        k_ms = time_ms(call, reps=50)
         p_ms = time_ms(lambda: ref.dequant_ref(c, s_, m_), reps=50)
         l_ms = time_ms(lib, reps=50)
         nbytes = vp * fp * (c.element_size() + 4) + vp * 8
         b_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-        rec = {"case": name, "V": vp, "F": fp,
+        rec = {"case": name, "V": vp, "F": fp, "padded": pad,
                "codes": str(c.dtype).removeprefix("torch."),
-               "path": "dequantize", **err, "ms": k_ms, "plain_ms": p_ms,
-               "library_ms": l_ms, "bound_ms": b_ms, "bound_by": "bytes"}
+               "path": None if pad or name == "streaming" else "dequantize",
+               **err, "ms": k_ms, "plain_ms": p_ms,
+               "library_ms": l_ms, "bound_ms": b_ms, "bound_by": "bytes",
+               "bytes": nbytes, "gb_per_s": nbytes / k_ms / 1e6}
         out["dequant"]["cases"].append(rec)
         log(f"  dequant {name:19s} [{vp}, {fp}] {rec['codes']:6s} err "
-            f"{err['max_abs_err']:.3g} kernel {k_ms:.4f} ms  plain "
-            f"{p_ms:.4f} ms  library {l_ms:.4f} ms  bound {b_ms:.4f} ms")
+            f"{err['max_abs_err']:.3g} kernel {k_ms:.4f} ms "
+            f"({rec['gb_per_s']:.0f} GB/s)  plain {p_ms:.4f} ms  library "
+            f"{l_ms:.4f} ms  bound {b_ms:.4f} ms")
+        del c, s_, m_, got, plain, want
     return out
 
 

@@ -2,7 +2,7 @@
 """Phase 2 of ``chip_smoke.py`` for one group of kernels, for a given tree,
 so that two trees can be timed in turns on one card.
 
-    python3 scripts/phase2_kernels.py [TREE] [--flash | --segment]
+    python3 scripts/phase2_kernels.py [TREE] [--flash | --segment | --dequant]
 
 TREE (default: this repository) is the root of a checkout that holds
 ``chip_smoke.py`` and ``src/repro_torch`` (for example the parent commit
@@ -19,6 +19,11 @@ errors:
 * ``--segment``: ``Session.execute`` with ``aggregation="segment_sum"`` for
   GCN, SAGE and GAT on the ``sim`` and ``mesh-bsp`` executors on full-scale
   SIoT (host clock ending in the copy back; median of 20 after a warm-up),
+  through the public API only, so any tree of the port can run it;
+* ``--dequant``: ``daq_dequant.dequant`` on the three tables of the
+  ``dequantize`` drive, each unpadded and padded to the reference's
+  256 x 128 tiling, and on a streaming 131,072 x 128 uint8 table (device
+  time by CUDA events, median of 50; each bitwise the plain version),
   through the public API only, so any tree of the port can run it.
 
 Run ``parent, change, change, parent`` in one call to compare two versions.
@@ -37,6 +42,7 @@ ap.add_argument("tree", nargs="?",
 group = ap.add_mutually_exclusive_group()
 group.add_argument("--flash", action="store_true")
 group.add_argument("--segment", action="store_true")
+group.add_argument("--dequant", action="store_true")
 args = ap.parse_args()
 root = Path(args.tree).resolve()
 sys.path.insert(0, str(root / "src"))
@@ -81,6 +87,45 @@ def segment_times(Engine, models, g) -> list:
     return out
 
 
+#: The streaming table of ``--dequant`` (rows, features) and its seed.
+STREAM_TABLE, STREAM_SEED = (131_072, 128), 17
+
+
+def dequant_times(cs, dq, ref, tables) -> list:
+    """Device times of the tree's ``dequant`` on each table, unpadded and
+    padded, and on the streaming table; each result bitwise the plain
+    version."""
+    rng = np.random.default_rng(STREAM_SEED)
+    v, f = STREAM_TABLE
+    stream = (rng.integers(0, 256, (v, f)).astype(np.uint8),
+              rng.uniform(0.01, 1, v).astype(np.float32),
+              rng.normal(size=v).astype(np.float32))
+    runs = [(name, codes, sc, mn, pad) for name, codes, sc, mn, _ in tables
+            for pad in (False, True)] + [("streaming", *stream, False)]
+    out = []
+    for name, codes, sc, mn, pad in runs:
+        v, f = codes.shape
+        vp, fp = (-(-v // 256) * 256, -(-f // 128) * 128) if pad else (v, f)
+        cp = np.zeros((vp, fp), codes.dtype)
+        cp[:v, :f] = codes
+        c = torch.as_tensor(cp).cuda()
+        s_, m_ = (torch.as_tensor(np.pad(x, (0, vp - v))).cuda()
+                  for x in (sc, mn))
+
+        def call():
+            return dq.dequant(c, s_, m_, v_tile=vp, f_tile=fp)
+        if not torch.equal(call(), ref.dequant_ref(c, s_, m_)):
+            raise AssertionError(f"dequant {name}: not the plain version")
+        ms = cs.time_ms(call, reps=50)
+        nbytes = vp * fp * (c.element_size() + 4) + vp * 8
+        out.append({"case": name, "V": vp, "F": fp, "padded": pad,
+                    "codes": str(c.dtype).removeprefix("torch."), "ms": ms,
+                    "gb_per_s": nbytes / ms / 1e6})
+        print(f"  dequant {name} [{vp}, {fp}]: {ms:.4f} ms "
+              f"({out[-1]['gb_per_s']:.0f} GB/s)", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("phase2_kernels: no CUDA card", file=sys.stderr)
@@ -97,7 +142,8 @@ def main() -> int:
         raise RuntimeError(f"imported {ga.__file__}, not the tree {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"tree {root}: built {build.build()}", flush=True)
-    source = "flash_attention" if args.flash else "block_spmm"
+    source = ("flash_attention" if args.flash else
+              "segment_sum" if args.segment else "block_spmm")
     report = Path(str(build.library_path(source)) + ".log")
     for line in report.read_text().splitlines():
         if any(w in line for w in ("Compiling entry", "registers", "spill")):
@@ -108,6 +154,11 @@ def main() -> int:
     elif args.segment:
         g = datasets.load("siot", 1.0, seed=0)
         res = {"segment_sum_path": segment_times(Engine, models, g)}
+    elif args.dequant:
+        from repro_torch.core import compression
+        g = datasets.load("siot", 1.0, seed=0)
+        res = {"dequant": dequant_times(
+            cs, dq, ref, cs.dequant_tables(g, compression, datasets))}
     else:
         g = datasets.load("siot", 1.0, seed=0)
         csr = ops.block_csr_for(g, device="cuda")
@@ -119,7 +170,7 @@ def main() -> int:
                                     pg.n * pg.boundary_slots))
     print(json.dumps({
         "tree": str(root), "device": torch.cuda.get_device_name(0),
-        "cases": {name: rec if args.segment else
+        "cases": {name: rec if args.segment or args.dequant else
                   [{k: c[k] for k in KEYS if k in c} for c in rec["cases"]]
                   for name, rec in res.items()}}), flush=True)
     return 0

@@ -1,10 +1,11 @@
 """GNN layers in PyTorch, matching the paper's Table I inference functions.
 
 All layers consume COO edge lists (senders, receivers) plus an edge mask
-(0 for padding edges) and aggregate with a fixed-order segment sum: each
-receiver's messages in edge order, from 0, with no atomics
+(0 for padding edges) and aggregate with a fixed-order gather-and-sum:
+each receiver's source rows, gathered straight from the source table, in
+edge order, from 0, with no atomics and no message tensor
 (``kernels.segment_sum``), so a sum is the same on every run, and on the
-CPU it is the serial ``index_add_``. Aggregation can be
+CPU it is the serial ``index_add_`` of the messages. Aggregation can be
 routed through the block-CSR SpMM kernels (see repro_torch.kernels.ops) by
 the executor, which then runs only the dense tail here
 (``apply_layer_with_sum``).
@@ -26,7 +27,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.segment_sum import receiver_order, segment_sum
+from repro_torch.kernels.segment_sum import (LongSegments, long_threshold,
+                                             receiver_order, segment_sum)
 
 
 def _glorot(generator: torch.Generator, shape) -> torch.Tensor:
@@ -49,17 +51,47 @@ class _Edges(NamedTuple):
 class EdgeList(_Edges):
     """COO connectivity on one device, with the receivers' summation order
     (``kernels.segment_sum.receiver_order`` over the unmasked edges),
-    computed once where the edge list is built unless given. Masked edges
-    carry no message: they are left out of every sum, so an inf or NaN in
-    a masked edge's source row does not reach its receiver (the
-    reference's ``segment_sum`` of ``src * 0`` would add NaN)."""
+    computed once where the edge list is built unless given; the gather
+    index, the long segments and the degrees are derived from it once, on
+    first use. Masked edges carry no message: they are left out of every
+    sum, so an inf or NaN in a masked edge's source row does not reach its
+    receiver (the reference's ``segment_sum`` of ``src * 0`` would add
+    NaN). The mask holds only 0 and 1 (checked here)."""
 
     def __new__(cls, senders, receivers, mask, num_vertices: int,
                 order=None, offsets=None):
+        if not bool(((mask == 0) | (mask == 1)).all()):
+            raise ValueError("EdgeList: the edge mask must hold only 0 and 1")
         if order is None:
             order, offsets = receiver_order(receivers, num_vertices, mask)
         return super().__new__(cls, senders, receivers, mask, num_vertices,
                                order, offsets)
+
+    @functools.cached_property
+    def gather(self) -> torch.Tensor:
+        """int32[E']: the source row of each entry of the order,
+        ``senders[order]``."""
+        return self.senders[self.order.long()].int()
+
+    @functools.cached_property
+    def _long(self) -> dict:
+        return {}
+
+    def long_segments(self, features: int) -> LongSegments:
+        """The receivers whose sums of rows of ``features`` floats get a
+        CTA of their own on the card (``kernels.segment_sum.LongSegments``
+        of these offsets), built once per threshold."""
+        t = long_threshold(features)
+        if t not in self._long:
+            self._long[t] = LongSegments(self.offsets, features)
+        return self._long[t]
+
+    @functools.cached_property
+    def degree(self) -> torch.Tensor:
+        """float32[V]: each receiver's count of unmasked edges, read from
+        the offsets of the order. Counts are integers below 2^24, so this
+        is bitwise the float sum of the 0/1 mask in any order."""
+        return (self.offsets[1:] - self.offsets[:-1]).float()
 
     @classmethod
     def from_graph(cls, g, pad_to: Optional[int] = None,
@@ -89,29 +121,35 @@ class EdgeList(_Edges):
                         torch.cat([self.mask, ones]), self.num_vertices)
 
 
-def _segment_sum(x: torch.Tensor, edges: EdgeList) -> torch.Tensor:
-    """Each receiver's rows of ``x`` (one per edge) summed in edge order."""
-    return segment_sum(x, edges.order, edges.offsets)
+def _segment_sum(x: torch.Tensor, edges: EdgeList,
+                 idx: Optional[torch.Tensor] = None,
+                 w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Each receiver's terms ``(w[e] *) x[idx[k]]`` (e the edge of entry k
+    of the order; ``idx`` defaults to the order, one row of ``x`` per
+    edge) summed in edge order."""
+    feats = 1 if x.ndim == 1 else x.shape[1]
+    return segment_sum(x, edges.order, edges.offsets, idx=idx, w=w,
+                       long=edges.long_segments(feats))
 
 
 def masked_degree(edges: EdgeList) -> torch.Tensor:
-    """float32[V] in-degree under the edge mask. ``index_add_`` may sum in
-    any order here: the terms are 0/1 and every partial sum is an integer
-    below 2^24, so every order gives the same float."""
-    out = edges.mask.new_zeros(edges.num_vertices)
-    return out.index_add_(0, edges.receivers, edges.mask)
+    """float32[V] in-degree under the edge mask: ``edges.degree``, the
+    counts of the order, computed once per edge list. The mask holds only
+    0 and 1 (``EdgeList`` checks it), so these are the floats of the
+    reference's sum of the mask."""
+    return edges.degree
 
 
 def aggregate_sum(h: torch.Tensor, edges: EdgeList,
                   h_src: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """a_v = sum_{u in N(v)} h_u via gather + the fixed-order segment sum.
+    """a_v = sum_{u in N(v)} h_u by the fixed-order gather-and-sum over the
+    source table (no message rows are built).
 
     ``h_src`` (defaults to ``h``) is the table senders index into. Only
     unmasked edges are summed (see ``EdgeList``).
     """
     src = h if h_src is None else h_src
-    msgs = src[edges.senders] * edges.mask[:, None]
-    return _segment_sum(msgs, edges)
+    return _segment_sum(src, edges, idx=edges.gather)
 
 
 def aggregate_mean(h: torch.Tensor, edges: EdgeList,
@@ -174,8 +212,8 @@ def gat_layer(params, h, edges: EdgeList, *, activation=F.elu, h_src=None):
     ex = torch.where(m > 0, torch.exp(logits - seg_max[r]), 0.0)
     denom = _segment_sum(ex, edges)
     coef = ex / torch.clamp_min(denom[r], 1e-16)
-    msgs = wh_src[s] * coef[:, None]
-    a = _segment_sum(msgs, edges)
+    # The messages wh_src[s] * coef, gathered and weighted inside the sum.
+    a = _segment_sum(wh_src, edges, idx=edges.gather, w=coef)
     return activation(a) if activation is not None else a
 
 

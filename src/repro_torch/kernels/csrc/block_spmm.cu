@@ -595,37 +595,28 @@ int dequant_spmm(const int* row_ptr, const int* seg_ptr, const float* seg_w,
 
 constexpr int kThreads = 256;
 
-// The source value at (row, col) of a code table, for col < f, rounded
-// as DequantRows rounds it.
-template <typename Code>
-struct DequantPanel {
-  const Code* codes;
-  const float* scales;
-  const float* mins;
-  int f;
-  __device__ __forceinline__ float operator()(long long row, int col) const {
-    return __fadd_rn(__fmul_rn((float)__ldg(codes + row * f + col),
-                               __ldg(scales + row)),
-                     __ldg(mins + row));
-  }
-};
-
-// Standalone dequantization, out[row, col] = codes * scale[row] +
-// min[row], rounded twice like the plain version. Bound by bytes: it reads
-// each code and row parameter once and writes each f32 output once, one
-// element per thread in a grid-stride loop, neighbouring threads on
-// neighbouring elements (coalesced); nothing is staged in shared memory.
+// Standalone dequantization, out[e] = codes[e] * scale[row] + min[row]
+// over the table viewed flat (row = e / f), rounded twice like the plain
+// version (__fmul_rn, then __fadd_rn): bitwise ref.dequant_ref. Bound by
+// bytes: it reads each code and row parameter once and writes each f32
+// output once, one element per thread in a grid-stride loop, neighbouring
+// threads on neighbouring elements (coalesced); nothing is staged in
+// shared memory. The dequantize path's tables are small enough that the
+// launch itself sets the pace. Indices are 32-bit unsigned (one 32-bit
+// division an element; e + the grid's stride stays below 2^32): the
+// wrapper sends no table of 2^31 or more elements.
 template <typename Code>
 __global__ void __launch_bounds__(kThreads)
 dequant_kernel(const Code* __restrict__ codes,
                const float* __restrict__ scales,
                const float* __restrict__ mins, float* __restrict__ out,
-               long long n, int f) {
-  const DequantPanel<Code> panel{codes, scales, mins, f};
-  for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x; e < n;
-       e += (long long)gridDim.x * kThreads) {
-    const long long row = e / f;
-    out[e] = panel(row, (int)(e - row * f));
+               unsigned n, unsigned f) {
+  for (unsigned e = blockIdx.x * kThreads + threadIdx.x; e < n;
+       e += gridDim.x * kThreads) {
+    const unsigned row = e / f;
+    out[e] = __fadd_rn(__fmul_rn((float)__ldg(codes + e),
+                                 __ldg(scales + row)),
+                       __ldg(mins + row));
   }
 }
 
@@ -633,21 +624,22 @@ int dequant(const void* codes, const float* scales, const float* mins,
             float* out, int rows, int f, int code_bytes, void* stream) {
   const long long n = (long long)rows * f;
   if (n == 0) return (int)cudaSuccess;
+  if (n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const long long want = (n + kThreads - 1) / kThreads;
   const int grid = (int)(want < 132 * 64 ? want : 132 * 64);
   cudaStream_t s = (cudaStream_t)stream;
   switch (code_bytes) {
     case 1:
       dequant_kernel<uint8_t><<<grid, kThreads, 0, s>>>(
-          (const uint8_t*)codes, scales, mins, out, n, f);
+          (const uint8_t*)codes, scales, mins, out, (unsigned)n, f);
       break;
     case 2:
       dequant_kernel<uint16_t><<<grid, kThreads, 0, s>>>(
-          (const uint16_t*)codes, scales, mins, out, n, f);
+          (const uint16_t*)codes, scales, mins, out, (unsigned)n, f);
       break;
     case 4:
       dequant_kernel<uint32_t><<<grid, kThreads, 0, s>>>(
-          (const uint32_t*)codes, scales, mins, out, n, f);
+          (const uint32_t*)codes, scales, mins, out, (unsigned)n, f);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -127,7 +127,8 @@ def dequant(codes: torch.Tensor, scales: torch.Tensor, mins: torch.Tensor, *,
 
     ``v_tile``/``f_tile`` are the reference's tile sizes: V and F must be
     multiples of them (after ``min`` with V and F), as there; the CUDA
-    kernel itself takes any shape.
+    kernel itself takes any shape of fewer than 2^31 elements (pass
+    ``v_tile=V, f_tile=F`` to send a table untiled).
     """
     _check_tensor("codes", codes, tuple(CODE_BYTES), codes.device)
     if codes.ndim != 2:
@@ -146,6 +147,9 @@ def dequant(codes: torch.Tensor, scales: torch.Tensor, mins: torch.Tensor, *,
         return ref.dequant_ref(codes, scales, mins)
     if codes.device.type != "cuda":
         raise ValueError(f"dequant runs on cuda or cpu, not {codes.device}")
+    if v * f >= 2 ** 31:
+        raise ValueError(f"dequant on cuda takes fewer than 2^31 codes, got "
+                         f"{tuple(codes.shape)}")
     out = torch.empty((v, f), dtype=torch.float32, device=codes.device)
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream

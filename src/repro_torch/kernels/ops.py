@@ -159,24 +159,18 @@ def dequantize_features(codes: np.ndarray, scales: np.ndarray,
                         mins: np.ndarray, *,
                         device: Union[str, torch.device] = "cuda"
                         ) -> np.ndarray:
-    """Kernel-backed row-wise dequantization with pad / unpad handling:
-    numpy codes uint{8,16,32}[V, F] and f32[V] scales and mins in, numpy
-    f32[V, F] out. The table is zero-padded to the reference's 256 x 128
-    tiling, dequantized by ``daq_dequant.dequant`` on ``device`` (the CUDA
-    kernel on a CUDA device, its plain version on the CPU) and cut back."""
+    """Kernel-backed row-wise dequantization: numpy codes uint{8,16,32}[V,
+    F] and f32[V] scales and mins in, numpy f32[V, F] out, dequantized by
+    ``daq_dequant.dequant`` on ``device`` (the CUDA kernel on a CUDA
+    device, its plain version on the CPU). The table goes unpadded, in one
+    tile: the kernel takes any shape, so padding to the reference's
+    256 x 128 tiling would only move bytes that are cut off again."""
     # Imported here: api.engine imports this module.
     from repro_torch.api.engine import resolve_device
     dev = resolve_device(device)
     v, f = codes.shape
-    v_pad = -(-v // 256) * 256
-    f_pad = -(-f // 128) * 128
-    cp = np.zeros((v_pad, f_pad), codes.dtype)
-    cp[:v, :f] = codes
-    sp = np.zeros((v_pad,), np.float32)
-    sp[:v] = scales
-    mp = np.zeros((v_pad,), np.float32)
-    mp[:v] = mins
-    out = dequant(torch.as_tensor(cp, device=dev),
-                  torch.as_tensor(sp, device=dev),
-                  torch.as_tensor(mp, device=dev))
-    return out[:v, :f].cpu().numpy()
+    out = dequant(torch.as_tensor(np.ascontiguousarray(codes), device=dev),
+                  torch.as_tensor(scales, dtype=torch.float32, device=dev),
+                  torch.as_tensor(mins, dtype=torch.float32, device=dev),
+                  v_tile=v, f_tile=f)
+    return out.cpu().numpy()

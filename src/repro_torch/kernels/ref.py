@@ -8,6 +8,7 @@ tensors that lie on the CPU.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -170,3 +171,20 @@ def segment_sum_ref(x: torch.Tensor, order: torch.Tensor,
     these are the floats of a serial ``index_add_`` into zeros."""
     return torch.segment_reduce(x.index_select(0, order.long()), "sum",
                                 offsets=offsets.long(), axis=0)
+
+
+def gather_segment_sum_ref(x: torch.Tensor, idx: torch.Tensor,
+                           offsets: torch.Tensor, *,
+                           order: Optional[torch.Tensor] = None,
+                           w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The fused gather-and-sum: out[v] = 0 + (w[order[k]] *) x[idx[k]] +
+    ... over k in offsets[v] .. offsets[v + 1] - 1, left to right. Gathers
+    the terms (each product rounded on its own), then sums them with
+    ``segment_sum_ref`` in their order."""
+    terms = x.index_select(0, idx.long())
+    if w is not None:
+        wk = w.index_select(0, order.long())
+        terms = terms * (wk[:, None] if terms.ndim == 2 else wk)
+    every = torch.arange(terms.shape[0], dtype=torch.int32,
+                         device=terms.device)
+    return segment_sum_ref(terms, every, offsets)

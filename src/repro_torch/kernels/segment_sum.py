@@ -1,16 +1,25 @@
-"""Fixed-order segment sum on Hopper: the port's ``"segment_sum"``
-aggregation (and GAT's only path) without atomics.
+"""Fixed-order gather-and-sum on Hopper: the port's ``"segment_sum"``
+aggregation (and GAT's only path) without atomics and without a message
+tensor.
 
 ``receiver_order`` sorts a COO edge list's edges stably by receiver once
 per layout and device (``gnn.layers.EdgeList`` calls it where an edge list
-is built, leaving out the masked padding edges); ``segment_sum`` then sums
-each receiver's messages in that order, starting from 0. ``order`` indexes
-the rows of ``x``; each of its entries must be below ``len(x)``. On a CUDA tensor it launches the kernel of
-``csrc/segment_sum.cu`` (one warp per receiver, lanes over features, f32
-adds left to right); on a CPU tensor it runs the plain version
-(``kernels.ref.segment_sum_ref``). Both give the floats of a serial
-``index_add_`` into zeros in edge order, so the result is the same on
-every run and for every example of a batch.
+is built, leaving out the masked padding edges), and ``LongSegments``
+lists, from those offsets, the receivers whose segments are long enough
+for a CTA of their own at a row width. ``segment_sum`` then sums each receiver's terms in that order,
+starting from +0::
+
+    out[v] = +0 + w[order[k0]] * x[idx[k0]] + w[order[k1]] * x[idx[k1]] ...
+
+over ``k = offsets[v] .. offsets[v + 1] - 1``, each product rounded on its
+own and each add in f32. ``idx`` (default ``order``) indexes the rows of
+``x``, so a layer passes its source table with ``idx = senders[order]``
+and no message rows are built; without ``w`` the row itself is added. On
+a CUDA tensor it launches the kernel of ``csrc/segment_sum.cu``; on a CPU
+tensor it runs the plain version (``kernels.ref.gather_segment_sum_ref``).
+Both give the floats of a serial ``index_add_`` of the messages ``x[idx]
+(* w)`` into zeros in edge order, so the result is the same on every run
+and for every example of a batch.
 
 The kernel counts its launches in ``segment_sum.launches``, raised by one
 at every launch and nowhere else.
@@ -25,9 +34,24 @@ import torch
 from repro_torch.kernels import build, ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-#: C signature of segment_sum_launch: x, order, offsets, out,
-#: num_segments, features, stream.
-_SIGNATURE = [_P] * 4 + [_I] * 2 + [_P]
+#: C signature of segment_sum_launch: x, idx, w, order, offsets,
+#: long_segs, n_long, long_threshold, out, num_segments, features, stream.
+_SIGNATURE = [_P] * 6 + [_I] * 2 + [_P] + [_I] * 2 + [_P]
+
+#: Segments of more entries than this get a CTA of their own on the card
+#: when a row is one vector (F = 1, 2 or 4; SIoT: 470 of 16,216 receivers,
+#: half of the edges; its hub has 2,631).
+LONG_SEGMENT = 128
+#: The same for wider rows: a long-segment CTA then costs more a row (a
+#: shared-memory load an add) than the short path's lane group, so only
+#: longer segments take one.
+WIDE_LONG_SEGMENT = 256
+
+
+def long_threshold(features: int) -> int:
+    """The length past which a segment of rows of ``features`` floats
+    gets a CTA of its own on the card."""
+    return LONG_SEGMENT if features in (1, 2, 4) else WIDE_LONG_SEGMENT
 
 
 def _kernel():
@@ -62,39 +86,88 @@ def receiver_order(receivers: torch.Tensor, num_segments: int,
     return order.int(), offsets.int()
 
 
-def segment_sum(x: torch.Tensor, order: torch.Tensor,
-                offsets: torch.Tensor) -> torch.Tensor:
-    """x [E] or [E, F] -> [V] or [V, F], V = len(offsets) - 1: each
-    segment's rows ``x[order[offsets[v]:offsets[v + 1]]]`` summed left to
-    right from 0. On the CPU any float dtype runs the plain version; the
-    kernel takes float32."""
+class LongSegments:
+    """The receivers whose segments hold more than ``threshold`` entries
+    (``long_threshold(features)``), longest first (ties by receiver), so
+    that the longest chain starts first on the card, built from the
+    ``offsets`` they belong to and bound to them: ``segment_sum`` takes it
+    only with those offsets, since the kernel's lane groups skip every
+    segment over the threshold and count on a CTA for each. Integer work
+    only; built once per layout and threshold."""
+
+    __slots__ = ("offsets", "threshold", "ids")
+
+    def __init__(self, offsets: torch.Tensor, features: int):
+        counts = offsets[1:].long() - offsets[:-1].long()
+        self.offsets = offsets
+        self.threshold = long_threshold(features)
+        ids = torch.nonzero(counts > self.threshold).squeeze(1)
+        self.ids = ids[torch.argsort(-counts[ids], stable=True)].int()
+
+
+def _check_index(name: str, t: torch.Tensor, device: torch.device) -> None:
+    if t.device != device or t.dtype != torch.int32 or t.ndim != 1:
+        raise ValueError(f"segment_sum: {name} must be 1-d int32 on "
+                         f"{device}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+
+
+def segment_sum(x: torch.Tensor, order: torch.Tensor, offsets: torch.Tensor,
+                *, idx: Optional[torch.Tensor] = None,
+                w: Optional[torch.Tensor] = None,
+                long: Optional[LongSegments] = None) -> torch.Tensor:
+    """x [N] or [N, F] -> [V] or [V, F], V = len(offsets) - 1: each
+    segment's terms ``(w[order[k]] *) x[idx[k]]`` over ``k = offsets[v] ..
+    offsets[v + 1] - 1`` summed left to right from +0. ``idx`` defaults to
+    ``order`` (x then holds one row per edge); every entry of ``idx`` must
+    be below ``len(x)`` and, with ``w``, every entry of ``order`` below
+    ``len(w)``. ``long`` is ``LongSegments(offsets, F)`` of these very
+    offsets (the CTAs of the long segments on the card; without it every
+    segment is summed by a lane group, right but slow for a hub). On the
+    CPU any float dtype runs the plain version; the kernel takes
+    float32."""
     if x.ndim not in (1, 2):
-        raise ValueError(f"segment_sum takes x [E] or [E, F], got "
-                         f"{tuple(x.shape)}")
-    if order.ndim == 1 and order.shape[0] > x.shape[0]:
+        raise ValueError(f"segment_sum takes x [E] or [E, F] (a source "
+                         f"table's rows with idx), got {tuple(x.shape)}")
+    idx = order if idx is None else idx
+    for name, t in (("order", order), ("offsets", offsets), ("idx", idx)):
+        _check_index(name, t, x.device)
+    if idx.shape != order.shape:
+        raise ValueError(f"segment_sum: idx {tuple(idx.shape)} and order "
+                         f"{tuple(order.shape)} differ")
+    if idx is order and order.shape[0] > x.shape[0]:
         raise ValueError(f"segment_sum: {order.shape[0]} entries in order "
                          f"for {x.shape[0]} rows of x")
-    for name, t in (("order", order), ("offsets", offsets)):
-        if t.device != x.device or t.dtype != torch.int32 or t.ndim != 1:
-            raise ValueError(f"segment_sum: {name} must be 1-d int32 on "
-                             f"{x.device}, got {t.dtype} {tuple(t.shape)} "
-                             f"on {t.device}")
+    if w is not None and (w.ndim != 1 or w.dtype != x.dtype
+                          or w.device != x.device):
+        raise ValueError(f"segment_sum: w must be 1-d {x.dtype} on "
+                         f"{x.device}, got {w.dtype} {tuple(w.shape)} on "
+                         f"{w.device}")
+    if long is not None and long.offsets is not offsets:
+        raise ValueError("segment_sum: long was built for other offsets; "
+                         "pass LongSegments(offsets, features) of these")
     if x.device.type == "cpu":
-        return ref.segment_sum_ref(x, order, offsets)
+        return ref.gather_segment_sum_ref(x, idx, offsets, order=order, w=w)
     if x.device.type != "cuda":
         raise ValueError(f"segment_sum runs on cuda or cpu, not {x.device}")
     if x.dtype != torch.float32:
         raise TypeError(f"segment_sum on cuda takes float32, got {x.dtype}")
+    long_ids = offsets.new_zeros(0) if long is None else long.ids
+    threshold = 0 if long is None else long.threshold
     v = offsets.shape[0] - 1
     feats = 1 if x.ndim == 1 else x.shape[1]
-    xc, oc, fc = x.contiguous(), order.contiguous(), offsets.contiguous()
+    xc, ic, oc, fc, lc = (t.contiguous() for t in (x, idx, order, offsets,
+                                                   long_ids))
+    wc = None if w is None else w.contiguous()
     out = torch.empty((v,) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _kernel()(_P(xc.data_ptr()), _P(oc.data_ptr()),
-                        _P(fc.data_ptr()), _P(out.data_ptr()), v, feats,
-                        _P(stream))
+        err = _kernel()(_P(xc.data_ptr()), _P(ic.data_ptr()),
+                        _P(None if wc is None else wc.data_ptr()),
+                        _P(oc.data_ptr()), _P(fc.data_ptr()),
+                        _P(lc.data_ptr()), lc.shape[0], threshold,
+                        _P(out.data_ptr()), v, feats, _P(stream))
         segment_sum.launches += 1
     if err != 0:
         raise RuntimeError(f"segment_sum launch failed: cudaError {err}")

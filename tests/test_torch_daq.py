@@ -253,6 +253,32 @@ def test_dequantize_features_matches_jax(dtype, v, f):
     assert np.array_equal(got, _two_roundings(codes, sc, mn))
 
 
+@pytest.mark.parametrize("dtype", list(CODES))
+@pytest.mark.parametrize("v,f", [(300, 52), (7, 3), (256, 128)])
+def test_dequantize_features_unpadded_is_the_padded_result_bitwise(dtype, v,
+                                                                   f):
+    """The table goes unpadded: the floats are those of the reference's
+    pad to the 256 x 128 tiling, dequantize and cut back, and the JAX
+    ``dequantize_features`` (interpret mode) within the dequant bar."""
+    codes, sc, mn = _codes(CODES[dtype], (v, f), np.random.default_rng(f))
+    vp, fp = -(-v // 256) * 256, -(-f // 128) * 128
+    cp = np.zeros((vp, fp), codes.dtype)
+    cp[:v, :f] = codes
+    padded = tdq.dequant(*_torch(cp, np.pad(sc, (0, vp - v)),
+                                 np.pad(mn, (0, vp - v))))[:v, :f].numpy()
+    before = tdq.dequant.launches
+    got = tops.dequantize_features(codes, sc, mn, device="cpu")
+    assert tdq.dequant.launches == before   # CPU tensors never launch
+    assert got.shape == (v, f) and np.array_equal(got, padded)
+    want = jops.dequantize_features(codes, sc, mn, interpret=True)
+    np.testing.assert_allclose(got, want, rtol=DQ_RTOL, atol=DQ_ATOL)
+    # A table the caller does not own contiguously goes as well.
+    wide = np.zeros((v, f + 5), codes.dtype)
+    wide[:, :f] = codes
+    assert np.array_equal(tops.dequantize_features(wide[:, :f], sc, mn,
+                                                   device="cpu"), padded)
+
+
 def test_dequant_rejects_what_the_reference_or_kernel_does_not_take():
     codes, sc, mn = _torch(*_codes(np.uint8, (512, 128),
                                    np.random.default_rng(9)))
