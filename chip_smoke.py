@@ -117,6 +117,29 @@ Phases, in order; any failed check raises and the script exits non-zero:
               gated: the bf16 logits' distance from it and how many of 8
               greedy tokens agree. Afterwards a reduced qwen1.5-0.5b is
               served on the card and on the CPU and compared.
+  3f. server  request-level serving at full SIoT, GCN and SAGE [52, 64,
+              2] on the kernel path with the DAQ codec, every replay driven
+              with the counts set to 0 just before it and read just after:
+              ``server`` (``sim``) and ``server-mesh`` (``mesh-bsp``, halo
+              exchange, DAQ halo wire): ``plan.server(max_batch=8)
+              .replay(traces.poisson(32, rate=2 / the simulated single-query
+              latency, seed=0))``; every response bitwise the serial
+              ``Session.query``, K ``block_spmm`` (+ K ``dequant_spmm`` on
+              the mesh) per batch of one and K of the batched kernels per
+              batch of two or more, and a batch of two or more formed.
+              ``server-slo`` (``sim``): an ``SLOPolicy`` with a tight class
+              whose deadline lies between the cheapest degraded rung's and
+              the native rung's host-only estimates; degraded responses
+              bitwise a session with their rung's knobs, the segment sums
+              the degraded batches imply, the degradation histogram
+              printed. ``server-update`` (GCN, ``sim`` and the mesh): a
+              ``traces.mixed`` stream with a feature-only delta (162
+              vertices) and a structural one (160 added edges, 16 removed
+              vertices), replayed in three parts; every response bitwise a
+              fresh compile of the graph it saw (``sim``) or a layout built
+              from scratch at the session's assignment (mesh); the updates'
+              modes and dirty shards printed, with the host ms of each
+              ``apply_delta`` and of the first execute after it.
   4. report   one ``{"kernels": [...]}`` JSON line (all seven kernels), the
               ``nvidia-smi`` name and power limit, and as the last line
               ``{"ok": true, "device": {...}}``. A kernel's top-level
@@ -219,6 +242,10 @@ PATH_KERNELS = {"sim": ("block_spmm", "block_spmm_batched"),
                 "mesh": MESH_KERNELS,
                 "mesh-segment": ("segment_sum",),
                 "dequantize": ("dequant",),
+                "server": ("block_spmm", "block_spmm_batched"),
+                "server-mesh": MESH_KERNELS,
+                "server-slo": ("segment_sum",),
+                "server-update": ("block_spmm", "dequant_spmm"),
                 "serve": ("flash_attention",),
                 "prefill": ("flash_attention",)}
 
@@ -1432,6 +1459,363 @@ def dequantize_path(ops, ref, tables) -> list:
     return out
 
 
+#: Phase 3f: requests of each server replay, the server's batch cap, the
+#: kinds served, and the mixed trace of the update path (its length, its
+#: update fraction, and the two deltas: feature upserts over ~1 % of SIoT's
+#: vertices, then added edges and removed vertices of that size).
+SERVER_REQUESTS = 32
+SERVER_MAX_BATCH = 8
+SERVER_KINDS = ("gcn", "sage")
+MIXED_REQUESTS, MIXED_UPDATE_FRACTION = 24, 0.1
+UPDATE_UPSERTS, UPDATE_EDGES, UPDATE_REMOVED = 162, 160, 16
+
+
+def server_plan(Engine, models, g, kind: str, executor: str):
+    """Phase 3f's plan of ``kind``: seeded [52, 64, 2] weights, the kernel
+    path and the DAQ codec on the default cluster (on the mesh: the halo
+    exchange with the DAQ halo wire). Returns the plan and its compile s."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = models.gnn_init(gen, kind, [g.feature_dim, DIMS_HIDDEN,
+                                         DIMS_OUT])
+    t0 = time.perf_counter()
+    plan = Engine((params, kind), cluster="1A+4B+1C", executor=executor,
+                  exchange="halo", aggregation="pallas", compressor="daq",
+                  device="cuda").compile(g)
+    return plan, time.perf_counter() - t0
+
+
+def server_rate(plan) -> float:
+    """2 / the plan's simulated single-query latency (host only, before any
+    replay): arrivals outpace one query's service often enough that
+    micro-batches form."""
+    return 2.0 / plan.session().account().total_latency
+
+
+def batches_of(responses) -> dict:
+    """batch_index -> (batch size, ladder rung) of a replay's responses."""
+    from repro_torch.api.server import Response
+    return {r.batch_index: (r.batch_size, r.degradation)
+            for r in responses if isinstance(r, Response)}
+
+
+def expected_launches(responses, plan, mesh: bool, ladder=()) -> dict:
+    """The launches a replay's batches imply: a batch of one K
+    ``block_spmm`` (and K ``dequant_spmm`` on the mesh's DAQ wire), a batch
+    of two or more K of the batched kernels; a batch of b on a segment-sum
+    rung of L layers b * L * SEGMENT_SUMS[kind] segment sums (the rule of
+    ``segment_gates``)."""
+    want = dict.fromkeys(REPLACES, 0)
+    k = plan.model.num_layers
+    for b, level in batches_of(responses).values():
+        if level:
+            rung = ladder[level - 1]
+            if rung.aggregation != "segment_sum":
+                raise AssertionError(f"rung {rung} is not a segment-sum rung")
+            want["segment_sum"] += (b * (rung.num_layers or k)
+                                    * SEGMENT_SUMS[plan.model.kind])
+            continue
+        suffix = "" if b == 1 else "_batched"
+        want["block_spmm" + suffix] += k
+        if mesh:
+            want["dequant_spmm" + suffix] += k
+    return want
+
+
+def check_launches(what: str, got: dict, want: dict) -> None:
+    if got != want:
+        raise AssertionError(f"{what}: launched {got}, expected {want}")
+
+
+def replay_thunk(srv, trace):
+    """One replay of ``trace`` on ``srv``, returning the responses, the
+    session's plan after it and the host seconds of the replay."""
+    def run():
+        t0 = time.perf_counter()
+        out = srv.replay(trace)
+        return out, srv.session.plan, time.perf_counter() - t0
+    return run
+
+
+def server_summary(srv, out, wall_s: float) -> dict:
+    """The replay's simulated-clock summary, batch-size histogram and host
+    time."""
+    summary = srv.summarize(out)
+    hist = {}
+    for b, _ in batches_of(out).values():
+        hist[b] = hist.get(b, 0) + 1
+    served = summary["requests"]
+    return {"batch_histogram": {str(b): hist[b] for b in sorted(hist)},
+            "replay_s": wall_s, "host_ms_per_request": wall_s * 1e3
+            / max(served, 1),
+            **{k: summary[k] for k in ("requests", "rejected", "updates",
+                                       "batches", "mean_batch", "makespan_s",
+                                       "throughput_rps", "latency_p50_s",
+                                       "latency_p95_s", "degraded")}}
+
+
+def check_server(case: dict, out, counts: dict, mesh: bool) -> dict:
+    """Gates of one ``server`` / ``server-mesh`` replay: exact launches by
+    batch size, a batch of two or more, and every response bitwise the
+    serial ``Session.query`` of its request (stored features: one query
+    covers them all). Returns the record."""
+    plan, what = case["plan"], case["what"]
+    responses, _, wall_s = out
+    check_launches(what, counts, expected_launches(responses, plan, mesh))
+    rec = {"kind": plan.model.kind, "executor": plan.config.executor,
+           "rate_rps": case["rate"], "compile_s": case["compile_s"],
+           "launches": counts, **server_summary(case["srv"], responses,
+                                                wall_s)}
+    if max(int(b) for b in rec["batch_histogram"]) < 2:
+        raise AssertionError(f"{what}: no batch of two or more formed "
+                             f"({rec['batch_histogram']})")
+    t0 = time.perf_counter()
+    want = plan.session().query().embeddings
+    rec["serial_query_ms"] = (time.perf_counter() - t0) * 1e3
+    for r in responses:
+        if not np.array_equal(r.embeddings, want):
+            raise AssertionError(f"{what}: response {r.request_id} (batch "
+                                 f"of {r.batch_size}) is not bitwise the "
+                                 f"serial query")
+    log(f"  {what}: {rec['requests']} requests at {case['rate']:.2f}/s, "
+        f"batches {rec['batch_histogram']}, bitwise the serial query; "
+        f"replay {wall_s:.2f} s ({rec['host_ms_per_request']:.1f} ms a "
+        f"request, serial query {rec['serial_query_ms']:.1f} ms); simulated "
+        f"p95 {rec['latency_p95_s'] * 1e3:.1f} ms, "
+        f"{rec['throughput_rps']:.2f} req/s; launches {counts}")
+    return rec
+
+
+def slo_case(plan, kind: str, traces, slo) -> dict:
+    """The server-slo replay of ``kind``: two equally likely classes, a
+    tight one (priority 1) whose deadline lies between the cheapest
+    degraded rung's and the native rung's per-request estimates (so every
+    batch holding one is served on a degraded rung, all of which sum on
+    ``segment_sum``) and a loose one (priority 0, ten native services).
+    The estimates are host-only ``account`` calls before the replay; late
+    requests are served at the last rung rather than rejected."""
+    srv = plan.server(max_batch=SERVER_MAX_BATCH,
+                      slo=slo.SLOPolicy(reject_hopeless=False))
+    rungs = [{}] + [r.knobs() for r in srv.ladder]
+    svc = [plan.session(**kn).account().total_latency for kn in rungs]
+    if min(svc[1:]) >= svc[0]:
+        raise AssertionError(f"{kind}: no degraded rung is cheaper: {svc}")
+    tight = (svc[0] + min(svc[1:])) / 2.0
+    trace = traces.poisson(SERVER_REQUESTS, server_rate(plan), seed=0,
+                           slo_fn=slo.slo_classes([(0.5, 1, tight),
+                                                   (0.5, 0, 10 * svc[0])]))
+    if not any(r.deadline == tight for r in trace):
+        raise AssertionError(f"{kind}: the trace drew no tight request")
+    return {"what": f"{kind} server-slo", "plan": plan, "srv": srv,
+            "trace": trace, "rung_estimates_s": svc, "tight_s": tight,
+            "ladder": [r.name for r in srv.ladder]}
+
+
+def check_slo(case: dict, out, counts: dict) -> dict:
+    """Gates of one server-slo replay: exact launches (segment sums by the
+    degraded batches), a batch on a segment-sum rung, and every response
+    bitwise a session configured with its rung's knobs."""
+    plan, srv, what = case["plan"], case["srv"], case["what"]
+    responses, _, wall_s = out
+    check_launches(what, counts, expected_launches(responses, plan, False,
+                                                   srv.ladder))
+    levels = {}
+    for b, level in batches_of(responses).values():
+        levels.setdefault(level, [0, 0])
+        levels[level][0] += 1
+        levels[level][1] += b
+    if not any(level for level in levels):
+        raise AssertionError(f"{what}: no batch was served on a degraded "
+                             f"(segment-sum) rung")
+    for level in levels:
+        knobs = srv.ladder[level - 1].knobs() if level else {}
+        want = plan.session(**knobs).query().embeddings
+        for r in responses:
+            if r.degradation == level and not np.array_equal(r.embeddings,
+                                                             want):
+                raise AssertionError(f"{what}: response {r.request_id} on "
+                                     f"rung {level} is not bitwise a "
+                                     f"session with {knobs}")
+    hist = {str(lv): {"batches": n, "requests": q}
+            for lv, (n, q) in sorted(levels.items())}
+    rec = {"kind": plan.model.kind, "ladder": case["ladder"],
+           "rung_estimates_s": case["rung_estimates_s"],
+           "tight_deadline_s": case["tight_s"], "launches": counts,
+           "degradation_histogram": hist,
+           **server_summary(srv, responses, wall_s)}
+    log(f"  {what}: ladder {case['ladder']}, rung estimates "
+        f"{[round(x * 1e3, 1) for x in case['rung_estimates_s']]} ms, tight "
+        f"deadline {case['tight_s'] * 1e3:.1f} ms; degradation histogram "
+        f"(rung: batches / requests) {hist}; degraded responses bitwise "
+        f"their rung's session; replay {wall_s:.2f} s; launches {counts}")
+    return rec
+
+
+def mixed_trace(traces, GraphDelta, UpdateRequest, g, rate: float):
+    """The update path's mixed trace: the first seed whose Poisson stream
+    holds exactly two updates with queries before, between and after them;
+    the first update upserts UPDATE_UPSERTS vertices' features, the second
+    adds UPDATE_EDGES edges and removes UPDATE_REMOVED vertices. Returns the
+    trace split after each update (three replays) and the two deltas."""
+    def probe(i, rng):
+        return GraphDelta()
+    for seed in range(200):
+        t = traces.mixed(MIXED_REQUESTS, rate, delta_fn=probe, seed=seed,
+                         update_fraction=MIXED_UPDATE_FRACTION)
+        at = [i for i, r in enumerate(t) if isinstance(r, UpdateRequest)]
+        if (len(at) == 2 and at[0] >= 2 and at[1] - at[0] >= 3
+                and len(t) - at[1] >= 3):
+            break
+    else:
+        raise AssertionError("no seed gives two separated updates")
+    v, f = g.num_vertices, g.feature_dim
+    deltas = []
+
+    def delta_fn(i, rng):
+        if not deltas:
+            ids = np.sort(rng.choice(v, UPDATE_UPSERTS, replace=False))
+            d = GraphDelta(feature_ids=ids, feature_values=g.features[ids]
+                           + rng.normal(scale=0.1, size=(len(ids), f)))
+        else:
+            d = GraphDelta(add_edges=rng.integers(0, v, (UPDATE_EDGES, 2)),
+                           remove_vertices=rng.choice(v, UPDATE_REMOVED,
+                                                      replace=False))
+        deltas.append(d)
+        return d
+    t = traces.mixed(MIXED_REQUESTS, rate, delta_fn=delta_fn, seed=seed,
+                     update_fraction=MIXED_UPDATE_FRACTION)
+    return [t[:at[0] + 1], t[at[0] + 1:at[1] + 1], t[at[1] + 1:]], deltas
+
+
+def check_update(case: dict, outs, counts, bsp) -> dict:
+    """Gates of one server-update path (three replays: before, between and
+    after the two updates): exact launches per replay, and every response
+    bitwise a fresh compile of the graph it saw (``sim``) or a layout built
+    from scratch at the session's assignment (``mesh-bsp``)."""
+    plan, what = case["plan"], case["what"]
+    mesh = plan.config.executor == "mesh-bsp"
+    yardstick = "scratch layout" if mesh else "fresh compile"
+    reports = []
+    for j, ((responses, after, wall_s), cnt) in enumerate(zip(outs, counts)):
+        check_launches(f"{what} replay {j}", cnt,
+                       expected_launches(responses, plan, mesh))
+        # The plan each replay's queries saw: the original for the first,
+        # else the plan the previous replay's update produced.
+        seen = plan if j == 0 else outs[j - 1][1]
+        if mesh:
+            ref = dataclasses.replace(seen, partitioned=bsp.build_partitioned(
+                seen.graph, seen.placement.assignment, n=seen.num_fogs,
+                build_blocks=True))
+        else:
+            ref = case["Engine"].from_plan(plan).compile(seen.graph)
+        want = ref.session().query().embeddings
+        for r in responses:
+            if hasattr(r, "embeddings") and not np.array_equal(r.embeddings,
+                                                               want):
+                raise AssertionError(f"{what} replay {j}: response "
+                                     f"{r.request_id} is not bitwise the "
+                                     f"{yardstick}")
+            if hasattr(r, "report"):
+                rep = r.report
+                reports.append({"mode": rep.mode,
+                                "dirty_local": list(rep.dirty_local),
+                                "dirty_halo": list(rep.dirty_halo),
+                                **{k: getattr(rep, k) for k in (
+                                    "added_vertices", "removed_vertices",
+                                    "added_edges", "feature_upserts",
+                                    "imbalance", "cut_fraction_after")}})
+        del ref
+    rec = {"kind": plan.model.kind, "executor": plan.config.executor,
+           "updates": reports, "launches": counts,
+           "replay_s": [o[2] for o in outs]}
+    log(f"  {what}: three replays bitwise the {yardstick}s; updates "
+        + "; ".join(f"{u['mode']} dirty local {u['dirty_local']} halo "
+                    f"{u['dirty_halo']}" for u in reports)
+        + f"; launches {counts}")
+    return rec
+
+
+def update_costs(case: dict, deltas, ops) -> list:
+    """Host ms of ``apply_delta`` for each update, from the plan the server
+    applied it to, and of the first two executes after it: the first
+    rebuilds the device state a new layout or graph needs (on ``sim`` the
+    mutated graph's block-CSR operand, dropped first so that it is built
+    again; on the mesh the new layout's uploads and compaction)."""
+    before, out = case["plan"], []
+    for d in deltas:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        after = case["Engine"].from_plan(before).apply_delta(before, d)
+        apply_ms = (time.perf_counter() - t0) * 1e3
+        if d.is_structural and after.config.executor != "mesh-bsp":
+            ops.invalidate_block_csr(after.graph)
+        sess = after.session()
+        feats = sess.collect()
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sess.execute(feats)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out.append({"mode": after.update_report.mode, "apply_ms": apply_ms,
+                    "first_execute_ms": times[0],
+                    "second_execute_ms": times[1]})
+        log(f"  {case['what']} {after.update_report.mode}: apply_delta "
+            f"{apply_ms:.1f} ms, first execute after it {times[0]:.1f} ms "
+            f"(then {times[1]:.1f} ms)")
+        before = after
+    return out
+
+
+def server_paths(Engine, models, g, api, bsp, ops, drive_each) -> dict:
+    """Phase 3f: ``plan.server(...).replay(trace)`` at full SIoT on the
+    card, each path driven with the counts set to 0 just before each replay
+    and read just after; every yardstick runs after the counts are read."""
+    plans = {}
+    for kind in SERVER_KINDS:
+        for ex in ("sim", "mesh-bsp"):
+            plans[kind, ex] = server_plan(Engine, models, g, kind, ex)
+    out = {}
+    for path, ex in (("server", "sim"), ("server-mesh", "mesh-bsp")):
+        cases = []
+        for kind in SERVER_KINDS:
+            plan, compile_s = plans[kind, ex]
+            rate = server_rate(plan)
+            cases.append({"what": f"{kind} {path}", "plan": plan,
+                          "compile_s": compile_s, "rate": rate,
+                          "srv": plan.server(max_batch=SERVER_MAX_BATCH),
+                          "trace": api.traces.poisson(SERVER_REQUESTS, rate,
+                                                      seed=0)})
+        outs, counts = drive_each(path, [replay_thunk(c["srv"], c["trace"])
+                                         for c in cases])
+        out[path] = [check_server(c, o, n, ex == "mesh-bsp")
+                     for c, o, n in zip(cases, outs, counts)]
+    cases = [slo_case(plans[kind, "sim"][0], kind, api.traces, api.slo)
+             for kind in SERVER_KINDS]
+    outs, counts = drive_each("server-slo", [
+        replay_thunk(c["srv"], c["trace"]) for c in cases])
+    out["server-slo"] = [check_slo(c, o, n)
+                         for c, o, n in zip(cases, outs, counts)]
+    cases, runs = [], []
+    for ex in ("sim", "mesh-bsp"):
+        plan = plans["gcn", ex][0]
+        pieces, deltas = mixed_trace(api.traces, api.GraphDelta,
+                                     api.UpdateRequest, g, server_rate(plan))
+        srv = plan.server(max_batch=SERVER_MAX_BATCH)
+        cases.append({"what": f"gcn server-update {ex}", "plan": plan,
+                      "Engine": Engine, "deltas": deltas,
+                      "pieces": [len(p) for p in pieces]})
+        runs += [replay_thunk(srv, p) for p in pieces]
+    outs, counts = drive_each("server-update", runs)
+    out["server-update"] = []
+    for j, case in enumerate(cases):
+        rec = check_update(case, outs[3 * j:3 * j + 3],
+                           counts[3 * j:3 * j + 3], bsp)
+        rec["costs"] = update_costs(case, case["deltas"], ops)
+        out["server-update"].append(rec)
+    return out
+
+
 def serve_path(sv, fa, cfg) -> dict:
     """Phase 3d: transformer serving (``launch.serve``) at full width."""
     launches0 = fa.flash_attention.launches
@@ -1588,6 +1972,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs on a CUDA card", file=sys.stderr)
         return 1
+    from repro_torch import api
     from repro_torch.api import Engine
     from repro_torch.configs import registry
     from repro_torch.core import compression
@@ -1679,6 +2064,28 @@ def main() -> int:
     kernels = [wrappers[n] for n in REPLACES]
     launches = {}
 
+    def drive_each(path, runs):
+        """Drive one path as several runs, every count set to 0 just before
+        each run and read just after; the path's counts are their sums.
+        Returns each run's output and counts."""
+        outs, per_run = [], []
+        total = dict.fromkeys(REPLACES, 0)
+        for run in runs:
+            for kern in kernels:
+                kern.launches = 0
+            outs.append(run())
+            counts = {n: kern.launches for n, kern in zip(REPLACES, kernels)}
+            per_run.append(counts)
+            for name in total:
+                total[name] += counts[name]
+        for name in PATH_KERNELS[path]:
+            if total[name] == 0:
+                raise AssertionError(f"{name} was never launched on the "
+                                     f"{path} path")
+        launches[path] = total
+        log(f"  launches on the {path} path: {total}")
+        return outs, per_run
+
     def drive(path, fn):
         """Drive one path with every count set to 0 just before it, read
         just after; each kernel of the path must have launched."""
@@ -1754,6 +2161,14 @@ def main() -> int:
     log("phase 3c: dequantize path (ops.dequantize_features)")
     dequantized = drive("dequantize",
                         lambda: dequantize_path(ops, ref, tables))
+
+    log("phase 3f: server paths (Server.replay: micro-batches, the SLO "
+        "ladder, graph updates)")
+    t_server = time.perf_counter()
+    served_requests = server_paths(Engine, models, g, api, bsp, ops,
+                                   drive_each)
+    served_requests["phase_s"] = time.perf_counter() - t_server
+    log(f"  phase 3f: {served_requests['phase_s']:.1f} s")
     del g, csr
     ops._BLOCK_CSR_CACHE.clear()
     torch.cuda.empty_cache()
@@ -1787,6 +2202,7 @@ def main() -> int:
                       "segment_sum_path": {"sim": seg_sim,
                                            "mesh": seg_mesh},
                       "dequantize_path": dequantized,
+                      "server_path": served_requests,
                       "serve_path": served_lm, "prefill_path": prefilled,
                       "reduced_serve": reduced}), flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)

@@ -19,6 +19,20 @@ _LAZY = {
     "Session": "repro_torch.api.session",
     "QueryResult": "repro_torch.api.session",
     "ExecutorBackend": "repro_torch.api.executors",
+    "Server": "repro_torch.api.server",
+    "Request": "repro_torch.api.server",
+    "Response": "repro_torch.api.server",
+    "UpdateResponse": "repro_torch.api.server",
+    "GraphDelta": "repro_torch.api.updates",
+    "UpdateRequest": "repro_torch.api.updates",
+    "UpdateReport": "repro_torch.api.updates",
+    "SLOPolicy": "repro_torch.api.slo",
+    "DegradationLevel": "repro_torch.api.slo",
+    "AdaptiveBatchController": "repro_torch.api.slo",
+    "Rejection": "repro_torch.api.slo",
+    "traces": "repro_torch.api.traces",    # submodule: the module itself
+    "updates": "repro_torch.api.updates",  # submodule: the module itself
+    "slo": "repro_torch.api.slo",          # submodule: the module itself
 }
 
 __all__ = sorted(["Registry", "UnknownComponentError", "ALL_REGISTRIES",
@@ -29,7 +43,10 @@ __all__ = sorted(["Registry", "UnknownComponentError", "ALL_REGISTRIES",
 def __getattr__(name):
     if name in _LAZY:
         import importlib
-        return getattr(importlib.import_module(_LAZY[name]), name)
+        module = importlib.import_module(_LAZY[name])
+        if _LAZY[name].rsplit(".", 1)[-1] == name:
+            return module   # submodule entry (e.g. traces)
+        return getattr(module, name)
     raise AttributeError(f"module 'repro_torch.api' has no attribute "
                          f"{name!r}")
 

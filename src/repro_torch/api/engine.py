@@ -2,6 +2,8 @@
 
     Engine(model, cluster, device="cuda", **knobs).compile(graph) -> Plan
     Plan.session() -> Session -> Session.query() -> QueryResult
+    Plan.server() -> Server -> Server.replay(trace) -> [Response, ...]
+    Engine.apply_delta(plan, GraphDelta) -> Plan
 
 ``Engine`` captures the pipeline *configuration* (every stage is a
 string-keyed registry entry, plus the torch device the numerics run on);
@@ -14,17 +16,21 @@ their registry keys) changes no other code.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+import dataclasses
+from typing import Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from repro_torch.api import executors as _executors  # noqa: F401  (registers backends)
 from repro_torch.api.registry import (COMPRESSORS, EXCHANGES, EXECUTORS,
                                       PARTITIONERS, PLACEMENTS)
 from repro_torch.api.plan import EngineConfig, ModelSpec, Plan, as_model
-from repro_torch.core import simulation
+from repro_torch.api.updates import GraphDelta, UpdateReport
+from repro_torch.core import incremental, simulation
 from repro_torch.gnn.graph import Graph
 from repro_torch.gnn.layers import EdgeList
+from repro_torch.kernels import ops
 from repro_torch.runtime import bsp
 
 
@@ -71,6 +77,10 @@ class Engine:
       bytes_per_vertex: per-vertex upload size for planning (defaults to
         the graph's raw float64 feature bytes).
       seed: profiling/placement RNG seed.
+      update_max_imbalance / update_max_cut_growth: repair-quality
+        thresholds for ``apply_delta`` — when the incrementally repaired
+        partitioning exceeds either, the delta triggers a full recompile
+        instead (overridable per call).
       staleness_bound / validate: knobs of subsystems not ported yet;
         anything but their inert defaults (0 / "off") raises.
     """
@@ -84,6 +94,8 @@ class Engine:
                  bytes_per_vertex: Optional[float] = None,
                  aggregation: str = "auto",
                  staleness_bound: int = 0,
+                 update_max_imbalance: float = 2.0,
+                 update_max_cut_growth: float = 1.5,
                  validate: str = "off",
                  device: Union[str, torch.device] = "cuda"):
         self.device = resolve_device(device)
@@ -105,10 +117,10 @@ class Engine:
             device=self.device)
         if int(staleness_bound) != 0:
             raise _not_ported(f"staleness_bound={staleness_bound}",
-                              "10, fleet and stale halos")
+                              "2, fleet and stale halos")
         if validate != "off":
             raise _not_ported(f"validate={validate!r}",
-                              "12, static verifier")
+                              "4, static verifier")
         self.config = EngineConfig(
             partitioner=PARTITIONERS.canonical(partitioner),
             placement=PLACEMENTS.canonical(placement),
@@ -120,7 +132,9 @@ class Engine:
             cluster_spec=cluster if isinstance(cluster, str) else None,
             hidden=hidden, seed=seed, sync_cost=sync_cost,
             bytes_per_vertex=bytes_per_vertex, aggregation=aggregation,
-            device=str(self.device))
+            device=str(self.device),
+            update_max_imbalance=update_max_imbalance,
+            update_max_cut_growth=update_max_cut_growth)
 
     def compile(self, graph: Graph) -> Plan:
         """Setup phase (paper steps 1-2): profile, register, plan, freeze."""
@@ -169,16 +183,184 @@ class Engine:
                    hidden=cfg.hidden, seed=cfg.seed,
                    sync_cost=cfg.sync_cost,
                    bytes_per_vertex=cfg.bytes_per_vertex,
-                   aggregation=cfg.aggregation, device=cfg.device)
+                   aggregation=cfg.aggregation, device=cfg.device,
+                   update_max_imbalance=cfg.update_max_imbalance,
+                   update_max_cut_growth=cfg.update_max_cut_growth)
 
     def compile_fleet(self, graph: Graph, sites):
-        raise _not_ported("Engine.compile_fleet", "10, fleet and stale halos")
-
-    def apply_delta(self, plan: Plan, delta, **kwargs):
-        raise _not_ported("Engine.apply_delta", "8, dynamic graphs")
+        raise _not_ported("Engine.compile_fleet", "2, fleet and stale halos")
 
     def fail_nodes(self, plan: Plan, crashed, **kwargs):
-        raise _not_ported("Engine.fail_nodes", "11, fault tolerance")
+        raise _not_ported("Engine.fail_nodes", "3, fault tolerance")
+
+    # -- dynamic-graph updates ----------------------------------------------
+
+    def _recompile(self, graph: Graph) -> Plan:
+        """Full setup phase against a mutated graph (the fallback path)."""
+        if isinstance(self.cluster, str):
+            return self.compile(graph)
+        # A prebuilt FogCluster was profiled against the old graph; rebind
+        # it to the mutated one so wire bytes / ground truth stay honest.
+        old = self.cluster
+        self.cluster = dataclasses.replace(old, graph=graph,
+                                           feature_dim=graph.feature_dim)
+        try:
+            return self.compile(graph)
+        finally:
+            self.cluster = old
+
+    def apply_delta(self, plan: Plan,
+                    delta: Union[GraphDelta, Sequence[GraphDelta]], *,
+                    assignment: Optional[np.ndarray] = None,
+                    max_imbalance: Optional[float] = None,
+                    max_cut_growth: Optional[float] = None,
+                    force: Optional[str] = None) -> Plan:
+        """Absorb a graph mutation into ``plan`` without recomputing the
+        world (paper §III-E workload adaptation).
+
+        The repair path keeps the plan's profiled fog metadata and
+        partition -> fog mapping, greedily assigns new vertices into the
+        existing partitions (min-cut-aware, capacity-bounded), rebuilds
+        only the *dirty* shards' block-CSR operands and halo exchange
+        maps, and re-prices the placement estimates for the mutated
+        topology. When the repaired partitioning degrades past the
+        thresholds — imbalance above ``max_imbalance`` x the pre-update
+        imbalance (floored at a balanced baseline) or edge-cut fraction
+        above ``max_cut_growth`` x the pre-update cut — the full compile
+        pipeline runs instead.
+
+        On the device side a structural delta retires the old graph's
+        cached whole-graph block-CSR operands (``ops.invalidate_block_csr``)
+        and rebuilds ``Plan.edges`` from the mutated graph; a rebuilt
+        layout starts with an empty ``device_cache``, so its first mesh
+        execute uploads and compacts the operands again. Feature-only
+        deltas on the plan's own assignment keep ``Plan.edges`` and share
+        the layout's device copies (``PartitionedGraph.with_features``).
+
+        Args:
+          plan: the plan to update (left untouched; a new Plan returns).
+          delta: one ``GraphDelta`` or a sequence applied in order (each
+            delta addresses the graph produced by the previous one).
+          assignment: base vertex -> fog assignment to repair (defaults to
+            ``plan.placement.assignment``; sessions pass their adapted
+            assignment).
+          force: "incremental" skips the threshold check, "recompile"
+            skips the repair.
+
+        Returns a Plan with ``provenance`` of "incremental" or "recompile"
+        and an ``update_report`` describing what happened; empty deltas
+        return an equivalent plan with mode "noop".
+        """
+        cfg = plan.config
+        deltas = [delta] if isinstance(delta, GraphDelta) else list(delta)
+        if force not in (None, "incremental", "recompile"):
+            raise ValueError(f"force must be None, 'incremental' or "
+                             f"'recompile', got {force!r}")
+        max_imbalance = (cfg.update_max_imbalance if max_imbalance is None
+                         else max_imbalance)
+        max_cut_growth = (cfg.update_max_cut_growth if max_cut_growth is None
+                          else max_cut_growth)
+        base = (plan.placement.assignment if assignment is None
+                else np.asarray(assignment, np.int64))
+        n = plan.num_fogs
+        dp = incremental.plan_delta(plan.graph, base, deltas, n)
+        report_kw = dict(num_deltas=len(deltas), num_partitions=n,
+                         imbalance_before=dp.imbalance_before,
+                         imbalance=dp.imbalance,
+                         cut_fraction_before=dp.cut_fraction_before,
+                         cut_fraction_after=dp.cut_fraction_after,
+                         **dp.counts)
+
+        if (not dp.structural and dp.counts["feature_upserts"] == 0
+                and np.array_equal(base, plan.placement.assignment)
+                and force != "recompile"):
+            report = UpdateReport(mode="noop", **report_kw)
+            return dataclasses.replace(plan, provenance="incremental",
+                                       update_report=report)
+
+        recompile_reason = ""
+        if force != "incremental" and dp.structural:
+            # Both thresholds bound *degradation* relative to the plan
+            # being repaired (floored at a perfectly balanced baseline):
+            # IEP sizes partitions to heterogeneous capability, so a
+            # skewed-but-intended layout must not trip the knob by itself.
+            imbalance_limit = max_imbalance * max(1.0, dp.imbalance_before)
+            if dp.imbalance > imbalance_limit:
+                recompile_reason = (f"imbalance {dp.imbalance:.2f} > "
+                                    f"{max_imbalance:.2f} x "
+                                    f"{max(1.0, dp.imbalance_before):.2f}")
+            elif dp.cut_fraction_after > max_cut_growth * max(
+                    dp.cut_fraction_before, 1e-9):
+                recompile_reason = (
+                    f"cut fraction {dp.cut_fraction_after:.3f} > "
+                    f"{max_cut_growth:.2f} x {dp.cut_fraction_before:.3f}")
+        if force == "recompile":
+            recompile_reason = "forced"
+        if dp.structural:
+            # The adjacency changed: retire the old graph's cached
+            # whole-graph block-CSR operands. The mutated graph
+            # fingerprints differently, so stale operands are never
+            # served; without this each would pin its dense tiles in the
+            # card's memory (kernels/ops.py) until LRU eviction.
+            ops.invalidate_block_csr(plan.graph)
+        if recompile_reason:
+            plan2 = self._recompile(dp.graph)
+            report = UpdateReport(mode="recompile", reason=recompile_reason,
+                                  **report_kw)
+            return dataclasses.replace(plan2, provenance="recompile",
+                                       update_report=report)
+
+        # plan.partitioned was laid out for plan.placement.assignment; it
+        # is only a valid reuse source (for clean-shard tiles, or for the
+        # feature-only with_features fast path) when the repair started
+        # from that same assignment. A session that adapted migrates
+        # vertices without touching plan.partitioned, so its repairs must
+        # rebuild from scratch for the adapted assignment.
+        base_is_plan = np.array_equal(base, plan.placement.assignment)
+        needs_shards = self._executor.needs_block_shards
+        mode = bsp.resolve_aggregation(
+            cfg.aggregation, self.model.kind,
+            exchange=cfg.exchange if needs_shards else None,
+            device=self.device)
+        build_blocks = (needs_shards and mode == "pallas"
+                        ) or plan.partitioned.local_csr is not None
+        if not dp.structural and base_is_plan:
+            # Feature-only: same topology, same layout, same block shards
+            # (and their device copies) — only the feature table changes.
+            partitioned = plan.partitioned.with_features(dp.graph.features)
+            dirty_l = dirty_h = ()
+        elif not dp.structural:
+            # Feature-only delta on an adapted assignment: the delta
+            # dirtied nothing, but the layout must match the adapted
+            # assignment, which plan.partitioned does not.
+            partitioned = bsp.build_partitioned(
+                dp.graph, dp.assignment, build_blocks=build_blocks, n=n)
+            dirty_l = dirty_h = ()
+        else:
+            partitioned = bsp.build_partitioned(
+                dp.graph, dp.assignment, build_blocks=build_blocks, n=n,
+                prev=plan.partitioned if base_is_plan else None,
+                dirty_local=dp.dirty_local, dirty_halo=dp.dirty_halo)
+            dirty_l = tuple(int(p) for p in dp.dirty_local)
+            dirty_h = tuple(int(p) for p in dp.dirty_halo)
+        placement = incremental.refresh_placement(
+            dp.graph, dp.assignment, plan.placement.mapping, plan.fogs,
+            bytes_per_vertex=cfg.bytes_per_vertex,
+            k_layers=self.model.num_layers,
+            sync_cost=plan.cluster.sync_cost)
+        cluster = dataclasses.replace(plan.cluster, graph=dp.graph,
+                                      feature_dim=dp.graph.feature_dim)
+        # The edge list caches its receiver order, gather index, degrees
+        # and long segments: a stale one would sum the old topology.
+        edges = (EdgeList.from_graph(dp.graph, device=self.device)
+                 if dp.structural else plan.edges)
+        report = UpdateReport(
+            mode="features" if not dp.structural else "incremental",
+            dirty_local=dirty_l, dirty_halo=dirty_h, **report_kw)
+        return Plan(model=self.model, graph=dp.graph, cluster=cluster,
+                    fogs=plan.fogs, placement=placement,
+                    partitioned=partitioned, config=cfg, edges=edges,
+                    provenance="incremental", update_report=report)
 
     def __repr__(self) -> str:
         c = self.config

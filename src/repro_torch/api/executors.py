@@ -220,13 +220,13 @@ class _MeshBsp(ExecutorBackend):
     def run_layers(self, *args, **kwargs):
         raise NotImplementedError("mesh-bsp layer capture and frontier "
                                   "runs are not ported yet: ROADMAP Queue 1 "
-                                  "item 9, incremental frontier queries")
+                                  "item 1, incremental frontier queries")
 
     run_frontier = run_layers
 
     def run_stale(self, *args, **kwargs):
         raise NotImplementedError("mesh-bsp run_stale is not ported yet: "
-                                  "ROADMAP Queue 1 item 10, fleet and stale "
+                                  "ROADMAP Queue 1 item 2, fleet and stale "
                                   "halos")
 
 

@@ -97,6 +97,14 @@ class EngineConfig:
     aggregation: str = "auto"
     # torch device the plan's numerics run on ("cuda", "cuda:1", "cpu").
     device: str = "cuda"
+    # Dynamic-update repair thresholds (Engine.apply_delta): fall back to a
+    # full recompile when the repaired partitioning's imbalance (max size /
+    # uniform share) exceeds update_max_imbalance x the pre-update
+    # imbalance (floored at 1.0, so heterogeneity-sized plans aren't
+    # penalized for their intended skew), or its cut fraction exceeds
+    # update_max_cut_growth x the pre-update cut fraction.
+    update_max_imbalance: float = 2.0
+    update_max_cut_growth: float = 1.5
 
     def with_overrides(self, **kw) -> "EngineConfig":
         return dataclasses.replace(self, **kw)
@@ -104,7 +112,16 @@ class EngineConfig:
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """An immutable compiled serving plan: Engine.compile(graph) -> Plan."""
+    """An immutable compiled serving plan: Engine.compile(graph) -> Plan.
+
+    ``provenance`` records how the plan was produced: "compile" (the full
+    setup phase), "incremental" (``Engine.apply_delta`` repaired an
+    existing plan) or "recompile" (a delta tripped a repair threshold and
+    the full pipeline re-ran); ``update_report`` is the
+    :class:`~repro_torch.api.updates.UpdateReport` of the delta that
+    produced an updated plan (None for fresh compiles). ``edges`` is built
+    from ``graph`` and is rebuilt whenever a delta changes the topology.
+    """
     model: ModelSpec
     graph: Graph
     cluster: FogCluster
@@ -115,6 +132,7 @@ class Plan:
     # The graph's COO edges on the plan's device, shared by every query.
     edges: EdgeList = dataclasses.field(compare=False, repr=False)
     provenance: str = "compile"
+    update_report: Optional[object] = None
 
     @property
     def num_fogs(self) -> int:
@@ -169,10 +187,18 @@ class Plan:
         from repro_torch.api.session import Session
         return Session(self, **kw)
 
-    def server(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Plan.server (request-level serving) is not ported yet: "
-            "ROADMAP Queue 1 item 7, request-level serving")
+    def server(self, *, max_batch: int = 8, max_wait: float = 0.0,
+               pipelined: bool = True, slo=None, adaptive_batch=None,
+               faults=None, **session_kw) -> "Server":
+        """Open a request-level server (micro-batching + pipelined
+        collect/execute) over a fresh session; ``slo``/``adaptive_batch``
+        activate the SLO control plane (``repro_torch.api.slo``); extra
+        kwargs go to ``session()``. ``faults`` belongs to fault tolerance,
+        which is not ported: anything but None raises."""
+        from repro_torch.api.server import Server
+        return Server(self.session(**session_kw), max_batch=max_batch,
+                      max_wait=max_wait, pipelined=pipelined, slo=slo,
+                      adaptive_batch=adaptive_batch, faults=faults)
 
     def describe(self) -> dict:
         """Plain-dict summary (for logs / dashboards)."""

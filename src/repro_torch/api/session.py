@@ -12,14 +12,17 @@ A ``Session`` owns the mutable runtime state of serving one plan:
 The paper's per-query stages are separately callable — ``collect``
 (compressed feature collection, step 3), ``execute`` (runtime numerics on
 the plan's device, step 4) and ``account`` (simulated latency pricing) —
-and ``query`` composes them into the single-shot blocking call. Every query
-returns a ``QueryResult`` with one metrics schema across executor backends
-(sim / single / mesh-bsp / cloud).
+so the request-level ``Server`` front-end (``repro_torch.api.server``) can
+micro-batch and pipeline them across queries; ``query`` composes them into
+the single-shot blocking call. Every query returns a ``QueryResult`` with
+one metrics schema across executor backends (sim / single / mesh-bsp /
+cloud). ``update`` absorbs graph mutations (``Engine.apply_delta``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+import warnings
+from typing import Callable, Dict, Iterable, Iterator, Optional, Union
 
 import numpy as np
 
@@ -27,6 +30,7 @@ from repro_torch.api import executors as _executors  # noqa: F401  (registers ba
 from repro_torch.api.executors import ExecutorBackend
 from repro_torch.api.registry import (COMPRESSORS, EXCHANGES, EXECUTORS,
                                       PARTITIONERS)
+from repro_torch.api.updates import GraphDelta, UpdateReport
 from repro_torch.core import simulation
 from repro_torch.core.scheduler import SchedulerState, schedule_step
 from repro_torch.gnn.graph import Graph
@@ -60,14 +64,22 @@ def _not_ported(what: str, item: str):
 
 
 class Session:
-    """Live serving handle for one Plan: ``query``, ``execute``, ``adapt``.
+    """Live serving handle for one Plan: ``query``, ``update``, ``adapt``.
+
+    ``updates`` sets the dynamic-graph consistency policy: "sync" applies
+    every ``update(delta)`` immediately (queries after the update always
+    see the mutated graph), "deferred" buffers deltas and coalesces them
+    into one repair at the next ``flush_updates()`` — queries served in
+    between read the stale graph (bounded staleness, amortized repair).
 
     ``compressor`` and ``num_layers`` are degraded-serving overrides: the
     session serves ``plan.with_overrides(...)`` — same graph, placement
     and partitioned buffers, but a swapped upload codec and/or a
-    truncated layer stack. ``activation_cache``, ``staleness_bound`` and
-    a deferred ``updates`` policy belong to subsystems the port does not
-    serve yet and raise unless left at their defaults.
+    truncated layer stack. These are the knobs the SLO control plane's
+    degradation ladder turns (``repro_torch.api.slo``); a session
+    configured with them directly is bitwise the server's degraded path.
+    ``activation_cache`` and ``staleness_bound`` belong to subsystems the
+    port does not serve yet and raise unless left at their defaults.
     """
 
     def __init__(self, plan, *, executor: Optional[str] = None,
@@ -84,18 +96,23 @@ class Session:
         if updates not in ("sync", "deferred"):
             raise ValueError(f"updates must be 'sync' or 'deferred', "
                              f"got {updates!r}")
-        if updates != "sync":
-            raise _not_ported("updates='deferred'", "8, dynamic graphs")
         if activation_cache:
             raise _not_ported("activation_cache=True",
-                              "9, incremental frontier queries")
+                              "1, incremental frontier queries")
         if staleness_bound:
             raise _not_ported(f"staleness_bound={staleness_bound}",
-                              "10, fleet and stale halos")
+                              "2, fleet and stale halos")
         if compressor is not None or num_layers is not None:
             plan = plan.with_overrides(compressor=compressor,
                                        num_layers=num_layers)
         self.plan = plan
+        self.update_policy = updates
+        self._pending_deltas: list = []
+        # (|V|, F) of the graph after every buffered delta: lets update()
+        # reject out-of-range deltas at admission instead of poisoning a
+        # deferred flush (deferred deltas address the projected graph).
+        self._projected_shape = (plan.graph.num_vertices,
+                                 plan.graph.feature_dim)
         cfg = plan.config
         self._executor_key = cfg.executor if executor is None else executor
         self._executor = EXECUTORS.resolve(self._executor_key)
@@ -262,20 +279,108 @@ class Session:
         self.tick()
         return out
 
-    # -- subsystems not ported yet ------------------------------------------
+    def stream(self, queries: Union[int, Iterable], *,
+               executor: Optional[str] = None) -> Iterator:
+        """Deprecated: serve queries one at a time (use ``Server.replay``).
 
-    def stream(self, queries, *, executor=None):
-        raise _not_ported("Session.stream (a shim over Server.replay)",
-                          "7, request-level serving")
+        ``queries`` is either a count (re-serve the stored features) or an
+        iterable of feature arrays (None entries use stored features).
+        ``executor`` overrides the backend for every query in the stream.
+        Kept as a thin lazy shim over the request-level ``Server.replay``
+        with batching and pipelining disabled: one query is served per
+        ``next()``, and per-query latency/throughput/embeddings match
+        ``query`` exactly (the Response ``breakdown`` reports the server's
+        collect/execute *stage* split rather than the bottleneck-fog split
+        of ``Session.query``).
+        """
+        warnings.warn(
+            "Session.stream is deprecated; use repro_torch.api.Server — "
+            "plan.server().replay(...) — for request-level serving with "
+            "micro-batching and pipelined collect/execute",
+            DeprecationWarning, stacklevel=2)
+        from repro_torch.api.server import Server
+        server = Server(self, max_batch=1, pipelined=False)
+        if isinstance(queries, int):
+            queries = (None for _ in range(queries))
+        for q in queries:   # lazily: serve one request per next()
+            yield server.replay([q], executor=executor)[0]
 
-    def update(self, delta):
-        raise _not_ported("Session.update", "8, dynamic graphs")
+    # -- dynamic-graph updates ----------------------------------------------
 
-    def flush_updates(self):
-        raise _not_ported("Session.flush_updates", "8, dynamic graphs")
+    @property
+    def pending_updates(self) -> int:
+        """Buffered deltas awaiting a flush (always 0 under "sync")."""
+        return len(self._pending_deltas)
+
+    def update(self, delta: GraphDelta) -> Optional[UpdateReport]:
+        """Absorb one graph mutation (the serving-time update stage).
+
+        Under the "sync" policy the delta is applied immediately and the
+        report returned; under "deferred" it is buffered (returns None)
+        until ``flush_updates`` coalesces the whole buffer into a single
+        repair. Deferred deltas address the graph produced by the
+        previous delta in the buffer, not the session's current graph.
+        """
+        if not isinstance(delta, GraphDelta):
+            raise TypeError("update() takes a GraphDelta, got "
+                            f"{type(delta).__name__}")
+        # Fail fast at admission: a delta whose ids cannot be valid
+        # against the projected graph must not enter the buffer, or a
+        # later deferred flush would keep tripping over it.
+        v, f = self._projected_shape
+        delta.validate(v, f)
+        v_next = (v - delta.num_removed_vertices
+                  + delta.num_added_vertices)
+        if v_next < self.plan.num_fogs:
+            raise ValueError(
+                f"delta leaves {v_next} vertices for "
+                f"{self.plan.num_fogs} fog partitions")
+        self._pending_deltas.append(delta)
+        self._projected_shape = (v_next, f)
+        if self.update_policy != "sync":
+            return None
+        try:
+            return self.flush_updates()
+        except BaseException:
+            # The rejected delta never happened: drop it (flush_updates
+            # restored the buffer) so later updates aren't blocked.
+            self._pending_deltas.pop()
+            self._projected_shape = (v, f)
+            raise
+
+    def flush_updates(self) -> Optional[UpdateReport]:
+        """Apply every buffered delta in one coalesced repair.
+
+        Rebases the session onto the updated plan: the repair starts from
+        the session's *current* (possibly adapted) assignment, the
+        scheduler state keeps its history/eta but re-anchors on the
+        repaired placement, and cached partition buffers swap for the
+        incrementally rebuilt ones. Returns None when nothing is pending.
+        """
+        if not self._pending_deltas:
+            return None
+        from repro_torch.api.engine import Engine   # lazy: avoid import cycle
+        deltas, self._pending_deltas = self._pending_deltas, []
+        try:
+            plan2 = Engine.from_plan(self.plan).apply_delta(
+                self.plan, deltas,
+                assignment=self.state.placement.assignment)
+        except BaseException:
+            # Keep the buffer intact so a bad delta can be inspected or
+            # dropped without losing its neighbours.
+            self._pending_deltas = deltas + self._pending_deltas
+            raise
+        self.plan = plan2
+        self.state.placement = dataclasses.replace(
+            plan2.placement,
+            assignment=np.array(plan2.placement.assignment, copy=True))
+        self._partitioned = plan2.partitioned
+        self._projected_shape = (plan2.graph.num_vertices,
+                                 plan2.graph.feature_dim)
+        return plan2.update_report
 
     def failover(self, crashed, *, mode: Optional[str] = None):
-        raise _not_ported("Session.failover", "11, fault tolerance")
+        raise _not_ported("Session.failover", "3, fault tolerance")
 
     # -- adaptation ---------------------------------------------------------
 

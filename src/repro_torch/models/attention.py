@@ -14,7 +14,7 @@ layout (wq [D, H, dh], wk/wv [D, KV, dh], wo [H, dh, D]) and numerics:
 The port updates a decode cache in place (the reference returns a new
 one): the caller's cache is the one returned, and no second cache-sized
 buffer is written per step. MLA and the int8 ``QuantKVCache`` are not
-ported (ROADMAP Queue 1 item 14).
+ported (ROADMAP Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -179,7 +179,8 @@ def gqa_decode(params, x: torch.Tensor, cache: KVCache, pos: int,
     k/v into ``cache`` in place and returns (y, cache)."""
     if not isinstance(cache, KVCache):
         raise NotImplementedError("only KVCache is ported; QuantKVCache "
-                                  "waits for ROADMAP Queue 1 item 14")
+                                  "waits for ROADMAP Queue 1 item 6, the "
+                                  "rest of the transformer substrate")
     b = x.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
     q, k, v = _qkv(params, x, cfg, positions)          # [B,1,·,dh]

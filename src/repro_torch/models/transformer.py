@@ -15,7 +15,7 @@ a Python loop: the reference's stacked stages exist only to keep XLA's
 program small. ``params_from_numpy`` unstacks the JAX package's tree.
 Other layer kinds (MLA, MoE, Mamba, RG-LRU, local attention) raise
 ``NotImplementedError``; so do training (``loss_fn``, ``make_train_step``)
-and the int8 KV cache, which wait for ROADMAP Queue 1 item 14. The
+and the int8 KV cache, which wait for ROADMAP Queue 1 item 6. The
 reference's ``constrain_batch`` is a no-op without a device mesh and is
 dropped.
 """
@@ -34,6 +34,8 @@ from repro_torch.models.layers import (dtype_of, embed, init_embed,
                                        sinusoidal_embedding, unembed)
 
 _DENSE = LayerSpec("gqa", "mlp")
+#: The ROADMAP Queue 1 item that holds everything off the dense GQA path.
+_SUBSTRATE = "the rest of the transformer substrate"
 
 
 def check_dense(cfg: ArchConfig) -> None:
@@ -43,7 +45,7 @@ def check_dense(cfg: ArchConfig) -> None:
     if other:
         raise NotImplementedError(
             f"{cfg.name}: layer kinds {other} are not ported yet (only "
-            f"gqa/mlp): ROADMAP Queue 1 item 14")
+            f"gqa/mlp): ROADMAP Queue 1 item 6, {_SUBSTRATE}")
 
 
 def _activation(ffn_params) -> str:
@@ -181,8 +183,8 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
     ``window > 0``). ``quantized=True`` (the int8 cache) is not ported."""
     check_dense(cfg)
     if quantized:
-        raise NotImplementedError("QuantKVCache is not ported yet: ROADMAP "
-                                  "Queue 1 item 14")
+        raise NotImplementedError(f"QuantKVCache is not ported yet: ROADMAP "
+                                  f"Queue 1 item 6, {_SUBSTRATE}")
     t = min(window, cache_len) if window else cache_len
     dtype = dtype_of(cfg.activation_dtype)
     return [attn.KVCache.zeros(batch, t, cfg.num_kv_heads, cfg.head_dim,

@@ -735,18 +735,18 @@ def _not_ported(name: str, item: str):
 
 
 bsp_infer_capture = _not_ported("bsp_infer_capture",
-                                "9, incremental frontier queries")
+                                "1, incremental frontier queries")
 bsp_infer_capture_many = _not_ported("bsp_infer_capture_many",
-                                     "9, incremental frontier queries")
+                                     "1, incremental frontier queries")
 bsp_infer_frontier = _not_ported("bsp_infer_frontier",
-                                 "9, incremental frontier queries")
+                                 "1, incremental frontier queries")
 bsp_infer_frontier_many = _not_ported("bsp_infer_frontier_many",
-                                      "9, incremental frontier queries")
-bsp_infer_stale = _not_ported("bsp_infer_stale", "10, fleet and stale halos")
+                                      "1, incremental frontier queries")
+bsp_infer_stale = _not_ported("bsp_infer_stale", "2, fleet and stale halos")
 bsp_infer_stale_many = _not_ported("bsp_infer_stale_many",
-                                   "10, fleet and stale halos")
+                                   "2, fleet and stale halos")
 build_halo_tables = _not_ported("build_halo_tables",
-                                "10, fleet and stale halos")
+                                "2, fleet and stale halos")
 
 
 def exchange_bytes(pg: PartitionedGraph, feature_dim: int,

@@ -159,10 +159,9 @@ def test_default_device_without_cuda_raises():
 
 
 @pytest.mark.parametrize("knob", ["staleness_bound", "validate",
-                                  "activation_cache", "deferred",
-                                  "server", "update", "flush_updates",
-                                  "failover", "stream", "apply_delta",
-                                  "fail_nodes", "compile_fleet"])
+                                  "activation_cache", "failover",
+                                  "fail_nodes", "compile_fleet",
+                                  "server_faults"])
 def test_knobs_outside_the_slice_raise_not_implemented(knob):
     _, gt, _, tparams = _setup("gcn")
     model = (tparams, "gcn")
@@ -177,18 +176,12 @@ def test_knobs_outside_the_slice_raise_not_implemented(knob):
             plan = eng.compile(gt)
             if knob == "activation_cache":
                 plan.session(activation_cache=True)
-            elif knob == "deferred":
-                plan.session(updates="deferred")
-            elif knob == "server":
-                plan.server()
-            elif knob in ("update", "flush_updates", "failover", "stream"):
-                sess = plan.session()
-                fn = getattr(sess, knob)
-                fn() if knob == "flush_updates" else fn(None)
-            elif knob == "apply_delta":
-                eng.apply_delta(plan, None)
+            elif knob == "failover":
+                plan.session().failover(None)
             elif knob == "fail_nodes":
                 eng.fail_nodes(plan, 0)
+            elif knob == "server_faults":
+                plan.server(faults=[("crash", 0.1, "A0")])
             else:
                 eng.compile_fleet(gt, {"a": (0.0, 0.0)})
 

@@ -46,7 +46,8 @@ def _modules():
 def test_port_has_the_slice_modules():
     mods = set(_modules())
     for m in ("api.registry", "api.plan", "api.engine", "api.session",
-              "api.executors", "gnn.graph", "gnn.datasets", "gnn.layers",
+              "api.executors", "api.updates", "api.slo", "api.server",
+              "api.traces", "core.incremental", "gnn.graph", "gnn.datasets", "gnn.layers",
               "gnn.models", "core.profiler", "core.partition",
               "core.placement", "core.scheduler", "core.compression",
               "core.simulation", "kernels.gather_aggregate", "kernels.ref",

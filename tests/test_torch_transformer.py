@@ -224,11 +224,11 @@ def test_activation_dtype_copy_gives_the_same_numbers():
 @pytest.mark.parametrize("arch", NOT_DENSE)
 def test_layer_kinds_outside_the_dense_path_raise(arch):
     cfg = treg.reduced(treg.get(arch))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         ttf.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         ttf.init_cache(cfg, 1, 8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         tserve.serve(cfg, requests=1, tokens=1, device="cpu", log=None)
 
 
