@@ -70,7 +70,14 @@ Phases, in order; any failed check raises and the script exits non-zero:
                 as ``ops.dequantize_features`` sends it (unpadded) and
                 padded to the reference's 256 x 128 tiling, plus a
                 streaming 131,072 x 128 uint8 table, all bitwise the plain
-                version; yardstick ``codes.float() * s + m``.
+                version; yardstick ``codes.float() * s + m``;
+                row subsets (``gather_aggregate.row_subset``, the launches
+                of a frontier query): kernels 1-4 at F = 64 over the
+                128-row blocks of the layer-1 frontier of 64 seeded leaf
+                sensors, on SIoT and the mesh's local and halo operands, B
+                = 1 and 8: the listed rows bitwise the full launch's, the
+                others 0, held to the rows plain version in float64 and
+                timed beside the full launch.
   3. main     serves GCN and SAGE [52, 64, 2] through
               ``Engine(..., executor="sim", aggregation="pallas",
               device="cuda")`` on full-scale SIoT: a few ``query()`` calls
@@ -140,7 +147,34 @@ Phases, in order; any failed check raises and the script exits non-zero:
               from scratch at the session's assignment (mesh); the updates'
               modes and dirty shards printed, with the host ms of each
               ``apply_delta`` and of the first execute after it.
-  4. report   one ``{"kernels": [...]}`` JSON line (all seven kernels), the
+  3g. frontier, stale, fleet  at full SIoT, GCN and SAGE [52, 64, 2] with
+              the DAQ codec, every execute driven with the counts (and the
+              block kernels' ``subset_launches``) set to 0 just before it:
+              ``Session(activation_cache=True)`` on ``sim`` and ``mesh-bsp``
+              (DAQ halo wire) on the kernel path and on
+              ``aggregation="segment_sum"`` (GAT too on ``sim``, which must
+              fall back), fed a stream whose queries each change n sensors
+              of the one before, n in 16 / 64 / 256, drawn from the leaf
+              sensors (in-degree <= 1) and then from all, and an
+              ``execute_many`` of 8; every result bitwise a cache-less
+              execute of the same features, the frontier path taken
+              exactly when the cache's own plan admits one (25 % budget),
+              at least one query a path on it, exact launches (one subset
+              launch a layer and operand); dirty rows, row blocks and host
+              ms against the full execute reported. Stale halos on
+              ``mesh-bsp``: ``halo_async`` bound 0 bitwise ``halo`` (both
+              aggregation paths), bound 2 serving the pattern 0, 1, 2, 0,
+              1, each stale serve bitwise ``bsp_infer_stale`` over
+              ``build_halo_tables`` of its fresh serve and unlike a fresh
+              serve, an update forcing a fresh serve. The fleet:
+              ``compile_fleet`` with two sites and the cloud, a
+              ``FleetServer`` replay of a geo-tagged Poisson trace with the
+              busiest site set down halfway: zero drops, every response
+              bitwise its tier's session, exact launches, ``summarize``
+              printed.
+  4. report   one ``{"kernels": [...]}`` JSON line (all seven kernels, the
+              block kernels with their subset cases and subset launches
+              by path), the
               ``nvidia-smi`` name and power limit, and as the last line
               ``{"ok": true, "device": {...}}``. A kernel's top-level
               numbers sum its main-path cases on the path named in
@@ -247,7 +281,16 @@ PATH_KERNELS = {"sim": ("block_spmm", "block_spmm_batched"),
                 "server-slo": ("segment_sum",),
                 "server-update": ("block_spmm", "dequant_spmm"),
                 "serve": ("flash_attention",),
-                "prefill": ("flash_attention",)}
+                "prefill": ("flash_attention",),
+                "frontier-sim": ("block_spmm", "block_spmm_batched"),
+                "frontier-mesh": MESH_KERNELS,
+                "frontier-sim-segment": ("segment_sum",),
+                "frontier-mesh-segment": ("segment_sum",),
+                "stale": ("block_spmm", "dequant_spmm", "segment_sum"),
+                "fleet": ("block_spmm", "block_spmm_batched")}
+#: The block kernels whose wrappers also count their row-subset launches
+#: (``subset_launches``), the launches of a frontier query.
+SUBSET_KERNELS = MESH_KERNELS
 
 
 def log(msg: str) -> None:
@@ -1967,6 +2010,592 @@ def to_device(tree, device):
     return tree.to(device)
 
 
+# ---------------------------------------------------------------------------
+# Phase 2, row-subset launches; phase 3g, frontier, stale and fleet paths
+# ---------------------------------------------------------------------------
+
+#: Sensors whose readings change between two queries of phase 3g's stream,
+#: the queries made for each count, and the changed leaf sensors of each
+#: member of its batch (and of phase 2's subset cases: their frontier).
+FRONTIER_SENSORS = (16, 64, 256)
+FRONTIER_QUERIES = 2
+FRONTIER_BATCH_SENSORS = 8
+SUBSET_SENSORS = 64
+#: (path, executor, aggregation) of phase 3g's frontier paths; every plan
+#: uses the DAQ codec (on the mesh's kernel path the DAQ halo wire).
+FRONTIER_PATHS = (("frontier-sim", "sim", "pallas"),
+                  ("frontier-mesh", "mesh-bsp", "pallas"),
+                  ("frontier-sim-segment", "sim", "segment_sum"),
+                  ("frontier-mesh-segment", "mesh-bsp", "segment_sum"))
+FRONTIER_KINDS = ("gcn", "sage")
+STALE_BOUND = 2
+STALE_PATTERN = [0, 1, 2, 0, 1]
+FLEET_SITES = {"north": (59.33, 18.07), "south": (48.21, 16.37)}
+FLEET_REQUESTS = 24
+FLEET_CAPACITY = 8
+
+
+def leaf_sensors(g) -> np.ndarray:
+    """The vertices with at most one in-edge: IoT end devices with at most
+    one relation (7,328 of full SIoT's 16,216)."""
+    return np.flatnonzero(np.bincount(g.receivers,
+                                      minlength=g.num_vertices) <= 1)
+
+
+def subset_blocks(g, pg, out_rows: int, frontier) -> tuple:
+    """The row blocks a frontier layer launches over on each path: the
+    layer-1 dirty rows of SUBSET_SENSORS seeded leaf sensors (layer 2's
+    reach nearly every block), as ``sim`` blocks (rows // 128) and as the
+    mesh's folded output blocks."""
+    rng = np.random.default_rng(6)
+    seeds = np.unique(rng.choice(leaf_sensors(g), SUBSET_SENSORS,
+                                 replace=False))
+    rows = frontier.expand_frontier(g, seeds, np.empty((0, 2), np.int64),
+                                    1)[-1]
+    return (len(rows), np.unique(rows // 128),
+            np.unique((pg.part_of[rows] * out_rows + pg.slot_of[rows])
+                      // 128))
+
+
+def subset_nnz(rows, sub) -> int:
+    """The entries of the rows ``sub`` lists: what its launch walks."""
+    per_row = (rows.seg_ptr[rows.row_ptr[1:].long()]
+               - rows.seg_ptr[rows.row_ptr[:-1].long()])
+    return int(per_row[sub.row_mask()].sum())
+
+
+def subset_cases(ga, dq, ref, bsp, csr, local, halo, halo_real_rows: int,
+                 blocks_sim, blocks_mesh) -> dict:
+    """Phase 2, kernels 1-4 over a row subset (``ga.row_subset``: the rows
+    of a frontier's 128-row blocks) at the main paths' full-scale shapes,
+    F = 64: the listed rows bitwise the full launch's, every other row 0,
+    one ``subset_launches`` a launch; held to the rows plain version in
+    float64 (sliced by ``ref.keep_row_blocks``); subset and full launch
+    timed. Returns {kernel: [records]}."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rng = np.random.default_rng(5)
+    f = 64
+    operands = {
+        "siot": ((csr.blocks, csr.cols, csr.mask), csr.rows, csr.max_col,
+                 csr.padded_v, blocks_sim),
+        "mesh_local": ((local.blocks, local.cols, local.mask), local.rows,
+                       local.max_col, local.src_rows, blocks_mesh),
+        "mesh_halo": ((halo.blocks, halo.cols, halo.mask), halo.rows,
+                      halo.max_col, halo.src_rows, blocks_mesh)}
+    cases = [("block_spmm", "siot", 1), ("block_spmm_batched", "siot", BATCH),
+             ("block_spmm", "mesh_local", 1),
+             ("block_spmm_batched", "mesh_local", BATCH),
+             ("dequant_spmm", "mesh_halo", 1),
+             ("dequant_spmm_batched", "mesh_halo", BATCH)]
+    out = {name: [] for name in SUBSET_KERNELS}
+    for name, where, batch in cases:
+        ops_, rows, max_col, src_rows, sel = operands[where]
+        sub = ga.row_subset(rows, sel)
+        keep = sub.row_mask()
+        if name.startswith("dequant"):
+            kern = getattr(dq, name)
+            tables = wire_codes(bsp, gen, rng, batch, src_rows,
+                                halo_real_rows, f, torch.uint8)
+            if batch == 1:
+                tables = tuple(t[0] for t in tables)
+            rows_plain = (ref.dequant_spmm_rows_ref if batch == 1
+                          else ref.dequant_spmm_rows_batched_ref)
+            want = rows_plain(rows, *tables, dtype=torch.float64)
+            code_bytes, row_bytes = 1, 8
+        else:
+            kern = getattr(ga, name)
+            shape = (src_rows, f) if batch == 1 else (batch, src_rows, f)
+            tables = (torch.randn(shape, generator=gen, device="cuda"),)
+            rows_plain = (ref.block_spmm_rows_ref if batch == 1
+                          else ref.block_spmm_rows_batched_ref)
+            want = rows_plain(rows, tables[0].double())
+            code_bytes, row_bytes = 4, 0
+        want = ref.keep_row_blocks(want, sub.blocks)
+
+        def full_call():
+            return kern(*ops_, *tables, rows=rows, max_col=max_col)
+
+        def sub_call():
+            return kern(*ops_, *tables, rows=sub, max_col=max_col)
+        before = kern.subset_launches
+        got = sub_call()
+        if kern.subset_launches != before + 1:
+            raise AssertionError(f"{name} {where}: a subset launch counted "
+                                 f"{kern.subset_launches - before}")
+        full = full_call()
+        what = f"{name} {where} subset of {len(sel)} blocks"
+        if not torch.equal(got[..., keep, :], full[..., keep, :]):
+            raise AssertionError(f"{what}: listed rows are not bitwise the "
+                                 f"full launch's")
+        if got[..., ~keep, :].any():
+            raise AssertionError(f"{what}: an unlisted row is not 0")
+        err = errors(got, want)
+        check_close(what, got.double(), want, KERNEL_RTOL, KERNEL_ATOL)
+        nnz = subset_nnz(rows, sub)
+        b_ms, b_by = bound(nnz, len(sel), rows.tiles[1], src_rows, f, batch,
+                           code_bytes, row_bytes)
+        rec = {"case": where, "F": f, "B": batch, "blocks": len(sel),
+               "of_blocks": rows.tiles[0], "rows_listed": int(keep.sum()),
+               "entries": nnz, "of_entries": rows.nnz,
+               "bitwise_full_rows": True, **err,
+               "ms": time_ms(sub_call, reps=30),
+               "full_ms": time_ms(full_call, reps=30),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "host_us": host_us(sub_call)}
+        out[name].append(rec)
+        log(f"  {name:19s} {where:10s} subset {len(sel)}/{rows.tiles[0]} "
+            f"blocks ({nnz}/{rows.nnz} entries) B={batch}: bitwise the full "
+            f"rows, err {err['max_abs_err']:.3g}; {rec['ms']:.4f} ms (full "
+            f"{rec['full_ms']:.4f}) bound {b_ms:.4f} ms ({b_by})")
+        del tables, got, full, want
+    return out
+
+
+def gnn_plan(Engine, models, g, kind: str, **knobs):
+    """A plan of ``kind`` with the phases' seeded [52, 64, 2] weights, the
+    default cluster and the DAQ codec, and its compile seconds."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = models.gnn_init(gen, kind, [g.feature_dim, DIMS_HIDDEN,
+                                         DIMS_OUT])
+    t0 = time.perf_counter()
+    plan = Engine((params, kind), compressor="daq", device="cuda",
+                  **knobs).compile(g)
+    return plan, time.perf_counter() - t0
+
+
+def frontier_stream(g, collect) -> tuple:
+    """Phase 3g's collected feature sets: the stored features, then a
+    stream in which each query changes the readings of n sensors of the
+    previous one (a seeded normal step of 0.5), FRONTIER_QUERIES queries
+    for each n in FRONTIER_SENSORS, the sensors first drawn from the leaf
+    sensors and then from all; then a batch of BATCH sets, each changing
+    FRONTIER_BATCH_SENSORS leaf sensors of the one before. Returns (base,
+    [(pool, n, feats)], batch stack)."""
+    rng = np.random.default_rng(11)
+    pools = {"leaf": leaf_sensors(g), "any": np.arange(g.num_vertices)}
+    raw = np.asarray(g.features, np.float32)
+
+    def step(pool, n):
+        nonlocal raw
+        raw = raw.copy()
+        pick = rng.choice(pools[pool], n, replace=False)
+        raw[pick] += rng.normal(scale=0.5, size=(n, g.feature_dim)).astype(
+            np.float32)
+        return collect(raw)
+    base = collect(raw)
+    stream = [(pool, n, step(pool, n)) for pool in pools
+              for n in FRONTIER_SENSORS for _ in range(FRONTIER_QUERIES)]
+    batch = np.stack([step("leaf", FRONTIER_BATCH_SENSORS)
+                      for _ in range(BATCH)])
+    return base, stream, batch
+
+
+def subset_wrappers(ga, dq) -> dict:
+    return {"block_spmm": ga.block_spmm,
+            "block_spmm_batched": ga.block_spmm_batched,
+            "dequant_spmm": dq.dequant_spmm,
+            "dequant_spmm_batched": dq.dequant_spmm_batched}
+
+
+def cached_run(sess, feats, wrappers):
+    """One execute (``execute_many`` for a stack) of the cached session,
+    its subset launches counted from 0; beforehand, on the host, the
+    cache's own plan of the query (None: over the budget), timed: the
+    host part of the execute's decision (the session repeats it)."""
+    def run():
+        for w in wrappers.values():
+            w.subset_launches = 0
+        plan, cache = sess.plan, sess._acache
+        t0 = time.perf_counter()
+        predicted = (cache.plan_query(feats, plan.graph,
+                                      plan.model.num_layers)
+                     if cache.primed else None)
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        out = (sess.execute_many(feats) if feats.ndim == 3
+               else sess.execute(feats))
+        ms = (time.perf_counter() - t0) * 1e3
+        return {"out": out, "ms": ms, "plan_ms": plan_ms,
+                "frontier": sess.last_frontier, "predicted": predicted,
+                "subset": {n: w.subset_launches for n, w in wrappers.items()}}
+    return run
+
+
+def frontier_launches(mesh: bool, segment: bool, kind: str, k: int,
+                      batch: int, decision: str) -> tuple:
+    """(launches, subset launches) one cached execute implies: nothing for
+    an empty frontier; on the segment path K segment sums an example
+    (masked edge list or full pass alike); on the kernel path K launches a
+    layer operand (the batched kernels for a stack), over row subsets when
+    the frontier path ran."""
+    want = dict.fromkeys(REPLACES, 0)
+    sub = dict.fromkeys(SUBSET_KERNELS, 0)
+    if decision == "empty":
+        return want, sub
+    if segment:
+        want["segment_sum"] = k * SEGMENT_SUMS[kind] * batch
+        return want, sub
+    suffix = "" if batch == 1 else "_batched"
+    for name in ["block_spmm"] + ["dequant_spmm"] * mesh:
+        want[name + suffix] = k
+        if decision == "frontier":
+            sub[name + suffix] = k
+    return want, sub
+
+
+def check_frontier(case: dict, outs, counts) -> dict:
+    """Gates of one frontier session's runs: the frontier path taken
+    exactly when the cache's own host plan admits a non-empty frontier and
+    the kind supports it (the reference's rule), its dirty rows that plan's,
+    exact launches and subset launches, and every result bitwise a
+    cache-less session's execute of the same features (serial executes for
+    the batch). Returns the record with per-run dirty rows, row blocks
+    launched and host ms against the full execute."""
+    plan, what, path = case["plan"], case["what"], case["path"]
+    kind, k = plan.model.kind, plan.model.num_layers
+    mesh, segment = "mesh" in path, path.endswith("segment")
+    supported = kind in FRONTIER_KINDS
+    full = plan.session()
+    pg = plan.partitioned
+    runs = []
+    for (label, feats), o, n in zip(case["runs"], outs, counts):
+        batch = feats.shape[0] if feats.ndim == 3 else 1
+        qf, pred = o["frontier"], o["predicted"]
+        if pred is not None and not len(pred.rows):
+            decision = "empty"
+        else:
+            decision = "frontier" if qf is not None else "full"
+        admitted = pred is not None and len(pred.rows) > 0
+        if (decision == "frontier") != (admitted and supported):
+            raise AssertionError(f"{what} {label}: took the {decision} path"
+                                 f", the cache's plan "
+                                 f"{'admits' if admitted else 'refuses'} a "
+                                 f"frontier")
+        want, want_sub = frontier_launches(mesh, segment, kind, k, batch,
+                                           decision)
+        check_launches(f"{what} {label}", n, want)
+        check_launches(f"{what} {label} subsets", o["subset"], want_sub)
+        t0 = time.perf_counter()
+        full_out = (full.execute_many(feats) if batch > 1
+                    else full.execute(feats))
+        full_ms = (time.perf_counter() - t0) * 1e3
+        serial = ([full.execute(x) for x in feats] if batch > 1
+                  else [full_out])
+        got = o["out"] if batch > 1 else [o["out"]]
+        for b, (x, y) in enumerate(zip(got, serial)):
+            if not np.array_equal(x, y):
+                raise AssertionError(f"{what} {label}: example {b} is not "
+                                     f"bitwise a full execute")
+        rec = {"run": label, "batch": batch, "decision": decision,
+               "ms": o["ms"], "plan_ms": o["plan_ms"], "full_ms": full_ms,
+               "launches": n,
+               "launches_subset": o["subset"]}
+        if pred is not None:
+            rec["fraction"] = pred.fraction
+            rec["seeds"] = len(pred.seeds)
+        if qf is not None:
+            if any(not np.array_equal(a, b) for a, b in zip(qf.rows,
+                                                            pred.rows)):
+                raise AssertionError(f"{what} {label}: dirty rows differ "
+                                     f"from the cache's plan")
+            rec["dirty_rows"] = [len(r) for r in qf.rows]
+            if not segment:
+                if mesh:
+                    out_rows = pg.local_csr.out_rows
+                    rec["blocks"] = [len(np.unique(
+                        (pg.part_of[r] * out_rows + pg.slot_of[r]) // 128))
+                        for r in qf.rows]
+                else:
+                    rec["blocks"] = [len(np.unique(r // 128))
+                                     for r in qf.rows]
+        runs.append(rec)
+    taken = [r for r in runs if r["decision"] == "frontier"]
+    if supported and not any(r["batch"] == 1 for r in taken):
+        raise AssertionError(f"{what}: no query took the frontier path")
+    log(f"  {what}: {len(runs)} executes bitwise full executes, launches "
+        f"exact; frontier path " + ", ".join(
+            f"{r['run']}:{r['decision']}"
+            + (f"{r['dirty_rows']}" if "dirty_rows" in r else "")
+            + f" {r['ms']:.1f}/{r['full_ms']:.1f}ms" for r in runs))
+    return {"kind": kind, "executor": plan.config.executor,
+            "aggregation": plan.config.aggregation,
+            "compile_s": case["compile_s"], "runs": runs}
+
+
+def frontier_paths(Engine, models, g, drive_each, ga, dq) -> tuple:
+    """Phase 3g, frontier queries: a session with ``activation_cache=True``
+    on each path of FRONTIER_PATHS, GCN and SAGE (and GAT on the ``sim``
+    segment path, which must fall back), fed phase 3g's stream; each path
+    driven with the counts set to 0 just before each execute and read just
+    after, every yardstick after. Returns the records and the stream."""
+    wrappers = subset_wrappers(ga, dq)
+    out = {}
+    stream = None
+    for path, executor, aggregation in FRONTIER_PATHS:
+        cases, runs = [], []
+        kinds = FRONTIER_KINDS + (("gat",) if path == "frontier-sim-segment"
+                                  else ())
+        for kind in kinds:
+            plan, compile_s = gnn_plan(Engine, models, g, kind,
+                                       executor=executor,
+                                       aggregation=aggregation)
+            if stream is None:
+                stream = frontier_stream(g, plan.session().collect)
+            base, queries, batch = stream
+            sess = plan.session(activation_cache=True)
+            plan_runs = [("prime", base)] + [
+                (f"{pool}{n}.{i % FRONTIER_QUERIES}", x)
+                for i, (pool, n, x) in enumerate(queries)]
+            if kind == "gat":
+                plan_runs = plan_runs[:3]
+            else:
+                plan_runs.append((f"batch{BATCH}", batch))
+            cases.append({"what": f"{kind} {path}", "path": path,
+                          "plan": plan, "compile_s": compile_s,
+                          "runs": plan_runs})
+            runs += [cached_run(sess, x, wrappers) for _, x in plan_runs]
+        outs, counts = drive_each(path, runs)
+        out[path], at = [], 0
+        for case in cases:
+            m = len(case["runs"])
+            out[path].append(check_frontier(case, outs[at:at + m],
+                                            counts[at:at + m]))
+            at += m
+        del cases, runs, outs
+    return out, stream
+
+
+def stale_path(Engine, models, g, bsp, api, drive_each, stream) -> dict:
+    """Phase 3g, stale halos on ``mesh-bsp`` (GCN): ``halo_async`` with
+    ``staleness_bound=0`` bitwise ``halo`` on both aggregation paths; with
+    STALE_BOUND the staleness pattern STALE_PATTERN, each stale serve
+    bitwise ``bsp_infer_stale`` over ``build_halo_tables`` of the recorded
+    fresh serve's captured layer inputs (recaptured on the ``halo`` plan)
+    and unlike a fresh serve; a graph update forces a fresh serve, bitwise
+    a fresh serve of the updated plan. Every execute driven with the
+    counts set to 0 just before it: a fresh serve (capturing, DAQ wire)
+    launches K ``block_spmm`` + K ``dequant_spmm``, a stale one 2K
+    ``block_spmm`` (local and the replayed f32 halo table)."""
+    feats = [stream[0]] + [x for _, _, x in stream[1][:5]]
+    plans, runs, labels = {}, [], []
+    for agg in ("pallas", "segment_sum"):
+        for exchange, bound_ in (("halo", 0), ("halo_async", 0)):
+            plans[agg, exchange, bound_] = gnn_plan(
+                Engine, models, g, "gcn", executor="mesh-bsp",
+                aggregation=agg, exchange=exchange,
+                staleness_bound=bound_)[0]
+    plans["pallas", "halo_async", STALE_BOUND] = gnn_plan(
+        Engine, models, g, "gcn", executor="mesh-bsp", aggregation="pallas",
+        exchange="halo_async", staleness_bound=STALE_BOUND)[0]
+    sessions = {key: p.session() for key, p in plans.items()}
+
+    def timed(fn):
+        def run():
+            t0 = time.perf_counter()
+            o = fn()
+            return o, (time.perf_counter() - t0) * 1e3
+        return run
+    for agg in ("pallas", "segment_sum"):
+        for exchange in ("halo", "halo_async"):
+            for i in range(2):
+                s = sessions[agg, exchange, 0]
+                runs.append(timed(lambda s=s, x=feats[i]: s.execute(x)))
+                labels.append(("bound0", agg, exchange, i))
+    stale = sessions["pallas", "halo_async", STALE_BOUND]
+    recorded = []
+    for i in range(5):
+        def serve(x=feats[i]):
+            recorded.append(stale._halo.tables)
+            return stale.execute(x), stale.last_staleness
+        runs.append(timed(serve))
+        labels.append(("bound2", "pallas", "halo_async", i))
+    v, f = g.num_vertices, g.feature_dim
+    rng = np.random.default_rng(13)
+    ids = np.sort(rng.choice(v, 64, replace=False))
+    delta = api.GraphDelta(feature_ids=ids, feature_values=g.features[ids]
+                           + rng.normal(scale=0.1, size=(64, f)))
+
+    def update_then_serve():
+        stale.update(delta)
+        x = stale.collect()
+        t0 = time.perf_counter()
+        emb = stale.execute(x)
+        return emb, stale.last_staleness, x, (time.perf_counter() - t0) * 1e3
+    runs.append(timed(update_then_serve))
+    labels.append(("update", "pallas", "halo_async", 5))
+    outs, counts = drive_each("stale", runs)
+    k = plans["pallas", "halo", 0].model.num_layers
+    # bound 0 == halo, bitwise, each aggregation path
+    for agg in ("pallas", "segment_sum"):
+        got = {lab[2:]: o[0] for lab, o in zip(labels, outs)
+               if lab[0] == "bound0" and lab[1] == agg}
+        for i in range(2):
+            if not np.array_equal(got["halo", i], got["halo_async", i]):
+                raise AssertionError(f"stale {agg}: halo_async bound 0 is "
+                                     f"not bitwise halo")
+        if sessions[agg, "halo_async", 0].last_staleness != 0:
+            raise AssertionError("bound 0 served stale")
+    for lab, n in zip(labels, counts):
+        if lab[0] != "bound0":
+            continue
+        want = dict.fromkeys(REPLACES, 0)
+        if lab[1] == "pallas":
+            want["block_spmm"] = want["dequant_spmm"] = k
+        else:
+            want["segment_sum"] = k * SEGMENT_SUMS["gcn"]
+        check_launches(f"stale {lab}", n, want)
+    # the bound-2 session: pattern, replay, launches
+    sync = sessions["pallas", "halo", 0]
+    backend = sync.resolve_executor()
+    pg = stale.partitioned()
+    params = list(plans["pallas", "halo", 0].model.params)
+    serves = [(lab, o, n) for lab, o, n in zip(labels, outs, counts)
+              if lab[0] == "bound2"]
+    pattern = [o[0][1] for _, o, _ in serves]
+    if pattern != STALE_PATTERN:
+        raise AssertionError(f"stale: staleness pattern {pattern}, "
+                             f"expected {STALE_PATTERN}")
+    fresh_ms, stale_ms = [], []
+    for (lab, (res, ms), n), tables in zip(serves, recorded):
+        i = lab[3]
+        emb, age = res
+        want = dict.fromkeys(REPLACES, 0)
+        if age == 0:
+            want["block_spmm"] = want["dequant_spmm"] = k
+            fresh_ms.append(ms)
+            if not np.array_equal(emb, sync.execute(feats[i])):
+                raise AssertionError(f"stale serve {i}: a fresh serve is "
+                                     f"not bitwise halo")
+        else:
+            want["block_spmm"] = 2 * k
+            stale_ms.append(ms)
+            j = i - age    # the fresh serve whose tables this one replays
+            plan = sync.plan
+            layers = backend.run_layers(plan, feats[j],
+                                        plan.placement.assignment,
+                                        sync.partitioned(), "halo",
+                                        aggregation="pallas")
+            built = bsp.build_halo_tables(pg, [feats[j]] + layers[:-1])
+            if not all(np.array_equal(a, b) for a, b in zip(built, tables)):
+                raise AssertionError(f"stale serve {i}: the recorded tables "
+                                     f"are not those of serve {j}")
+            replay = bsp.bsp_infer_stale(params, "gcn", feats[i], pg, built,
+                                         device="cuda",
+                                         aggregation="pallas")
+            if not np.array_equal(emb, replay):
+                raise AssertionError(f"stale serve {i}: not bitwise the "
+                                     f"replay of serve {j}'s tables")
+            if np.array_equal(emb, sync.execute(feats[i])):
+                raise AssertionError(f"stale serve {i}: equal to a fresh "
+                                     f"serve")
+        check_launches(f"stale serve {i}", n, want)
+    (emb, age, x, upd_ms), _ = outs[-1]
+    if age != 0:
+        raise AssertionError(f"stale: the serve after an update was "
+                             f"{age} serves stale")
+    want = dict.fromkeys(REPLACES, 0)
+    want["block_spmm"] = want["dequant_spmm"] = k
+    check_launches("stale: serve after the update", counts[-1], want)
+    sync.update(delta)
+    if not np.array_equal(emb, sync.execute(x)):
+        raise AssertionError("stale: the serve after the update is not "
+                             "bitwise a fresh serve of the updated plan")
+    rec = {"pattern": pattern, "fresh_ms": fresh_ms, "stale_ms": stale_ms,
+           "serve_after_update_ms": upd_ms,
+           "exchange_bytes": {"fresh": stale.exchange_bytes(staleness=0),
+                              "stale": stale.exchange_bytes(staleness=1)},
+           "simulated_latency_s": {
+               "fresh": stale.account(staleness=0).total_latency,
+               "stale": stale.account(staleness=1).total_latency}}
+    log(f"  stale: bound 0 == halo (pallas, segment_sum), pattern "
+        f"{pattern}, stale serves bitwise the replay; host ms fresh "
+        f"{[round(t, 2) for t in fresh_ms]} stale "
+        f"{[round(t, 2) for t in stale_ms]}, after an update (fresh) "
+        f"{upd_ms:.1f}")
+    return rec
+
+
+def fleet_path(Engine, models, g, api, drive_each) -> dict:
+    """Phase 3g, the fleet: ``compile_fleet`` with two sites plus the cloud
+    (GCN, ``sim``, the kernel path, ``halo_async`` with STALE_BOUND), a
+    ``FleetServer`` replay of a geo-tagged Poisson trace with per-request
+    feature noise, drained a third of the way through, the nearest site of
+    most requests set down halfway with requests pending there; zero
+    drops, exact launches per site's batches, every response bitwise a
+    session of its serving tier on its features."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = models.gnn_init(gen, "gcn", [g.feature_dim, DIMS_HIDDEN,
+                                          DIMS_OUT])
+    fleet = Engine((params, "gcn"), executor="sim", aggregation="pallas",
+                   compressor="daq", exchange="halo_async",
+                   staleness_bound=STALE_BOUND,
+                   device="cuda").compile_fleet(g, FLEET_SITES)
+    compile_s = time.perf_counter() - t0
+    fs = fleet.server(capacity=FLEET_CAPACITY, max_batch=SERVER_MAX_BATCH)
+    rate = server_rate(fleet.sites[0].plan) * len(FLEET_SITES)
+
+    def features_fn(i, rng):
+        return g.features + rng.normal(scale=0.01, size=g.features.shape)
+    trace = api.traces.poisson(
+        FLEET_REQUESTS, rate, seed=0, features_fn=features_fn,
+        origin_fn=api.traces.geo_origins(fleet.centroids(), seed=1))
+    down = fleet.site_names[0]
+
+    submitted = []
+
+    def run():
+        t1 = time.perf_counter()
+        out, moved = [], 0
+        for i, r in enumerate(trace):
+            if i == FLEET_REQUESTS // 3:
+                out += fs.drain()
+            if i == FLEET_REQUESTS // 2:
+                moved = fs.set_down(down)
+            submitted.append(fs.submit(r))
+        return out + fs.drain(), moved, time.perf_counter() - t1
+    outs, counts = drive_each("fleet", [run])
+    out, moved, wall_s = outs[0]
+    summary = fs.summarize(out)
+    responses = [r for r in out if isinstance(r, api.Response)]
+    if len(responses) != FLEET_REQUESTS or summary["dropped"]:
+        raise AssertionError(f"fleet: {len(responses)} responses of "
+                             f"{FLEET_REQUESTS}, {summary['dropped']} "
+                             f"dropped")
+    k = fleet.cloud_plan.model.num_layers
+    want = dict.fromkeys(REPLACES, 0)
+    for site in fs.tier_names:
+        mine = [r for r in responses if r.site == site]
+        for b, _ in batches_of(mine).values():
+            want["block_spmm" + ("" if b == 1 else "_batched")] += k
+    check_launches("fleet", counts[0], want)
+    plans = {s.name: s.plan for s in fleet.sites}
+    plans["cloud"] = fleet.cloud_plan
+    feats_of = {r.request_id: r.features for r in submitted}
+    sessions = {}
+    for r in responses:
+        sess = sessions.setdefault(r.site, plans[r.site].session())
+        if not np.array_equal(r.embeddings, sess.execute(
+                sess.collect(feats_of[r.request_id]))):
+            raise AssertionError(f"fleet: response {r.request_id} "
+                                 f"({r.site}, {r.route}) is not bitwise "
+                                 f"its tier's session")
+    rec = {"sites": list(fleet.site_names), "down": down, "moved": moved,
+           "compile_s": compile_s, "replay_s": wall_s, "rate_rps": rate,
+           "phase_s": time.perf_counter() - t0, "launches": counts[0],
+           "summary": summary}
+    log(f"  fleet: {FLEET_REQUESTS} requests at {rate:.2f}/s over "
+        f"{list(fs.tier_names)}, {down} down after "
+        f"{FLEET_REQUESTS // 2} ({moved} pending moved); routes "
+        f"{summary['routes']}, served "
+        f"{ {s: v['served'] for s, v in summary['sites'].items()} }, "
+        f"dropped {summary['dropped']}, staleness "
+        f"{summary['staleness_histogram']}; every response bitwise its "
+        f"tier's session; replay {wall_s:.2f} s, the fleet's part "
+        f"{rec['phase_s']:.1f} s; launches exact")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1975,7 +2604,7 @@ def main() -> int:
     from repro_torch import api
     from repro_torch.api import Engine
     from repro_torch.configs import registry
-    from repro_torch.core import compression
+    from repro_torch.core import compression, frontier
     from repro_torch.gnn import datasets, layers, models
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import daq_dequant as dq
@@ -2048,6 +2677,15 @@ def main() -> int:
     results = kernel_cases(ga, ref, csr, g, local)
     results.update(dequant_cases(ga, dq, ref, bsp, halo,
                                  pg.n * pg.boundary_slots))
+    n_rows, blocks_sim, blocks_mesh = subset_blocks(g, pg, local.out_rows,
+                                                    frontier)
+    log(f"  row subsets: the layer-1 frontier of {SUBSET_SENSORS} leaf "
+        f"sensors, {n_rows} rows: {len(blocks_sim)} of {vb} sim blocks, "
+        f"{len(blocks_mesh)} of {local.rows.tiles[0]} mesh blocks")
+    for name, recs in subset_cases(ga, dq, ref, bsp, csr, local, halo,
+                                   pg.n * pg.boundary_slots, blocks_sim,
+                                   blocks_mesh).items():
+        results[name]["subset_cases"] = recs
     del local, halo
     results.update(segment_cases(sg, ref, layers, bsp, g, pg))
     tables = dequant_tables(g, compression, datasets)
@@ -2169,6 +2807,19 @@ def main() -> int:
                                    drive_each)
     served_requests["phase_s"] = time.perf_counter() - t_server
     log(f"  phase 3f: {served_requests['phase_s']:.1f} s")
+
+    log("phase 3g: frontier queries, stale halos, the fleet")
+    t_3g = time.perf_counter()
+    frontiers, stream = frontier_paths(Engine, models, g, drive_each, ga, dq)
+    staled = stale_path(Engine, models, g, bsp, api, drive_each, stream)
+    fleet = fleet_path(Engine, models, g, api, drive_each)
+    phase_3g_s = time.perf_counter() - t_3g
+    log(f"  phase 3g: {phase_3g_s:.1f} s")
+    subset_launches = {
+        path: {name: sum(r["launches_subset"][name] for rec in recs
+                         for r in rec["runs"])
+               for name in SUBSET_KERNELS}
+        for path, recs in frontiers.items()}
     del g, csr
     ops._BLOCK_CSR_CACHE.clear()
     torch.cuda.empty_cache()
@@ -2189,6 +2840,9 @@ def main() -> int:
             "replaces": REPLACES[name],
             "launches": sum(c[name] for c in launches.values()),
             "launches_by_path": {p: c[name] for p, c in launches.items()},
+            **({"subset_launches_by_path": {
+                p: c[name] for p, c in subset_launches.items()}}
+               if name in SUBSET_KERNELS else {}),
             "max_abs_err": max(c["max_abs_err"] for c in rec["cases"]),
             "ms": sum(c["ms"] for c in main_cases),
             "plain_ms": sum(c["plain_ms"] for c in main_cases),
@@ -2203,6 +2857,8 @@ def main() -> int:
                                            "mesh": seg_mesh},
                       "dequantize_path": dequantized,
                       "server_path": served_requests,
+                      "frontier_path": frontiers, "stale_path": staled,
+                      "fleet_path": fleet, "phase_3g_s": phase_3g_s,
                       "serve_path": served_lm, "prefill_path": prefilled,
                       "reduced_serve": reduced}), flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)

@@ -26,10 +26,15 @@ _LAZY = {
     "GraphDelta": "repro_torch.api.updates",
     "UpdateRequest": "repro_torch.api.updates",
     "UpdateReport": "repro_torch.api.updates",
+    "Fleet": "repro_torch.api.fleet",
+    "FleetServer": "repro_torch.api.fleet",
+    "Router": "repro_torch.api.fleet",
+    "Site": "repro_torch.api.fleet",
     "SLOPolicy": "repro_torch.api.slo",
     "DegradationLevel": "repro_torch.api.slo",
     "AdaptiveBatchController": "repro_torch.api.slo",
     "Rejection": "repro_torch.api.slo",
+    "fleet": "repro_torch.api.fleet",      # submodule: the module itself
     "traces": "repro_torch.api.traces",    # submodule: the module itself
     "updates": "repro_torch.api.updates",  # submodule: the module itself
     "slo": "repro_torch.api.slo",          # submodule: the module itself

@@ -81,8 +81,13 @@ class Engine:
         thresholds for ``apply_delta`` — when the incrementally repaired
         partitioning exceeds either, the delta triggers a full recompile
         instead (overridable per call).
-      staleness_bound / validate: knobs of subsystems not ported yet;
-        anything but their inert defaults (0 / "off") raises.
+      staleness_bound: with the stale-tolerant ``"halo_async"`` exchange,
+        how many serves may replay recorded halo tables before the next
+        fresh exchange is forced (0 = every serve syncs, bitwise
+        ``exchange="halo"``). Rejected for exchanges without stale
+        tolerance.
+      validate: the static verifier's knob, which is not ported yet:
+        anything but "off" raises.
     """
 
     def __init__(self, model, cluster: Union[str, "simulation.FogCluster"]
@@ -115,9 +120,15 @@ class Engine:
             aggregation, self.model.kind,
             exchange=exchange if self._executor.needs_block_shards else None,
             device=self.device)
-        if int(staleness_bound) != 0:
-            raise _not_ported(f"staleness_bound={staleness_bound}",
-                              "2, fleet and stale halos")
+        staleness_bound = int(staleness_bound)
+        if staleness_bound < 0:
+            raise ValueError(f"staleness_bound must be >= 0, "
+                             f"got {staleness_bound}")
+        if staleness_bound > 0 and not self._exchange.stale_tolerant:
+            raise ValueError(
+                f"staleness_bound={staleness_bound} needs a stale-tolerant "
+                f"exchange (e.g. 'halo_async'), got "
+                f"{EXCHANGES.canonical(exchange)!r}")
         if validate != "off":
             raise _not_ported(f"validate={validate!r}",
                               "4, static verifier")
@@ -132,7 +143,7 @@ class Engine:
             cluster_spec=cluster if isinstance(cluster, str) else None,
             hidden=hidden, seed=seed, sync_cost=sync_cost,
             bytes_per_vertex=bytes_per_vertex, aggregation=aggregation,
-            device=str(self.device),
+            device=str(self.device), staleness_bound=staleness_bound,
             update_max_imbalance=update_max_imbalance,
             update_max_cut_growth=update_max_cut_growth)
 
@@ -184,11 +195,66 @@ class Engine:
                    sync_cost=cfg.sync_cost,
                    bytes_per_vertex=cfg.bytes_per_vertex,
                    aggregation=cfg.aggregation, device=cfg.device,
+                   staleness_bound=cfg.staleness_bound,
                    update_max_imbalance=cfg.update_max_imbalance,
                    update_max_cut_growth=cfg.update_max_cut_growth)
 
-    def compile_fleet(self, graph: Graph, sites):
-        raise _not_ported("Engine.compile_fleet", "2, fleet and stale halos")
+    def compile_fleet(self, graph: Graph, sites) -> "Fleet":
+        """Compile a geo-distributed fleet: one Plan per named fog site
+        plus the ``"cloud"`` executor as last-resort tier.
+
+        ``sites`` maps site name -> ``(lat, lon)`` centroid (dict, or a
+        sequence of ``(name, (lat, lon))`` / ``(name, lat, lon)``
+        entries). Every site serves THIS engine's model with THIS
+        engine's pipeline knobs and device; each runs its own setup phase
+        with a per-site profiling seed (``seed + index``). The cloud plan
+        is the same model compiled for ``executor="cloud"`` (always fresh:
+        no cross-fog exchange, so ``staleness_bound`` does not apply).
+
+        Returns a :class:`repro_torch.api.fleet.Fleet`; open the serving
+        facade with ``fleet.server(...)``.
+        """
+        from repro_torch.api.fleet import Fleet, Site
+        if isinstance(sites, dict):
+            items = list(sites.items())
+        else:
+            items = []
+            for entry in sites:
+                entry = tuple(entry)
+                if len(entry) == 3:          # (name, lat, lon)
+                    items.append((entry[0], (entry[1], entry[2])))
+                elif len(entry) == 2:        # (name, (lat, lon))
+                    items.append((entry[0], tuple(entry[1])))
+                else:
+                    raise ValueError(
+                        f"site entry must be (name, (lat, lon)) or "
+                        f"(name, lat, lon), got {entry!r}")
+        if not items:
+            raise ValueError("compile_fleet needs at least one site")
+        cfg = self.config
+        cluster = cfg.cluster_spec if cfg.cluster_spec else self.cluster
+
+        def _engine(**over) -> "Engine":
+            kw = dict(network=cfg.network, partitioner=cfg.partitioner,
+                      placement=cfg.placement, compressor=cfg.compressor,
+                      exchange=cfg.exchange, executor=cfg.executor,
+                      hidden=cfg.hidden, seed=cfg.seed,
+                      sync_cost=cfg.sync_cost,
+                      bytes_per_vertex=cfg.bytes_per_vertex,
+                      aggregation=cfg.aggregation, device=cfg.device,
+                      staleness_bound=cfg.staleness_bound,
+                      update_max_imbalance=cfg.update_max_imbalance,
+                      update_max_cut_growth=cfg.update_max_cut_growth)
+            kw.update(over)
+            return Engine(self.model, cluster, **kw)
+
+        site_objs = tuple(
+            Site(name=name, location=loc,
+                 plan=_engine(seed=cfg.seed + i).compile(graph))
+            for i, (name, loc) in enumerate(items))
+        cloud_plan = _engine(executor="cloud", staleness_bound=0
+                             ).compile(graph)
+        return Fleet(sites=site_objs, cloud_plan=cloud_plan)
 
     def fail_nodes(self, plan: Plan, crashed, **kwargs):
         raise _not_ported("Engine.fail_nodes", "3, fault tolerance")

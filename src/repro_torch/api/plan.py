@@ -97,6 +97,12 @@ class EngineConfig:
     aggregation: str = "auto"
     # torch device the plan's numerics run on ("cuda", "cuda:1", "cpu").
     device: str = "cuda"
+    # Stale-tolerant serving bound for the "halo_async" exchange: a serve
+    # may replay recorded halo tables up to this many versions old before
+    # the next fresh exchange is forced. 0 (the default) means every serve
+    # syncs — bitwise exchange="halo". Only legal with a stale-tolerant
+    # exchange entry (Engine validates eagerly).
+    staleness_bound: int = 0
     # Dynamic-update repair thresholds (Engine.apply_delta): fall back to a
     # full recompile when the repaired partitioning's imbalance (max size /
     # uniform share) exceeds update_max_imbalance x the pre-update

@@ -87,8 +87,8 @@ class Request:
     to remain meetable (see ``Server.max_wait``).
 
     ``origin`` is the request's geo coordinates ``(lat, lon)`` — read by
-    a fleet router to pick the nearest fog site (not ported yet); inert
-    on a single-cluster ``Server``.
+    the fleet router (``repro_torch.api.fleet``) to pick the nearest fog
+    site; inert on a single-cluster ``Server``.
     """
     features: Optional[np.ndarray] = None
     arrival_time: Optional[float] = None
@@ -112,9 +112,8 @@ class Response(QueryResult):
     requests, else whether ``latency <= deadline``; ``degradation`` is
     the ladder rung this request was served at (0 = native knobs).
 
-    The remaining fields keep the reference's schema for subsystems the
-    port does not serve yet, at their inert defaults here. Fleet outcome
-    (inert on a single-cluster server): ``site`` names the fog site (or
+    Fleet outcome (``repro_torch.api.fleet``; inert on a single-cluster
+    server): ``site`` names the fog site (or
     "cloud") that served the request, ``route`` how it got there
     ("local" = nearest site, "spilled" = load spillover to another site,
     "failed_over" = rerouted off a down/saturated tier, "recovered" =
@@ -258,10 +257,10 @@ class Server:
         # Degraded-session cache, one per ladder rung, keyed on the base
         # plan's identity so graph updates rebuild them lazily.
         self._degraded: Dict[int, Tuple[object, Session]] = {}
-        # Per-drain cache of Session.account results, keyed
-        # (executor key, batch size, ladder rung): admission estimates and
-        # the serving accounting share one pricing call.
-        self._svc_cache: Dict[Tuple[str, int, int],
+        # Per-drain cache of Session.account results, keyed (executor
+        # key, batch size, ladder rung, stale serve): admission estimates
+        # and the serving accounting share one pricing call.
+        self._svc_cache: Dict[Tuple[str, int, int, bool],
                               simulation.ServingResult] = {}
 
     # -- admission ----------------------------------------------------------
@@ -519,15 +518,17 @@ class Server:
         self._degraded[level] = (base_plan, sess)
         return sess
 
-    def _account_for(self, key: str, batch_size: int, level: int
-                     ) -> simulation.ServingResult:
-        # Every serve is fresh (stale halos are not ported), so admission
-        # estimates and the serving accounting price the same call.
-        ck = (key, batch_size, level)
+    def _account_for(self, key: str, batch_size: int, level: int,
+                     staleness: int = 0) -> simulation.ServingResult:
+        # Admission estimates price conservatively at staleness=0 (the
+        # fresh synchronous exchange); only the serving path passes the
+        # batch's actual staleness, which drops the K*delta sync term.
+        ck = (key, batch_size, level, bool(staleness))
         res = self._svc_cache.get(ck)
         if res is None:
             res = self._session_for(level).account(key,
-                                                   batch_size=batch_size)
+                                                   batch_size=batch_size,
+                                                   staleness=staleness)
             self._svc_cache[ck] = res
         return res
 
@@ -662,12 +663,18 @@ class Server:
         # stacked [B, V, F] array handed to the session's batched execute
         # (bitwise serial Session.query — held in
         # tests/test_torch_server.py and on the card by chip_smoke.py).
+        # Routing through the session lets a cache-enabled session serve
+        # the whole micro-batch with one stacked frontier pass, and
+        # resolves this batch's staleness under the stale-tolerant halo
+        # policy, which the accounting below depends on (a stale serve
+        # skips the K*delta sync round and ships zero exchange bytes).
         collected = np.stack([np.asarray(sess.collect(r.features),
                                          np.float32) for r in batch])
         embs = sess.execute_many(collected, executor=backend)
+        staleness = int(sess.last_staleness)
         xbytes = sess.exchange_bytes(backend)
         # Accounting: one batched collect + one batched executor run.
-        res = self._account_for(key, b, level)
+        res = self._account_for(key, b, level, staleness=staleness)
         c_t = float(res.collect.max())
         e_t = res.total_latency - c_t
         sched = simulation.pipeline_schedule(
@@ -703,7 +710,7 @@ class Server:
                 deadline=deadline,
                 deadline_met=(None if deadline is None
                               else bool(latency <= deadline + 1e-9)),
-                degradation=level))
+                degradation=level, staleness=staleness))
             sess.tick()   # per-request adapt_every accounting (step 5)
         if sess.adapt_every:
             self._svc_cache.clear()   # adaptation may have moved placement

@@ -17,6 +17,10 @@ micro-batch and pipeline them across queries; ``query`` composes them into
 the single-shot blocking call. Every query returns a ``QueryResult`` with
 one metrics schema across executor backends (sim / single / mesh-bsp /
 cloud). ``update`` absorbs graph mutations (``Engine.apply_delta``).
+``activation_cache=True`` serves queries after localized changes through
+the incremental frontier path (``core.frontier``); ``staleness_bound``
+with the ``halo_async`` exchange lets mesh serves replay recorded halo
+tables (``runtime.bsp.bsp_infer_stale``).
 """
 from __future__ import annotations
 
@@ -31,9 +35,11 @@ from repro_torch.api.executors import ExecutorBackend
 from repro_torch.api.registry import (COMPRESSORS, EXCHANGES, EXECUTORS,
                                       PARTITIONERS)
 from repro_torch.api.updates import GraphDelta, UpdateReport
+from repro_torch.core import frontier as _frontier
 from repro_torch.core import simulation
 from repro_torch.core.scheduler import SchedulerState, schedule_step
 from repro_torch.gnn.graph import Graph
+from repro_torch.kernels import ops
 from repro_torch.runtime import bsp
 
 
@@ -63,6 +69,33 @@ def _not_ported(what: str, item: str):
                                f"item {item}")
 
 
+class _HaloStore:
+    """Recorded halo tables for stale-tolerant serving (halo_async).
+
+    After a fresh serve the session records every layer's boundary-row
+    table (``bsp.build_halo_tables``); up to ``bound`` subsequent serves
+    may replay them instead of stalling the BSP superstep on the
+    exchange. ``age`` counts serves since the recording pass;
+    ``revision`` pins the graph fingerprint the tables were built under
+    (any mismatch forces a fresh serve). ``tables`` is None (cold), a
+    list of per-layer arrays (mesh backend), or the empty-tuple marker
+    for single-program backends — which have no real exchange to skip,
+    so only the version/staleness accounting applies.
+    """
+    __slots__ = ("bound", "tables", "age", "revision")
+
+    def __init__(self, bound: int):
+        self.bound = int(bound)
+        self.tables = None
+        self.age = 0
+        self.revision = None
+
+    def invalidate(self) -> None:
+        self.tables = None
+        self.age = 0
+        self.revision = None
+
+
 class Session:
     """Live serving handle for one Plan: ``query``, ``update``, ``adapt``.
 
@@ -78,8 +111,22 @@ class Session:
     truncated layer stack. These are the knobs the SLO control plane's
     degradation ladder turns (``repro_torch.api.slo``); a session
     configured with them directly is bitwise the server's degraded path.
-    ``activation_cache`` and ``staleness_bound`` belong to subsystems the
-    port does not serve yet and raise unless left at their defaults.
+
+    ``activation_cache=True`` turns on incremental queries: the session
+    keeps every layer's activations from the last full pass, and a query
+    whose collected features differ in a few rows (or that follows a
+    localized graph update) recomputes only the k-hop dirty frontier
+    (``core.frontier``), merging the recomputed rows into the cached
+    tables — bitwise a full recompute. Queries fall back to a full pass
+    (repriming the cache) when the frontier exceeds
+    ``frontier_max_fraction`` of V, the model kind lacks frontier support
+    (GAT re-weights edges per layer), the kernel path is disarmed after a
+    structural update, or the cached revision / numerics tags disagree.
+
+    ``staleness_bound`` (default: the plan's) with a stale-tolerant
+    exchange (``"halo_async"``) lets up to that many serves after a fresh
+    one replay its recorded halo tables instead of the per-layer exchange;
+    ``last_staleness`` says how old the last execute's halo rows were.
     """
 
     def __init__(self, plan, *, executor: Optional[str] = None,
@@ -92,16 +139,11 @@ class Session:
                  seed: Optional[int] = None,
                  updates: str = "sync",
                  activation_cache: bool = False,
+                 frontier_max_fraction: float = 0.25,
                  staleness_bound: Optional[int] = None):
         if updates not in ("sync", "deferred"):
             raise ValueError(f"updates must be 'sync' or 'deferred', "
                              f"got {updates!r}")
-        if activation_cache:
-            raise _not_ported("activation_cache=True",
-                              "1, incremental frontier queries")
-        if staleness_bound:
-            raise _not_ported(f"staleness_bound={staleness_bound}",
-                              "2, fleet and stale halos")
         if compressor is not None or num_layers is not None:
             plan = plan.with_overrides(compressor=compressor,
                                        num_layers=num_layers)
@@ -144,6 +186,34 @@ class Session:
             for f in plan.fogs]
         self.num_queries = 0
         self._partitioned = plan.partitioned  # valid for the initial layout
+        # Stale-tolerant serving (exchange="halo_async"): the session may
+        # replay recorded halo tables for up to staleness_bound serves
+        # after a fresh pass. bound=0 (the default) keeps the store off
+        # entirely — every serve runs the fresh path, which for halo_async
+        # is the "halo" exchange (bitwise).
+        bound = (cfg.staleness_bound if staleness_bound is None
+                 else int(staleness_bound))
+        if bound < 0:
+            raise ValueError(f"staleness_bound must be >= 0, got {bound}")
+        if bound > 0 and not self._exchange.stale_tolerant:
+            raise ValueError(
+                f"staleness_bound={bound} needs a stale-tolerant exchange "
+                f"(e.g. 'halo_async'), got {self._exchange.name!r}")
+        if bound > 0 and activation_cache:
+            raise ValueError(
+                "activation_cache and staleness_bound > 0 are mutually "
+                "exclusive: the incremental frontier path assumes every "
+                "serve's exchange is fresh")
+        self._halo = _HaloStore(bound) if bound > 0 else None
+        #: staleness (in serves since the last fresh exchange) of the most
+        #: recent execute: 0 = fresh/synchronous. Recorded per response by
+        #: the Server/FleetServer front-ends.
+        self.last_staleness = 0
+        self._acache = (_frontier.ActivationCache(frontier_max_fraction)
+                        if activation_cache else None)
+        #: QueryFrontier of the last query when it took the incremental
+        #: path, else None (introspection for tests and benchmarks).
+        self.last_frontier: Optional[_frontier.QueryFrontier] = None
         self._executor.check(plan)
 
     # -- runtime ------------------------------------------------------------
@@ -204,8 +274,22 @@ class Session:
 
     def execute(self, feats: np.ndarray, *, executor=None) -> np.ndarray:
         """Stage 2 (paper step 4): the GNN forward on the plan's device;
-        returns float32 numpy [V, D]."""
+        returns float32 numpy [V, D].
+
+        With ``activation_cache=True`` the collected ``feats`` are diffed
+        bitwise against the cached h^0, the dirty frontier is expanded,
+        and the executor recomputes only the dirty rows — or runs a full
+        capturing pass when the cache cannot serve (bitwise either way).
+        With a staleness bound the serve may replay recorded halo tables.
+        """
         backend = self.resolve_executor(executor)
+        if self._acache is not None:
+            return self._cached_execute(np.asarray(feats, np.float32),
+                                        backend)
+        if self._halo is not None:
+            return self._stale_execute(np.asarray(feats, np.float32),
+                                       backend, many=False)
+        self.last_staleness = 0
         return backend.run(self.plan, feats, self.state.placement.assignment,
                            self.partitioned(backend), self._exchange.name,
                            aggregation=self._aggregation)
@@ -213,34 +297,186 @@ class Session:
     def execute_many(self, feats, *, executor=None) -> list:
         """Batched stage 2 over a micro-batch ([B, V, F] stack or a
         sequence of [V, F] arrays) -> list of [V, D] embeddings, each
-        bitwise equal to ``execute`` on the same features."""
+        bitwise equal to ``execute`` on the same features.
+
+        The Server's micro-batcher calls this, so a cache-enabled session
+        serves the whole batch through ONE stacked frontier pass (the
+        per-example h^0 diffs union into one dirty set)."""
         backend = self.resolve_executor(executor)
         if not (isinstance(feats, np.ndarray) and feats.ndim == 3):
             feats = np.stack([np.asarray(f, np.float32) for f in feats])
         feats = np.asarray(feats, np.float32)
-        return backend.run_many(
-            self.plan, feats, self.state.placement.assignment,
-            self.partitioned(backend), self._exchange.name,
-            aggregation=self._aggregation)
+        if self._acache is None:
+            if self._halo is not None:
+                return self._stale_execute(feats, backend, many=True)
+            self.last_staleness = 0
+            return backend.run_many(
+                self.plan, feats, self.state.placement.assignment,
+                self.partitioned(backend), self._exchange.name,
+                aggregation=self._aggregation)
+        if feats.shape[0] == 1:
+            return [self._cached_execute(feats[0], backend)]
+        return self._cached_execute(feats, backend)
 
-    def account(self, executor=None, *,
-                batch_size: int = 1) -> simulation.ServingResult:
+    def _stale_execute(self, feats: np.ndarray, backend: ExecutorBackend,
+                       many: bool):
+        """Serve one execute under the stale-tolerant halo policy.
+
+        A serve is stale when tables are recorded for the current graph
+        revision and the store is younger than the bound: the mesh
+        backend then replays the recorded boundary rows with NO per-layer
+        exchange (local rows still read the CURRENT query features),
+        single-program backends serve plainly (they have no exchange to
+        skip; the accounting is identical). Otherwise the serve is fresh:
+        the mesh backend runs a capturing pass and the per-layer INPUT
+        activations become the next tables.
+        """
+        store = self._halo
+        plan = self.plan
+        assign = self.state.placement.assignment
+        pg = self.partitioned(backend)
+        agg = self._aggregation
+        revision = ops.graph_fingerprint(plan.graph)
+        mesh = backend.supports_stale_halo(plan, agg)
+        recorded = (store.tables is not None
+                    and (store.tables != () if mesh
+                         else store.tables == ()))
+        if (recorded and store.revision == revision
+                and store.age + 1 <= store.bound):
+            store.age += 1
+            self.last_staleness = store.age
+            if not mesh:
+                # Single-program numerics: no exchange, plain serve.
+                if many:
+                    return backend.run_many(plan, feats, assign, pg,
+                                            self._exchange.name,
+                                            aggregation=agg)
+                return backend.run(plan, feats, assign, pg,
+                                   self._exchange.name, aggregation=agg)
+            if many:
+                return backend.run_stale_many(plan, feats, assign, pg,
+                                              store.tables,
+                                              aggregation=agg)
+            return backend.run_stale(plan, feats, assign, pg, store.tables,
+                                     aggregation=agg)
+        # Fresh serve: run synchronously and (re)record the tables.
+        store.age = 0
+        store.revision = revision
+        self.last_staleness = 0
+        if not mesh:
+            store.tables = ()   # marker: accounting only, nothing to replay
+            if many:
+                return backend.run_many(plan, feats, assign, pg,
+                                        self._exchange.name,
+                                        aggregation=agg)
+            return backend.run(plan, feats, assign, pg,
+                               self._exchange.name, aggregation=agg)
+        layers = backend.run_layers(plan, feats, assign, pg,
+                                    self._exchange.name, aggregation=agg)
+        # Layer l's halo table holds layer l's INPUT activations (the
+        # features for l=0); a stacked batch records the LAST example,
+        # matching the activation cache's merge convention.
+        if many:
+            inputs = [feats[-1]] + [a[-1] for a in layers[:-1]]
+        else:
+            inputs = [feats] + list(layers[:-1])
+        store.tables = bsp.build_halo_tables(pg, inputs)
+        if many:
+            return list(layers[-1])
+        return layers[-1]
+
+    def _cached_execute(self, feats: np.ndarray, backend: ExecutorBackend):
+        """Serve one execute through the activation cache.
+
+        ``feats`` is [V, F] (returns [V, D]) or a stacked [B, V, F]
+        micro-batch (returns a list of B [V, D] arrays). Decision order:
+        tag agreement (graph revision + aggregation mode + executor
+        family) -> h^0 diff + frontier expansion -> empty-frontier fast
+        path / budgeted incremental pass / full capturing pass.
+        """
+        cache = self._acache
+        plan = self.plan
+        g: Graph = plan.graph
+        k = plan.model.num_layers
+        assign = self.state.placement.assignment
+        pg = self.partitioned(backend)
+        exch = self._exchange.name
+        agg = self._aggregation
+        stacked = feats.ndim == 3
+        mode = bsp.resolve_aggregation(
+            agg, plan.model.kind,
+            exchange=exch if backend.needs_block_shards else None,
+            device=plan.device)
+        family = backend.frontier_family
+        revision = ops.graph_fingerprint(g)
+        self.last_frontier = None
+        if cache.matches(revision, mode, family):
+            qf = cache.plan_query(feats, g, k)
+            if qf is not None and not len(qf.rows):
+                # Nothing changed since the cached pass: serve the cached
+                # final layer outright (sound for every kind, GAT too).
+                if stacked:
+                    return [np.array(cache.layers[-1], copy=True)
+                            for _ in range(feats.shape[0])]
+                return np.array(cache.layers[-1], copy=True)
+            if (qf is not None
+                    and backend.supports_frontier(plan, agg)
+                    and (mode != "pallas" or cache.pallas_ok)):
+                emb, merged = backend.run_frontier(
+                    plan, feats, assign, pg, exch, agg, qf.rows,
+                    cache.layers)
+                # A stacked pass merges the LAST example's tables: its
+                # h^0 becomes the diff baseline, and any member-specific
+                # rows self-correct through the next query's diff.
+                if stacked:
+                    cache.merge(feats[-1], [m[-1] for m in merged])
+                else:
+                    cache.merge(feats, merged)
+                self.last_frontier = qf
+                return emb
+        # Full pass, capturing every layer to (re)base the cache.
+        layers = backend.run_layers(plan, feats, assign, pg, exch,
+                                    aggregation=agg)
+        if stacked:
+            cache.populate(feats[-1], [a[-1] for a in layers],
+                           revision, mode, family)
+            return list(layers[-1])
+        cache.populate(feats, layers, revision, mode, family)
+        return layers[-1]
+
+    def account(self, executor=None, *, batch_size: int = 1,
+                staleness: Optional[int] = None) -> simulation.ServingResult:
         """Stage 3: simulated latency pricing for the current placement.
 
         ``batch_size`` prices a micro-batch of coalesced queries (1 = one
-        query). Every serve is fresh (stale halos are not ported), so the
-        K*delta sync term is always priced.
+        query). ``staleness`` prices the serve's exchange mode: a stale
+        halo_async serve (staleness > 0) never stalls a superstep on the
+        exchange, so the K*delta sync term drops out of the multi-fog
+        pipeline (``sync_scale=0``); None reads ``last_staleness``.
         """
         backend = self.resolve_executor(executor)
+        if staleness is None:
+            staleness = self.last_staleness
+        scale = 0.0 if staleness else 1.0
         return simulation.simulate(backend.pipeline, self.plan.cluster,
                                    self.state.placement,
                                    compress=self._compressor.sim_key,
-                                   batch_size=batch_size)
+                                   batch_size=batch_size,
+                                   sync_scale=scale)
 
-    def exchange_bytes(self, executor=None) -> int:
-        """Per-BSP-sync collective payload (0 off the multi-fog pipeline)."""
+    def exchange_bytes(self, executor=None, *,
+                       staleness: Optional[int] = None) -> int:
+        """Per-BSP-sync collective payload (0 off the multi-fog pipeline).
+
+        A stale halo_async serve replays recorded tables and ships NOTHING
+        over the wire (``staleness`` as in ``account``).
+        """
         backend = self.resolve_executor(executor)
         if backend.pipeline != "multi":
+            return 0
+        if staleness is None:
+            staleness = self.last_staleness
+        if staleness:
             return 0
         dtype_bytes, row_overhead = backend.wire_format(
             self.plan, self._exchange.name, self._aggregation)
@@ -361,6 +597,7 @@ class Session:
             return None
         from repro_torch.api.engine import Engine   # lazy: avoid import cycle
         deltas, self._pending_deltas = self._pending_deltas, []
+        old_graph = self.plan.graph
         try:
             plan2 = Engine.from_plan(self.plan).apply_delta(
                 self.plan, deltas,
@@ -370,6 +607,26 @@ class Session:
             # dropped without losing its neighbours.
             self._pending_deltas = deltas + self._pending_deltas
             raise
+        if self._acache is not None and self._acache.primed:
+            # Remap the cached activations through the coalesced repair's
+            # order-preserving compaction and record the dirty seeds; any
+            # disagreement with the repaired plan drops the cache instead
+            # of risking a stale serve.
+            try:
+                fu = _frontier.fold_delta_frontier(old_graph, deltas)
+            except Exception:
+                self._acache.clear()
+            else:
+                rev = ops.graph_fingerprint(plan2.graph)
+                if ops.graph_fingerprint(fu.graph) == rev:
+                    self._acache.apply_update(fu, revision=rev)
+                else:
+                    self._acache.clear()
+        if self._halo is not None:
+            # An applied update bumps the data version: recorded halo
+            # tables predate it (and the repair may have changed the
+            # partition layout), so the next serve must be fresh.
+            self._halo.invalidate()
         self.plan = plan2
         self.state.placement = dataclasses.replace(
             plan2.placement,
@@ -381,6 +638,20 @@ class Session:
 
     def failover(self, crashed, *, mode: Optional[str] = None):
         raise _not_ported("Session.failover", "3, fault tolerance")
+
+    def can_serve_stale(self) -> bool:
+        """Whether the NEXT execute could ride through on recorded halo
+        tables: a store exists, tables are recorded for the current graph
+        revision, and one more stale serve stays within the bound."""
+        store = self._halo
+        if store is None or store.tables is None:
+            return False
+        mesh = self._executor.supports_stale_halo(self.plan,
+                                                  self._aggregation)
+        recorded = (store.tables != () if mesh else store.tables == ())
+        return (recorded
+                and store.revision == ops.graph_fingerprint(self.plan.graph)
+                and store.age + 1 <= store.bound)
 
     # -- adaptation ---------------------------------------------------------
 
@@ -404,4 +675,22 @@ class Session:
             replan_partitioner=PARTITIONERS.resolve(plan.config.partitioner))
         if not np.array_equal(before, self.state.placement.assignment):
             self._partitioned = None  # layout changed: invalidate buffers
+            if self._halo is not None:
+                # Recorded tables are laid out per the old partitioning.
+                self._halo.invalidate()
+            if self._acache is not None and self._acache.family == "mesh":
+                # Mesh-family cached tables were produced under the old
+                # partition's halo layout; single-program numerics are
+                # assignment-independent so those caches survive.
+                self._acache.clear()
         return self.state.mode_history[-1]
+
+    # -- frontier introspection ---------------------------------------------
+
+    def frontier_state(self) -> Optional["_frontier.FrontierPlan"]:
+        """Snapshot of the pending dirty frontier (None when the session
+        has no activation cache or a cold one)."""
+        if self._acache is None:
+            return None
+        return self._acache.frontier_plan(self.plan.graph,
+                                          self.plan.model.num_layers)

@@ -108,6 +108,16 @@ class EdgeList(_Edges):
                    torch.as_tensor(r, dtype=torch.int32, device=device),
                    torch.as_tensor(mask, device=device), g.num_vertices)
 
+    def into(self, dirty: torch.Tensor) -> "EdgeList":
+        """These edges with every edge into a receiver where ``dirty``
+        (bool[V]) is False masked out, in an edge list of its own (its own
+        order and degrees): a dirty receiver keeps its whole incoming edge
+        sequence, so its sums and its degree are this list's, bit for
+        bit (a frontier layer's edges)."""
+        return EdgeList(self.senders, self.receivers,
+                        self.mask * dirty[self.receivers.long()],
+                        self.num_vertices)
+
     @functools.cached_property
     def self_looped(self) -> "EdgeList":
         """These edges, then one self edge per vertex (GAT's N(v) u {v}),

@@ -20,21 +20,22 @@ CUDA tensors launch the kernel on the current stream, and the fused
 products need ``rows`` there; CPU tensors take the dense plain versions
 (``kernels.ref``). Each wrapper counts its launches in a plain integer
 attribute (``dequant_spmm.launches``), raised by one at every launch and
-nowhere else.
+nowhere else; the fused products also count their launches over a
+``RowSubset`` in ``subset_launches``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.gather_aggregate import (_NEEDS_ROWS, TileRows,
-                                                  _check_operands,
+from repro_torch.kernels.gather_aggregate import (_NEEDS_ROWS, RowSubset,
+                                                  TileRows, _check_operands,
                                                   _check_rows, _check_tensor,
-                                                  _kernel, _launch, _ptr,
-                                                  _raise_on)
+                                                  _count, _kernel, _launch,
+                                                  _out, _ptr, _raise_on)
 
 #: code dtypes the kernels take -> bytes per code.
 CODE_BYTES = {torch.uint8: 1, torch.uint16: 2, torch.uint32: 4}
@@ -42,7 +43,7 @@ CODE_BYTES = {torch.uint8: 1, torch.uint16: 2, torch.uint32: 4}
 
 def _check(blocks, block_cols, block_mask, codes, scales, mins,
            batched: bool, max_col: Optional[int],
-           rows: Optional[TileRows]) -> None:
+           rows: Union[None, TileRows, RowSubset]) -> None:
     _check_operands(blocks, block_cols, block_mask, codes, batched, max_col,
                     h_name="codes", h_dtypes=tuple(CODE_BYTES))
     for name, t in (("scales", scales), ("mins", mins)):
@@ -57,7 +58,7 @@ def _check(blocks, block_cols, block_mask, codes, scales, mins,
 def dequant_spmm(blocks: torch.Tensor, block_cols: torch.Tensor,
                  block_mask: torch.Tensor, codes: torch.Tensor,
                  scales: torch.Tensor, mins: torch.Tensor, *,
-                 rows: Optional[TileRows] = None,
+                 rows: Union[None, TileRows, RowSubset] = None,
                  max_col: Optional[int] = None) -> torch.Tensor:
     """out = A @ (codes * scales[:, None] + mins[:, None]), fused.
 
@@ -69,11 +70,16 @@ def dequant_spmm(blocks: torch.Tensor, block_cols: torch.Tensor,
     largest entry of ``block_cols`` when the caller knows it. CUDA tensors
     launch the kernel over ``rows``, the operand's ``compact_block_csr``
     (required there, built once per layout); CPU tensors take the dense
-    plain version.
+    plain version. A ``RowSubset`` computes only its rows, as in
+    ``block_spmm``.
     """
     _check(blocks, block_cols, block_mask, codes, scales, mins, False,
            max_col, rows)
     if codes.device.type == "cpu":
+        if isinstance(rows, RowSubset):
+            return ref.dequant_spmm_subset_ref(blocks, block_cols,
+                                               block_mask, codes, scales,
+                                               mins, rows.blocks)
         return ref.dequant_spmm_ref(blocks, block_cols, block_mask, codes,
                                     scales, mins)
     if codes.device.type != "cuda":
@@ -81,11 +87,10 @@ def dequant_spmm(blocks: torch.Tensor, block_cols: torch.Tensor,
                          f"{codes.device}")
     if rows is None:
         raise ValueError(_NEEDS_ROWS.format("dequant_spmm"))
-    out = torch.empty((rows.n_rows, codes.shape[1]), dtype=torch.float32,
-                      device=codes.device)
+    out = _out(rows, (rows.n_rows, codes.shape[1]), codes.device)
     err = _launch("dequant_spmm_launch", rows, (codes, scales, mins), out,
                   last=(CODE_BYTES[codes.dtype],))
-    dequant_spmm.launches += 1
+    _count(dequant_spmm, rows)
     _raise_on(err, "dequant_spmm")
     return out
 
@@ -93,15 +98,19 @@ def dequant_spmm(blocks: torch.Tensor, block_cols: torch.Tensor,
 def dequant_spmm_batched(blocks: torch.Tensor, block_cols: torch.Tensor,
                          block_mask: torch.Tensor, codes: torch.Tensor,
                          scales: torch.Tensor, mins: torch.Tensor, *,
-                         rows: Optional[TileRows] = None,
+                         rows: Union[None, TileRows, RowSubset] = None,
                          max_col: Optional[int] = None) -> torch.Tensor:
     """out[b] = A @ dequant(codes[b]) for codes [B, S, F] and f32[B, S]
     row parameters, one launch. Each ``out[b]`` is bitwise
     ``dequant_spmm(..., codes[b], scales[b], mins[b])``. ``rows`` as for
-    ``dequant_spmm``."""
+    ``dequant_spmm`` (a row subset included)."""
     _check(blocks, block_cols, block_mask, codes, scales, mins, True,
            max_col, rows)
     if codes.device.type == "cpu":
+        if isinstance(rows, RowSubset):
+            return ref.dequant_spmm_batched_subset_ref(
+                blocks, block_cols, block_mask, codes, scales, mins,
+                rows.blocks)
         return ref.dequant_spmm_batched_ref(blocks, block_cols, block_mask,
                                             codes, scales, mins)
     if codes.device.type != "cuda":
@@ -110,11 +119,10 @@ def dequant_spmm_batched(blocks: torch.Tensor, block_cols: torch.Tensor,
     if rows is None:
         raise ValueError(_NEEDS_ROWS.format("dequant_spmm_batched"))
     b, _, f = codes.shape
-    out = torch.empty((b, rows.n_rows, f), dtype=torch.float32,
-                      device=codes.device)
+    out = _out(rows, (b, rows.n_rows, f), codes.device)
     err = _launch("dequant_spmm_batched_launch", rows, (codes, scales, mins),
                   out, b, last=(CODE_BYTES[codes.dtype],))
-    dequant_spmm_batched.launches += 1
+    _count(dequant_spmm_batched, rows)
     _raise_on(err, "dequant_spmm_batched")
     return out
 
@@ -162,5 +170,7 @@ def dequant(codes: torch.Tensor, scales: torch.Tensor, mins: torch.Tensor, *,
 
 
 dequant_spmm.launches = 0
+dequant_spmm.subset_launches = 0
 dequant_spmm_batched.launches = 0
+dequant_spmm_batched.subset_launches = 0
 dequant.launches = 0

@@ -14,7 +14,10 @@ PyTorch versions (``kernels.ref``) over the dense tiles.
 
 Each wrapper counts its kernel launches in a plain integer attribute
 (``block_spmm.launches``), raised by one at every launch and nowhere else,
-so a caller can show that a run really went through the kernel.
+so a caller can show that a run really went through the kernel. A launch
+over a :class:`RowSubset` (``row_subset``: the rows of some 128-row
+blocks, for a frontier query) counts there too, and also in
+``block_spmm.subset_launches``.
 """
 from __future__ import annotations
 
@@ -159,6 +162,83 @@ class TileRows:
         return self.row_ptr.device
 
 
+@dataclasses.dataclass(frozen=True)
+class RowSubset:
+    """The rows of some 128-row blocks of a :class:`TileRows`.
+
+    ``warp_rows`` and ``split`` list only the rows of the row blocks
+    ``blocks``, in the full operand's launch order; every other tensor is
+    the full operand's (``rows``). A kernel launched over it walks a listed
+    row with exactly the code of a full launch, so the row comes out
+    bitwise the full launch's; it writes no other row, and the wrappers
+    return those as zeros. Built by :func:`row_subset`, on the operand's
+    device.
+    """
+    rows: TileRows           # the full operand
+    blocks: torch.Tensor     # i64[k]: the selected row blocks, ascending
+    warp_rows: torch.Tensor  # i32[n, 4]: rows.warp_rows of those blocks
+    split: torch.Tensor      # i32[n_split]: rows.split of those blocks
+
+    def __post_init__(self):
+        full = self.rows
+        for name, like in (("warp_rows", full.warp_rows),
+                           ("split", full.split)):
+            t = getattr(self, name)
+            _check_tensor(f"RowSubset.{name}", t, (torch.int32,),
+                          full.device)
+            if t.shape[1:] != like.shape[1:] or len(t) > len(like):
+                raise ValueError(f"RowSubset.{name} must be at most "
+                                 f"{tuple(like.shape)}, got {tuple(t.shape)}")
+        if self.warp_rows.data_ptr() % 16:
+            raise ValueError("RowSubset.warp_rows must be 16-byte aligned")
+
+    @property
+    def tiles(self) -> Tuple[int, int]:
+        return self.rows.tiles
+
+    @property
+    def n_rows(self) -> int:
+        return self.rows.n_rows
+
+    @property
+    def device(self) -> torch.device:
+        return self.rows.device
+
+    @property
+    def max_src(self) -> int:
+        return self.rows.max_src
+
+    def row_mask(self) -> torch.Tensor:
+        """bool[n_rows]: True on the rows of the selected blocks."""
+        keep = torch.zeros(self.rows.tiles[0], dtype=torch.bool,
+                           device=self.device)
+        keep[self.blocks] = True
+        return keep.repeat_interleave(BLOCK)
+
+
+def row_subset(rows: TileRows, blocks) -> RowSubset:
+    """The :class:`RowSubset` of ``rows`` over the row blocks ``blocks``
+    (ids in ``[0, VB)``, each at most once; any integer sequence, array or
+    tensor). The ids are checked on the host; the subset is cut on the
+    card: the rows of ``warp_rows`` and ``split`` whose block is selected,
+    in their order."""
+    ids = np.asarray(blocks.cpu() if isinstance(blocks, torch.Tensor)
+                     else blocks, np.int64).reshape(-1)
+    vb = rows.tiles[0]
+    if len(ids) and (ids.min() < 0 or ids.max() >= vb):
+        raise ValueError(f"row blocks must lie in [0, {vb}), got "
+                         f"{ids.min()} .. {ids.max()}")
+    if len(np.unique(ids)) != len(ids):
+        raise ValueError("row blocks must be unique")
+    sel = torch.as_tensor(np.sort(ids), device=rows.device)
+    keep = torch.zeros(vb, dtype=torch.bool, device=rows.device)
+    keep[sel] = True
+    warp = rows.warp_rows[keep[rows.warp_rows[:, 0].long() // BLOCK]]
+    split = rows.split[keep[rows.split.long() // BLOCK]]
+    return RowSubset(rows=rows, blocks=sel, warp_rows=warp.contiguous(),
+                     split=split.contiguous())
+
+
 def compact_block_csr(blocks: torch.Tensor, block_cols: torch.Tensor,
                       block_mask: torch.Tensor) -> TileRows:
     """The :class:`TileRows` of an ELL-block-CSR operand, on its device.
@@ -262,12 +342,12 @@ def _check_operands(blocks, block_cols, block_mask, h, batched: bool,
                          f"{(max_col + 1) * BLOCK})")
 
 
-def _check_rows(rows: TileRows, blocks: torch.Tensor,
-                h: torch.Tensor) -> None:
-    """Raise unless ``rows`` lists ``blocks`` and fits the table ``h``."""
-    if not isinstance(rows, TileRows):
-        raise TypeError(f"rows must be a TileRows (compact_block_csr), got "
-                        f"{type(rows).__name__}")
+def _check_rows(rows, blocks: torch.Tensor, h: torch.Tensor) -> None:
+    """Raise unless ``rows`` (a TileRows or a RowSubset of one) lists
+    ``blocks`` and fits the table ``h``."""
+    if not isinstance(rows, (TileRows, RowSubset)):
+        raise TypeError(f"rows must be a TileRows (compact_block_csr) or a "
+                        f"RowSubset (row_subset), got {type(rows).__name__}")
     vb, m = blocks.shape[:2]
     if rows.tiles != (vb, m):
         raise ValueError(f"rows lists {rows.n_rows} rows of [VB, M] = "
@@ -322,22 +402,40 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
-def _launch(name: str, rows: TileRows, tables: Sequence[torch.Tensor],
+def _out(rows, shape, device) -> torch.Tensor:
+    """The output of a launch over ``rows``: a full launch writes every
+    row; a row subset writes only its rows, so the others start at 0."""
+    alloc = torch.zeros if isinstance(rows, RowSubset) else torch.empty
+    return alloc(shape, dtype=torch.float32, device=device)
+
+
+def _launch(name: str, rows, tables: Sequence[torch.Tensor],
             out: torch.Tensor, *batch: int, last: Tuple[int, ...] = ()
             ) -> int:
-    """Launch a row-compacted entry point over the source ``tables`` (h,
-    or codes, scales, mins: the first gives the table's shape) and the
-    trailing ints ``last``; returns its cudaError."""
+    """Launch a row-compacted entry point over ``rows`` (a TileRows, or a
+    RowSubset: the full operand with its own warp and split rows), the
+    source ``tables`` (h, or codes, scales, mins: the first gives the
+    table's shape) and the trailing ints ``last``; returns its
+    cudaError."""
+    full = rows.rows if isinstance(rows, RowSubset) else rows
     h = tables[0]
     src_rows, f = h.shape[-2:]
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         return _kernel(name)(
-            _ptr(rows.row_ptr), _ptr(rows.seg_ptr), _ptr(rows.seg_w),
-            _ptr(rows.src), _ptr(rows.val), _ptr(rows.warp_rows),
+            _ptr(full.row_ptr), _ptr(full.seg_ptr), _ptr(full.seg_w),
+            _ptr(full.src), _ptr(full.val), _ptr(rows.warp_rows),
             _ptr(rows.split), *map(_ptr, tables), _ptr(out), *batch,
-            rows.n_rows, rows.n_seg, len(rows.warp_rows), len(rows.split),
-            rows.split_segs, f, src_rows, *last, ctypes.c_void_p(stream))
+            full.n_rows, full.n_seg, len(rows.warp_rows), len(rows.split),
+            full.split_segs, f, src_rows, *last, ctypes.c_void_p(stream))
+
+
+def _count(wrapper, rows) -> None:
+    """One launch of ``wrapper``'s kernel: ``launches`` counts every
+    launch, ``subset_launches`` those over a row subset."""
+    wrapper.launches += 1
+    if isinstance(rows, RowSubset):
+        wrapper.subset_launches += 1
 
 
 def block_spmm(blocks: torch.Tensor, block_cols: torch.Tensor,
@@ -353,21 +451,25 @@ def block_spmm(blocks: torch.Tensor, block_cols: torch.Tensor,
     device-to-host read for the bounds check). CUDA tensors launch the
     CUDA kernel on the current stream over ``rows``, the operand's
     :func:`compact_block_csr` (required there, built once per layout); CPU
-    tensors take the plain version over the tiles.
+    tensors take the plain version over the tiles. A :class:`RowSubset`
+    as ``rows`` computes only its rows (each bitwise the full product's)
+    and returns the others as zeros, on either device.
     """
     _check_operands(blocks, block_cols, block_mask, h, False, max_col)
     if rows is not None:
         _check_rows(rows, blocks, h)
     if h.device.type == "cpu":
+        if isinstance(rows, RowSubset):
+            return ref.block_spmm_subset_ref(blocks, block_cols, block_mask,
+                                             h, rows.blocks)
         return ref.block_spmm_ref(blocks, block_cols, block_mask, h)
     if h.device.type != "cuda":
         raise ValueError(f"block_spmm runs on cuda or cpu, not {h.device}")
     if rows is None:
         raise ValueError(_NEEDS_ROWS.format("block_spmm"))
-    out = torch.empty((rows.n_rows, h.shape[1]), dtype=torch.float32,
-                      device=h.device)
+    out = _out(rows, (rows.n_rows, h.shape[1]), h.device)
     err = _launch("block_spmm_launch", rows, (h,), out)
-    block_spmm.launches += 1
+    _count(block_spmm, rows)
     _raise_on(err, "block_spmm")
     return out
 
@@ -380,12 +482,15 @@ def block_spmm_batched(blocks: torch.Tensor, block_cols: torch.Tensor,
 
     Each ``out[b]`` is bitwise equal to ``block_spmm(..., h[b])``: the
     batched kernel runs the serial kernel's per-example code. ``rows`` as
-    for ``block_spmm``.
+    for ``block_spmm`` (a row subset included).
     """
     _check_operands(blocks, block_cols, block_mask, h, True, max_col)
     if rows is not None:
         _check_rows(rows, blocks, h)
     if h.device.type == "cpu":
+        if isinstance(rows, RowSubset):
+            return ref.block_spmm_batched_subset_ref(
+                blocks, block_cols, block_mask, h, rows.blocks)
         return ref.block_spmm_batched_ref(blocks, block_cols, block_mask, h)
     if h.device.type != "cuda":
         raise ValueError(f"block_spmm_batched runs on cuda or cpu, not "
@@ -393,13 +498,14 @@ def block_spmm_batched(blocks: torch.Tensor, block_cols: torch.Tensor,
     if rows is None:
         raise ValueError(_NEEDS_ROWS.format("block_spmm_batched"))
     b, _, f = h.shape
-    out = torch.empty((b, rows.n_rows, f), dtype=torch.float32,
-                      device=h.device)
+    out = _out(rows, (b, rows.n_rows, f), h.device)
     err = _launch("block_spmm_batched_launch", rows, (h,), out, b)
-    block_spmm_batched.launches += 1
+    _count(block_spmm_batched, rows)
     _raise_on(err, "block_spmm_batched")
     return out
 
 
 block_spmm.launches = 0
+block_spmm.subset_launches = 0
 block_spmm_batched.launches = 0
+block_spmm_batched.subset_launches = 0

@@ -16,7 +16,8 @@ import torch
 
 from repro_torch.gnn.graph import Graph
 from repro_torch.kernels.daq_dequant import dequant, dequant_spmm
-from repro_torch.kernels.gather_aggregate import (BLOCK, block_spmm,
+from repro_torch.kernels.gather_aggregate import (BLOCK, RowSubset,
+                                                  block_spmm,
                                                   block_spmm_batched,
                                                   build_block_csr,
                                                   compact_block_csr)
@@ -47,21 +48,26 @@ class BlockCsr:
         #: the tiles' nonzeros per output row, what the CUDA kernels read
         self.rows = compact_block_csr(self.blocks, self.cols, self.mask)
 
-    def aggregate_traced(self, h: torch.Tensor) -> torch.Tensor:
+    def aggregate_traced(self, h: torch.Tensor,
+                         subset: Optional[RowSubset] = None) -> torch.Tensor:
         """sum-aggregate, tensor in / tensor out on the prepared device.
 
         Zero-pads rows to the prepared block grid. ``h`` may be a single
         [V, F] feature table or a stacked [B, V, F] micro-batch — the
         stacked form runs ``block_spmm_batched`` (one launch for the whole
         batch) and returns [B, V, F], with each ``out[b]`` bitwise equal
-        to the single-query call on ``h[b]``.
+        to the single-query call on ``h[b]``. With ``subset`` (a
+        ``gather_aggregate.row_subset`` of ``rows``) only the rows of its
+        blocks are summed, each
+        bitwise the full call's; the other rows are 0.
         """
         v, f = h.shape[-2:]
         hp = h.new_zeros(h.shape[:-2] + (self.padded_v, f),
                          dtype=torch.float32)
         hp[..., :v, :] = h
         op = block_spmm_batched if h.ndim == 3 else block_spmm
-        out = op(self.blocks, self.cols, self.mask, hp, rows=self.rows,
+        out = op(self.blocks, self.cols, self.mask, hp,
+                 rows=self.rows if subset is None else subset,
                  max_col=self.max_col)
         return out[..., :v, :]
 

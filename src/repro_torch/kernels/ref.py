@@ -40,6 +40,37 @@ def block_spmm_batched_ref(blocks: torch.Tensor, block_cols: torch.Tensor,
                         for hb in h])
 
 
+def keep_row_blocks(out: torch.Tensor, sel: torch.Tensor,
+                    block: int = 128) -> torch.Tensor:
+    """``out`` [..., R, F] with every row outside the ``block``-row blocks
+    ``sel`` set to 0: what a launch over a row subset writes (the rows it
+    computes are the full product's, the rest stay at their zero fill)."""
+    keep = torch.zeros(out.shape[-2] // block, dtype=torch.bool,
+                       device=out.device)
+    keep[sel.to(out.device).long()] = True
+    return torch.where(keep.repeat_interleave(block)[:, None], out,
+                       out.new_zeros(()))
+
+
+def block_spmm_subset_ref(blocks: torch.Tensor, block_cols: torch.Tensor,
+                          block_mask: torch.Tensor, h: torch.Tensor,
+                          sel: torch.Tensor) -> torch.Tensor:
+    """The row slice of ``block_spmm_ref`` over the row blocks ``sel``
+    (the other rows 0)."""
+    return keep_row_blocks(block_spmm_ref(blocks, block_cols, block_mask, h),
+                           sel, blocks.shape[-1])
+
+
+def block_spmm_batched_subset_ref(blocks: torch.Tensor,
+                                  block_cols: torch.Tensor,
+                                  block_mask: torch.Tensor, h: torch.Tensor,
+                                  sel: torch.Tensor) -> torch.Tensor:
+    """The row slice of ``block_spmm_batched_ref``."""
+    return keep_row_blocks(
+        block_spmm_batched_ref(blocks, block_cols, block_mask, h), sel,
+        blocks.shape[-1])
+
+
 def block_spmm_rows_ref(rows, h: torch.Tensor) -> torch.Tensor:
     """out = A @ h over the row-compacted operand (``gather_aggregate.
     compact_block_csr``): the gathered source rows times their entries,
@@ -98,6 +129,28 @@ def dequant_spmm_batched_ref(blocks: torch.Tensor, block_cols: torch.Tensor,
     return torch.stack([dequant_spmm_ref(blocks, block_cols, block_mask,
                                          c, s, m)
                         for c, s, m in zip(codes, scales, mins)])
+
+
+def dequant_spmm_subset_ref(blocks: torch.Tensor, block_cols: torch.Tensor,
+                            block_mask: torch.Tensor, codes: torch.Tensor,
+                            scales: torch.Tensor, mins: torch.Tensor,
+                            sel: torch.Tensor) -> torch.Tensor:
+    """The row slice of ``dequant_spmm_ref`` over the row blocks ``sel``."""
+    return keep_row_blocks(dequant_spmm_ref(blocks, block_cols, block_mask,
+                                            codes, scales, mins),
+                           sel, blocks.shape[-1])
+
+
+def dequant_spmm_batched_subset_ref(blocks: torch.Tensor,
+                                    block_cols: torch.Tensor,
+                                    block_mask: torch.Tensor,
+                                    codes: torch.Tensor,
+                                    scales: torch.Tensor, mins: torch.Tensor,
+                                    sel: torch.Tensor) -> torch.Tensor:
+    """The row slice of ``dequant_spmm_batched_ref``."""
+    return keep_row_blocks(
+        dequant_spmm_batched_ref(blocks, block_cols, block_mask, codes,
+                                 scales, mins), sel, blocks.shape[-1])
 
 
 def dequant_spmm_rows_ref(rows, codes: torch.Tensor, scales: torch.Tensor,

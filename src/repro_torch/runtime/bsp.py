@@ -63,11 +63,12 @@ from repro_torch.gnn.graph import Graph
 from repro_torch.gnn.layers import EdgeList, LAYER_FNS, apply_layer_with_sum
 from repro_torch.kernels.daq_dequant import (dequant_spmm,
                                              dequant_spmm_batched)
-from repro_torch.kernels.gather_aggregate import (BLOCK, TileRows,
+from repro_torch.kernels.gather_aggregate import (BLOCK, RowSubset, TileRows,
                                                   block_spmm,
                                                   block_spmm_batched,
                                                   build_block_csr,
-                                                  compact_block_csr)
+                                                  compact_block_csr,
+                                                  row_subset)
 
 #: legal values of the Engine/Session ``aggregation`` knob.
 AGGREGATIONS = ("segment_sum", "pallas", "auto")
@@ -558,31 +559,39 @@ def _folded_csrs(pg: PartitionedGraph, device: torch.device):
 
 
 def _kernel_sum(pg: PartitionedGraph, h: torch.Tensor, lay: _Layout,
-                local: _FoldedCsr, halo: _FoldedCsr,
-                halo_quant: bool) -> torch.Tensor:
+                local: _FoldedCsr, halo: _FoldedCsr, halo_quant: bool,
+                subsets: Optional[Tuple[RowSubset, RowSubset]] = None,
+                stale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Every shard's neighbor SUM = local SpMM + halo SpMM, one launch
     each for all shards. ``h`` is the folded [n*P, F] table or a
-    [B, n*P, F] stack (then the batched kernels run)."""
+    [B, n*P, F] stack (then the batched kernels run). ``subsets`` (the
+    local and halo operands' row subsets of a frontier layer) restricts
+    both launches to their rows; ``stale`` is a recorded [n*B, F] halo
+    table read instead of gathering ``h``'s boundary rows (no wire)."""
     n, slots = pg.n, pg.slots
     lead, f = h.shape[:-2], h.shape[-1]
     batched = h.ndim == 3
     spmm = block_spmm_batched if batched else block_spmm
+    l_rows, h_rows = (local.rows, halo.rows) if subsets is None else subsets
     loc = _kernel_pad(h.reshape(lead + (n, slots, f)), local.src_rows // n)
     out = spmm(local.blocks, local.cols, local.mask,
-               loc.reshape(lead + (local.src_rows, f)), rows=local.rows,
+               loc.reshape(lead + (local.src_rows, f)), rows=l_rows,
                max_col=local.max_col)
-    hb = h[..., lay.boundary_index, :] * lay.boundary_mask   # [.., n*B, F]
+    if stale is not None:
+        hb = stale.expand(lead + stale.shape)
+    else:
+        hb = h[..., lay.boundary_index, :] * lay.boundary_mask  # [.., n*B, F]
     if halo_quant:
         codes, sc, mn = _wire_quantize(hb)
         pad = (0, halo.src_rows - sc.shape[-1])
         dq = dequant_spmm_batched if batched else dequant_spmm
         out_h = dq(halo.blocks, halo.cols, halo.mask,
                    _kernel_pad(codes, halo.src_rows), F.pad(sc, pad),
-                   F.pad(mn, pad), rows=halo.rows, max_col=halo.max_col)
+                   F.pad(mn, pad), rows=h_rows, max_col=halo.max_col)
     else:
         out_h = spmm(halo.blocks, halo.cols, halo.mask,
-                     _kernel_pad(hb, halo.src_rows), rows=halo.rows,
-                     max_col=halo.max_col)
+                     _kernel_pad(hb, halo.src_rows).contiguous(),
+                     rows=h_rows, max_col=halo.max_col)
 
     def shard_rows(o):
         o = o.reshape(lead + (n, local.out_rows, f))[..., :slots, :]
@@ -606,41 +615,116 @@ def _resolve(kind: str, pg: PartitionedGraph, exchange: str,
     return _wire_exchange(exchange), use_kernels
 
 
-def _run(params, kind: str, pg: PartitionedGraph, h: torch.Tensor,
-         exchange: str, aggregation: str, halo_quant: bool) -> torch.Tensor:
+def _run_layers(params, kind: str, pg: PartitionedGraph, h: torch.Tensor,
+                exchange: str, aggregation: str, halo_quant: bool,
+                dirty: Optional[List[np.ndarray]] = None,
+                cached: Optional[List[torch.Tensor]] = None,
+                stale: Optional[List[torch.Tensor]] = None
+                ) -> List[torch.Tensor]:
     """K-layer BSP forward on the folded table ``h`` ([n*P, F], or a
-    [B, n*P, F] stack) -> the folded output, on ``h``'s device.
+    [B, n*P, F] stack) -> every layer's folded output, on ``h``'s device.
 
     The kernel path runs one local and one halo launch per layer for the
     whole stack, then the dense tail example by example; the segment-sum
     path runs a stack example by example. Either way every example is
     bitwise its serial run.
+
+    Frontier pass (``dirty``: per layer a host bool [n*P] mask of the
+    folded rows to recompute; ``cached``: the last full pass's K folded
+    tables): the kernel path launches both operands over the row subset of the
+    dirty rows' 128-row blocks (the edge mask stays full: degrees must be
+    exact) and merges every row of those blocks; the segment path masks
+    out the edges into clean rows, in an edge list of its own, and merges
+    the dirty rows. The dense tail runs at the full shape and the merge
+    is a ``torch.where`` select, so clean rows keep the cached bits and
+    the next layer's exchange reads the merged table: bitwise a full pass
+    by induction, given a sound frontier and tables of this revision.
+
+    Stale serve (``stale``: K recorded [n*B, F_l] halo tables): every
+    layer reads its halo rows from the table instead of the exchange;
+    local rows read the current ``h``. Nothing crosses a wire, so
+    ``halo_quant`` does not apply.
     """
     device = h.device
     exchange, use_kernels = _resolve(kind, pg, exchange, aggregation,
                                      halo_quant, device)
     if exchange not in ("halo", "allgather"):
         raise ValueError(exchange)
+    frontier = dirty is not None
+    if frontier and kind not in KERNEL_KINDS:
+        raise ValueError(
+            f"frontier execution supports kinds {KERNEL_KINDS} (static-sum "
+            f"aggregation); {kind!r} re-weights edges per layer")
+    if stale is not None and len(stale) != len(params):
+        raise ValueError(
+            f"stale serve needs one halo table per layer: got "
+            f"{len(stale)} tables for {len(params)} layers")
     if h.ndim == 3 and not use_kernels:
-        return torch.stack([_run(params, kind, pg, hh, exchange,
-                                 aggregation, halo_quant) for hh in h])
+        per = [_run_layers(params, kind, pg, hh, exchange, aggregation,
+                           halo_quant, dirty, cached, stale) for hh in h]
+        return [torch.stack(layer) for layer in zip(*per)]
     lay = _layout(pg, device)
     edges = _edges(pg, device, exchange, kind)
     if use_kernels:
         local, halo = _folded_csrs(pg, device)
     _, layer_fn = LAYER_FNS[kind]
+    outs = []
     for li, p in enumerate(params):
         last = li == len(params) - 1
+        halo_l = None if stale is None else stale[li]
         if use_kernels:
-            a_sum = _kernel_sum(pg, h, lay, local, halo, halo_quant)
-            h = apply_layer_with_sum(kind, p, h, edges, a_sum, last=last)
+            subsets = merge = None
+            if frontier:
+                blocks = _dirty_blocks(pg, local, dirty[li])
+                subsets = (row_subset(local.rows, blocks),
+                           row_subset(halo.rows, blocks))
+                merge = _block_rows(pg, local, subsets[0])
+            a_sum = _kernel_sum(pg, h, lay, local, halo, halo_quant,
+                                subsets, halo_l)
+            h_new = apply_layer_with_sum(kind, p, h, edges, a_sum,
+                                         last=last)
         else:
-            h_src = h if exchange == "allgather" else torch.cat(
-                [h, h[lay.boundary_index] * lay.boundary_mask])
+            edges_l, merge = edges, None
+            if frontier:
+                merge = torch.as_tensor(dirty[li], device=device)
+                edges_l = edges.into(merge)
+            if exchange == "allgather":
+                h_src = h
+            else:
+                hb = (h[lay.boundary_index] * lay.boundary_mask
+                      if halo_l is None else halo_l)
+                h_src = torch.cat([h, hb])
             kwargs = {"activation": None} if last else {}
-            h = layer_fn(p, h, edges, h_src=h_src, **kwargs)
-        h = h * lay.vertex_mask   # keep padded rows at zero
-    return h
+            h_new = layer_fn(p, h, edges_l, h_src=h_src, **kwargs)
+        h_new = h_new * lay.vertex_mask   # keep padded rows at zero
+        h = (h_new if merge is None
+             else torch.where(merge[:, None], h_new, cached[li]))
+        outs.append(h)
+    return outs
+
+
+def _run(params, kind: str, pg: PartitionedGraph, h: torch.Tensor,
+         exchange: str, aggregation: str, halo_quant: bool) -> torch.Tensor:
+    """The K-layer BSP forward's folded output (``_run_layers``' last)."""
+    return _run_layers(params, kind, pg, h, exchange, aggregation,
+                       halo_quant)[-1]
+
+
+def _dirty_blocks(pg: PartitionedGraph, local: _FoldedCsr,
+                  dirty: np.ndarray) -> np.ndarray:
+    """The folded kernel-output row blocks holding a dirty row: shard p's
+    slot s is output row p*out_rows + s of the local and halo launches."""
+    rows = np.flatnonzero(dirty)
+    p, s = rows // pg.slots, rows % pg.slots
+    return np.unique((p * local.out_rows + s) // BLOCK)
+
+
+def _block_rows(pg: PartitionedGraph, local: _FoldedCsr,
+                subset: RowSubset) -> torch.Tensor:
+    """bool[n*P]: the folded rows whose kernel-output block is in
+    ``subset`` (every row a frontier launch recomputed)."""
+    mask = subset.row_mask().reshape(pg.n, local.out_rows)[:, :pg.slots]
+    return mask.reshape(-1)
 
 
 def bsp_apply(params, kind: str, pg: PartitionedGraph,
@@ -726,27 +810,180 @@ def bsp_infer_many(params, kind: str, feats: np.ndarray,
     return out[:, _layout(pg, device).result_index].cpu().numpy()
 
 
-def _not_ported(name: str, item: str):
-    def entry(*args, **kwargs):
-        raise NotImplementedError(f"bsp.{name} is not ported yet: ROADMAP "
-                                  f"Queue 1 item {item}")
-    entry.__name__ = name
-    return entry
+def _unfold(pg: PartitionedGraph, outs: List[torch.Tensor]
+            ) -> List[np.ndarray]:
+    """Folded [.., n*P, F_l] tables -> numpy in original vertex order."""
+    idx = _layout(pg, outs[0].device).result_index
+    return [o[..., idx, :].cpu().numpy() for o in outs]
 
 
-bsp_infer_capture = _not_ported("bsp_infer_capture",
-                                "1, incremental frontier queries")
-bsp_infer_capture_many = _not_ported("bsp_infer_capture_many",
-                                     "1, incremental frontier queries")
-bsp_infer_frontier = _not_ported("bsp_infer_frontier",
-                                 "1, incremental frontier queries")
-bsp_infer_frontier_many = _not_ported("bsp_infer_frontier_many",
-                                      "1, incremental frontier queries")
-bsp_infer_stale = _not_ported("bsp_infer_stale", "2, fleet and stale halos")
-bsp_infer_stale_many = _not_ported("bsp_infer_stale_many",
-                                   "2, fleet and stale halos")
-build_halo_tables = _not_ported("build_halo_tables",
-                                "2, fleet and stale halos")
+def bsp_infer_capture(params, kind: str, g: Graph, assignment: np.ndarray,
+                      device: Union[str, torch.device] = "cuda",
+                      exchange: str = "halo",
+                      aggregation: str = "segment_sum",
+                      halo_quant: bool = False,
+                      pg: Optional[PartitionedGraph] = None
+                      ) -> List[np.ndarray]:
+    """``bsp_infer`` returning every layer: K arrays [V, F_l] in original
+    vertex order (the last is the plain ``bsp_infer`` output, bit for
+    bit). Feeds the Session's activation cache."""
+    device = torch.device(device)
+    if pg is None:
+        mode = resolve_aggregation(aggregation, kind, exchange=exchange,
+                                   device=device)
+        pg = build_partitioned(g, assignment, build_blocks=mode == "pallas")
+    else:
+        pg = pg.with_features(g.features)
+    h = torch.as_tensor(pg.feats, device=device).reshape(pg.n * pg.slots, -1)
+    return _unfold(pg, _run_layers(params, kind, pg, h, exchange,
+                                   aggregation, halo_quant))
+
+
+def bsp_infer_capture_many(params, kind: str, feats: np.ndarray,
+                           pg: PartitionedGraph,
+                           device: Union[str, torch.device] = "cuda",
+                           exchange: str = "halo",
+                           aggregation: str = "segment_sum",
+                           halo_quant: bool = False) -> List[np.ndarray]:
+    """Batched capture: [B, V, F] micro-batch -> K arrays [B, V, F_l]."""
+    h = _gathered_stack(torch.as_tensor(
+        pg.feature_stack(np.asarray(feats, np.float32)),
+        device=torch.device(device)))
+    return _unfold(pg, _run_layers(params, kind, pg, h, exchange,
+                                   aggregation, halo_quant))
+
+
+def build_halo_tables(pg: PartitionedGraph, layer_inputs) -> List[np.ndarray]:
+    """Pre-gathered per-layer halo tables for the stale-serve path.
+
+    ``layer_inputs[l]`` is the [V, F_l] table of layer ``l``'s INPUT
+    activations in original vertex order — layer 0's input is the raw
+    feature matrix, layer ``l>0``'s input is layer ``l-1``'s output (e.g.
+    from ``bsp_infer_capture``). Returns K ``[n*B, F_l]`` tables laid out
+    exactly like the exchange's halo table: row ``p*B + i`` carries
+    partition ``p``'s i-th boundary row times its mask, padded rows zero.
+    Pure data movement through part_of/slot_of (no arithmetic beyond the
+    mask the exchange applies too), so replaying a table built from the
+    same activations the fresh exchange shipped reproduces that exchange
+    bit for bit.
+    """
+    tables = []
+    brows = pg.boundary_rows.astype(np.int64)
+    for act in layer_inputs:
+        act = np.asarray(act, np.float32)
+        f = act.shape[-1]
+        shard = np.zeros((pg.n, pg.slots, f), np.float32)
+        shard[pg.part_of, pg.slot_of] = act
+        rows = np.take_along_axis(shard, brows[:, :, None], axis=1)
+        rows = rows * pg.boundary_mask[:, :, None]
+        tables.append(np.ascontiguousarray(
+            rows.reshape(pg.n * pg.boundary_slots, f)))
+    return tables
+
+
+def _stale_run(params, kind: str, pg: PartitionedGraph, h: torch.Tensor,
+               halo_tables, aggregation: str) -> torch.Tensor:
+    """The ``halo_async`` stale serve on the folded ``h``: cross-partition
+    reads come from the recorded per-layer ``halo_tables`` instead of an
+    exchange (``_run_layers``' ``stale``)."""
+    tables = [torch.as_tensor(np.asarray(t, np.float32), device=h.device)
+              for t in halo_tables]
+    return _run_layers(params, kind, pg, h, "halo_async", aggregation,
+                       False, stale=tables)[-1]
+
+
+def bsp_infer_stale(params, kind: str, feats: np.ndarray,
+                    pg: PartitionedGraph, halo_tables,
+                    device: Union[str, torch.device] = "cuda",
+                    aggregation: str = "segment_sum") -> np.ndarray:
+    """Stale-halo distributed inference -> [V, D] in original vertex order.
+
+    ``feats`` are the CURRENT [V, F] features (local reads stay fresh);
+    ``halo_tables`` the recorded per-layer exchange payloads
+    (``build_halo_tables``) a bounded-staleness serve may replay.
+    """
+    pg = pg.with_features(np.asarray(feats, np.float32))
+    h = torch.as_tensor(pg.feats, device=torch.device(device))
+    out = _stale_run(params, kind, pg, h.reshape(pg.n * pg.slots, -1),
+                     halo_tables, aggregation)
+    return _unfold(pg, [out])[0]
+
+
+def bsp_infer_stale_many(params, kind: str, feats: np.ndarray,
+                         pg: PartitionedGraph, halo_tables,
+                         device: Union[str, torch.device] = "cuda",
+                         aggregation: str = "segment_sum") -> np.ndarray:
+    """Batched stale-halo inference: [B, V, F] micro-batch -> [B, V, D];
+    every example shares the same recorded halo tables (graph state, not
+    per-request state)."""
+    h = _gathered_stack(torch.as_tensor(
+        pg.feature_stack(np.asarray(feats, np.float32)),
+        device=torch.device(device)))
+    return _unfold(pg, [_stale_run(params, kind, pg, h, halo_tables,
+                                   aggregation)])[0]
+
+
+def _scatter_frontier(pg: PartitionedGraph, rows_per_layer, cached_layers,
+                      device: torch.device):
+    """Global frontier/cache state -> folded operands: per layer a host
+    bool [n*P] dirty mask, and the cached [V, F_l] tables as folded
+    [n*P, F_l] tables on ``device``. Pure data movement through
+    part_of/slot_of, so the folded tables carry exactly the cached bits."""
+    dirty = []
+    for rows in rows_per_layer:
+        rows = np.asarray(rows, np.int64)
+        d = np.zeros(pg.n * pg.slots, bool)
+        d[pg.part_of[rows] * pg.slots + pg.slot_of[rows]] = True
+        dirty.append(d)
+    idx = _layout(pg, device).result_index
+    cached = []
+    for cl in cached_layers:
+        cl = torch.as_tensor(np.asarray(cl, np.float32), device=device)
+        t = cl.new_zeros((pg.n * pg.slots, cl.shape[-1]))
+        t[idx] = cl
+        cached.append(t)
+    return dirty, cached
+
+
+def bsp_infer_frontier(params, kind: str, feats: np.ndarray,
+                       pg: PartitionedGraph, rows_per_layer, cached_layers,
+                       device: Union[str, torch.device] = "cuda",
+                       exchange: str = "halo",
+                       aggregation: str = "segment_sum",
+                       halo_quant: bool = False) -> List[np.ndarray]:
+    """Frontier-restricted distributed inference.
+
+    ``rows_per_layer[l]`` are the global vertex ids layer ``l`` must
+    recompute (a sound closure from ``core.frontier``), ``cached_layers``
+    the last full pass's K [V, F_l] tables for THIS graph revision.
+    Returns the K merged tables in original vertex order; the last one is
+    bitwise a full ``bsp_infer`` pass.
+    """
+    device = torch.device(device)
+    pg = pg.with_features(np.asarray(feats, np.float32))
+    dirty, cached = _scatter_frontier(pg, rows_per_layer, cached_layers,
+                                      device)
+    h = torch.as_tensor(pg.feats, device=device).reshape(pg.n * pg.slots, -1)
+    return _unfold(pg, _run_layers(params, kind, pg, h, exchange,
+                                   aggregation, halo_quant, dirty, cached))
+
+
+def bsp_infer_frontier_many(params, kind: str, feats: np.ndarray,
+                            pg: PartitionedGraph, rows_per_layer,
+                            cached_layers,
+                            device: Union[str, torch.device] = "cuda",
+                            exchange: str = "halo",
+                            aggregation: str = "segment_sum",
+                            halo_quant: bool = False) -> List[np.ndarray]:
+    """Batched frontier pass over a stacked [B, V, F] micro-batch sharing
+    one (unioned) dirty frontier; returns K merged [B, V, F_l] stacks."""
+    device = torch.device(device)
+    dirty, cached = _scatter_frontier(pg, rows_per_layer, cached_layers,
+                                      device)
+    h = _gathered_stack(torch.as_tensor(
+        pg.feature_stack(np.asarray(feats, np.float32)), device=device))
+    return _unfold(pg, _run_layers(params, kind, pg, h, exchange,
+                                   aggregation, halo_quant, dirty, cached))
 
 
 def exchange_bytes(pg: PartitionedGraph, feature_dim: int,

@@ -158,32 +158,23 @@ def test_default_device_without_cuda_raises():
         Engine((tparams, "gcn")).compile(gt)
 
 
-@pytest.mark.parametrize("knob", ["staleness_bound", "validate",
-                                  "activation_cache", "failover",
-                                  "fail_nodes", "compile_fleet",
+@pytest.mark.parametrize("knob", ["validate", "failover", "fail_nodes",
                                   "server_faults"])
 def test_knobs_outside_the_slice_raise_not_implemented(knob):
     _, gt, _, tparams = _setup("gcn")
     model = (tparams, "gcn")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if knob == "staleness_bound":
-            Engine(model, device="cpu", exchange="halo_async",
-                   staleness_bound=2)
-        elif knob == "validate":
+        if knob == "validate":
             Engine(model, device="cpu", validate="warn")
         else:
             eng = Engine(model, device="cpu", compressor="none")
             plan = eng.compile(gt)
-            if knob == "activation_cache":
-                plan.session(activation_cache=True)
-            elif knob == "failover":
+            if knob == "failover":
                 plan.session().failover(None)
             elif knob == "fail_nodes":
                 eng.fail_nodes(plan, 0)
-            elif knob == "server_faults":
-                plan.server(faults=[("crash", 0.1, "A0")])
             else:
-                eng.compile_fleet(gt, {"a": (0.0, 0.0)})
+                plan.server(faults=[("crash", 0.1, "A0")])
 
 
 def test_from_plan_and_session_overrides():

@@ -18,7 +18,8 @@ PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_query.py",
-    ROOT / "scripts" / "phase2_kernels.py"]
+    ROOT / "scripts" / "phase2_kernels.py",
+    ROOT / "scripts" / "frontier_reach.py"]
 
 
 def _imported_roots(path: Path):
@@ -47,7 +48,8 @@ def test_port_has_the_slice_modules():
     mods = set(_modules())
     for m in ("api.registry", "api.plan", "api.engine", "api.session",
               "api.executors", "api.updates", "api.slo", "api.server",
-              "api.traces", "core.incremental", "gnn.graph", "gnn.datasets", "gnn.layers",
+              "api.traces", "api.fleet", "core.incremental",
+              "core.frontier", "gnn.graph", "gnn.datasets", "gnn.layers",
               "gnn.models", "core.profiler", "core.partition",
               "core.placement", "core.scheduler", "core.compression",
               "core.simulation", "kernels.gather_aggregate", "kernels.ref",

@@ -244,14 +244,32 @@ def test_with_features_keeps_the_device_operands(reference):
     assert all(pg.device_cache[k] is v for k, v in cached.items())
 
 
-def test_out_of_slice_mesh_entry_points_raise_not_implemented(reference):
-    for name in ("bsp_infer_capture", "bsp_infer_capture_many",
-                 "bsp_infer_frontier", "bsp_infer_frontier_many",
-                 "bsp_infer_stale", "bsp_infer_stale_many",
-                 "build_halo_tables"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(tbsp, name)()
-    backend = EXECUTORS.resolve("mesh-bsp")
-    for name in ("run_layers", "run_frontier", "run_stale"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(backend, name)(None)
+def test_capture_entry_points_return_the_plain_run_bitwise(reference):
+    """``bsp_infer_capture(_many)`` (and ``run_layers`` over them) return
+    every layer; the last is bitwise the plain ``bsp_infer(_many)`` on
+    both aggregation paths, with and without the DAQ wire."""
+    g = _graph()
+    params = list(_params(reference, "sage"))
+    rng = np.random.default_rng(4)
+    stack = np.stack([g.features, g.features + rng.normal(
+        scale=0.1, size=g.features.shape).astype(np.float32)])
+    for agg, hq in (("pallas", True), ("pallas", False),
+                    ("segment_sum", False)):
+        sess = _session(reference, "sage", "daq" if hq else "none", agg,
+                        "halo")
+        pg = sess.partitioned()
+        assign = sess.placement.assignment
+        kw = dict(device="cpu", aggregation=agg, halo_quant=hq)
+        layers = tbsp.bsp_infer_capture(params, "sage", g, assign, pg=pg,
+                                        **kw)
+        assert [a.shape for a in layers] == [(g.num_vertices, 16),
+                                             (g.num_vertices, 8)]
+        assert np.array_equal(layers[-1], tbsp.bsp_infer(
+            params, "sage", g, assign, pg=pg, **kw))
+        many = tbsp.bsp_infer_capture_many(params, "sage", stack, pg, **kw)
+        assert np.array_equal(many[-1], tbsp.bsp_infer_many(
+            params, "sage", stack, pg, **kw))
+        backend = EXECUTORS.resolve("mesh-bsp")
+        got = backend.run_layers(sess.plan, stack[1], assign, pg, "halo",
+                                 aggregation=agg)
+        assert np.array_equal(got[-1], sess.execute(stack[1]))
