@@ -172,6 +172,38 @@ Phases, in order; any failed check raises and the script exits non-zero:
               busiest site set down halfway: zero drops, every response
               bitwise its tier's session, exact launches, ``summarize``
               printed.
+  3h. faults, verifier  at full SIoT, GCN and SAGE [52, 64, 2] on the
+              phase-3 (``sim``) and phase-3b (``mesh-bsp``, DAQ halo wire)
+              plans, ``exchange="halo_async"`` with bound 2, every plan of
+              the phase (and of phases 3 and 3b) compiled with
+              ``validate="strict"``: ``Engine.fail_nodes(plan,
+              "fog2(B)")`` in ``mode="repair"`` and ``"recompile"`` (the
+              fault checks on its ``FailoverAudit`` silent; a recompile
+              plan's host layout ``==`` a fresh compile on the survivors
+              and its execute bitwise that plan's; on ``sim`` a repair
+              plan's execute bitwise the pre-crash one; on the mesh within
+              the DAQ bar of the float64 forward, two executes equal, a
+              batch of 8 bitwise 8 serial executes; each plan's launches
+              of an execute and a batch those ``kernel_lint.
+              launches_for_plan`` predicts; host ms of ``fail_nodes`` and
+              of the first execute after it). Chaos through ``Server``: 32
+              Poisson requests at phase 3f's rate on the mesh under a
+              stale ride-through loss, a retried loss, a straggler on
+              fog1(B), a crash of fog2(B) and its recover; the reference's
+              seeded chaos property (tests/test_faults.py:370) on ``sim``
+              (kernel path and segment sum) and ``single``: 0 drops,
+              availability 1.0, every batch's launches exact and its
+              outputs bitwise the fresh serve (or, stale, the replay) of
+              the plan that served it, untagged responses bitwise the
+              fault-free replay's, every response's tags those of a CPU
+              replay of the same schedule (host work only). A recover
+              after a structural update: the restored plan bitwise a fresh
+              compile of the current graph. Phase 3g's fleet with a crash
+              and recover in "north": 0 drops, responses bitwise their
+              tiers' sessions. The verifier: ``verify_plan`` host ms on
+              the four plans, every family silent, and a corrupted copy
+              (a dropped halo row) refused. One ``{"fault_path": ...}``
+              JSON line.
   4. report   one ``{"kernels": [...]}`` JSON line (all seven kernels, the
               block kernels with their subset cases and subset launches
               by path), the
@@ -186,6 +218,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
 Without a CUDA card, or without the repository's ``src/`` beside it, the
 script exits non-zero before printing any result.
 """
+import copy
 import dataclasses
 import json
 import statistics
@@ -287,7 +320,13 @@ PATH_KERNELS = {"sim": ("block_spmm", "block_spmm_batched"),
                 "frontier-sim-segment": ("segment_sum",),
                 "frontier-mesh-segment": ("segment_sum",),
                 "stale": ("block_spmm", "dequant_spmm", "segment_sum"),
-                "fleet": ("block_spmm", "block_spmm_batched")}
+                "fleet": ("block_spmm", "block_spmm_batched"),
+                "failover": MESH_KERNELS,
+                "chaos-mesh": ("block_spmm_batched", "dequant_spmm_batched"),
+                "chaos-property": ("block_spmm", "segment_sum"),
+                "recover-update": ("block_spmm_batched",
+                                   "dequant_spmm_batched"),
+                "fleet-faults": ("block_spmm",)}
 #: The block kernels whose wrappers also count their row-subset launches
 #: (``subset_launches``), the launches of a frontier query.
 SUBSET_KERNELS = MESH_KERNELS
@@ -726,7 +765,7 @@ def serve(Engine, models, g, kind: str, ga):
     k = len(params)
     t0 = time.perf_counter()
     plan = Engine((params, kind), executor="sim", aggregation="pallas",
-                  device="cuda").compile(g)
+                  validate="strict", device="cuda").compile(g)
     compile_s = time.perf_counter() - t0
     sess = plan.session()
 
@@ -840,7 +879,8 @@ def segment_gates(Engine, models, g, kind: str, executor: str, sg) -> dict:
     params = models.gnn_init(gen, kind, [g.feature_dim, DIMS_HIDDEN,
                                          DIMS_OUT])
     plan = Engine((params, kind), executor=executor,
-                  aggregation="segment_sum", device="cuda").compile(g)
+                  aggregation="segment_sum", validate="strict",
+                  device="cuda").compile(g)
     sess = plan.session()
     per_execute = plan.model.num_layers * SEGMENT_SUMS[kind]
     what = f"{kind} {executor} segment_sum"
@@ -907,7 +947,8 @@ def mesh_plan(Engine, models, g, kind: str):
                                          DIMS_OUT])
     t0 = time.perf_counter()
     plan = Engine((params, kind), executor="mesh-bsp", aggregation="pallas",
-                  compressor="daq", device="cuda").compile(g)
+                  compressor="daq", validate="strict",
+                  device="cuda").compile(g)
     return plan, time.perf_counter() - t0
 
 
@@ -2515,14 +2556,15 @@ def stale_path(Engine, models, g, bsp, api, drive_each, stream) -> dict:
     return rec
 
 
-def fleet_path(Engine, models, g, api, drive_each) -> dict:
+def fleet_path(Engine, models, g, api, drive_each) -> tuple:
     """Phase 3g, the fleet: ``compile_fleet`` with two sites plus the cloud
     (GCN, ``sim``, the kernel path, ``halo_async`` with STALE_BOUND), a
     ``FleetServer`` replay of a geo-tagged Poisson trace with per-request
     feature noise, drained a third of the way through, the nearest site of
     most requests set down halfway with requests pending there; zero
     drops, exact launches per site's batches, every response bitwise a
-    session of its serving tier on its features."""
+    session of its serving tier on its features. Returns the record and
+    the fleet."""
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = models.gnn_init(gen, "gcn", [g.feature_dim, DIMS_HIDDEN,
@@ -2593,6 +2635,674 @@ def fleet_path(Engine, models, g, api, drive_each) -> dict:
         f"{summary['staleness_histogram']}; every response bitwise its "
         f"tier's session; replay {wall_s:.2f} s, the fleet's part "
         f"{rec['phase_s']:.1f} s; launches exact")
+    return rec, fleet
+
+
+# ---------------------------------------------------------------------------
+# Phase 3h, node-level fault tolerance and the static verifier
+# ---------------------------------------------------------------------------
+
+#: The fog phase 3h crashes (fog2(B) of "1A+4B+1C") and the one it slows.
+CRASH_NODE = "fog2(B)"
+SLOW_NODE = "fog1(B)"
+#: Requests of each phase 3h replay, and tests/test_faults.py:370's chaos
+#: property: the schedule's rates, outage and seed (over the trace's span).
+FAULT_REQUESTS = 32
+CHAOS = dict(crash_rate=1.5, loss_rate=2.0, straggler_rate=1.0,
+             mean_outage=0.3, seed=11)
+FAULT_KINDS = ("gcn", "sage")
+
+
+def fault_plans(Engine, models, g) -> dict:
+    """Phase 3h's base plans: GCN and SAGE [52, 64, 2] on the phase-3 plan
+    (``sim``) and the phase-3b plan (``mesh-bsp``, the DAQ halo wire), the
+    kernel path, ``exchange="halo_async"`` with STALE_BOUND, compiled with
+    ``validate="strict"``; (plan, compile s) by (kind, executor)."""
+    return {(kind, ex): gnn_plan(Engine, models, g, kind, executor=ex,
+                                 aggregation="pallas", exchange="halo_async",
+                                 staleness_bound=STALE_BOUND,
+                                 validate="strict")
+            for kind in FAULT_KINDS for ex in ("sim", "mesh-bsp")}
+
+
+def lint_counts(kernel_lint, plan, batched: bool) -> dict:
+    """The launches ``kernel_lint.launches_for_plan`` predicts for one
+    execute (``batched=False``) or one ``execute_many`` of BATCH."""
+    want = dict.fromkeys(REPLACES, 0)
+    want.update(kernel_lint.launch_counts(
+        s for s in kernel_lint.launches_for_plan(plan, BATCH)
+        if (s.batch is not None) == batched))
+    return want
+
+
+def timed_ms(fn):
+    def run():
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+    return run
+
+
+def failover_path(Engine, models, g, analysis, api, plans,
+                  drive_each) -> list:
+    """Phase 3h, failover plans: ``Engine.fail_nodes(plan, CRASH_NODE)`` in
+    repair mode for every base plan and in recompile mode for GCN's
+    (strict validation at its exit), the
+    fault family on its ``FailoverAudit`` (0 errors); a recompile plan's
+    host layout ``==`` a fresh compile on the survivors and its execute
+    bitwise that plan's; on ``sim`` a repair plan's execute bitwise the
+    pre-crash one; on the mesh a repair plan within the DAQ bar of the
+    float64 forward (gating DAQ_GATED_KINDS), two executes equal and an
+    ``execute_many`` of BATCH bitwise BATCH serial executes. Each plan's
+    first execute, second execute and batch are driven with the counts
+    set to 0 just before each, and each must equal what
+    ``kernel_lint.launches_for_plan`` predicts for the plan. Reports the
+    host ms of ``fail_nodes`` and of the first execute after it."""
+    from repro_torch.analysis import kernel_lint
+    recs, runs, cases = [], [], []
+    for (kind, ex), (plan, compile_s) in plans.items():
+        eng = Engine.from_plan(plan)
+        base = plan.session(staleness_bound=0)
+        x = base.collect()
+        rng = np.random.default_rng(7)
+        stack = np.stack([base.collect(g.features + rng.normal(
+            scale=0.1, size=g.features.shape)) for _ in range(BATCH)])
+        before = base.execute(x)
+        # A recompile's layout depends on the graph and the survivors, not
+        # on the model: GCN's covers SAGE's.
+        for mode in ("repair", "recompile") if kind == "gcn" else (
+                "repair",):
+            t0 = time.perf_counter()
+            plan2 = eng.fail_nodes(plan, CRASH_NODE, mode=mode)
+            fail_ms = (time.perf_counter() - t0) * 1e3
+            audit = api.FailoverAudit(plan=plan2, base_plan=plan,
+                                      crashed=(CRASH_NODE,))
+            report = analysis.run_checks(analysis.AnalysisContext(
+                plan=plan2, failover=audit), families=("fault",))
+            if report.errors or plan2.partitioned.device_cache:
+                raise AssertionError(f"failover {kind} {ex} {mode}: "
+                                     f"{report.format()}")
+            sess = plan2.session(staleness_bound=0)
+            case = {"kind": kind, "executor": ex, "mode": mode,
+                    "plan": plan2, "base": plan, "x": x, "stack": stack,
+                    "before": before, "fail_ms": fail_ms,
+                    "fault_checks": len(report.ran)}
+            runs += [timed_ms(lambda s=sess: s.execute(x)),
+                     timed_ms(lambda s=sess: s.execute(x)),
+                     timed_ms(lambda s=sess: s.execute_many(stack))]
+            cases.append(case)
+    outs, counts = drive_each("failover", runs)
+    for i, case in enumerate(cases):
+        (first, first_ms), (again, _), (many, batch_ms) = outs[3 * i:3 * i
+                                                                + 3]
+        plan2, kind, ex, mode = (case["plan"], case["kind"],
+                                 case["executor"], case["mode"])
+        what = f"failover {kind} {ex} {mode}"
+        for j, batched in ((0, False), (1, False), (2, True)):
+            check_launches(f"{what} run {j}", counts[3 * i + j],
+                           lint_counts(kernel_lint, plan2, batched))
+        report = analysis.run_checks(plan2, families=("kernel", "cache"))
+        if report.errors:
+            raise AssertionError(f"{what}: {report.format()}")
+        if not np.array_equal(first, again):
+            raise AssertionError(f"{what}: two executes differ")
+        if not all(np.array_equal(m, case_exec) for m, case_exec in
+                   zip(many, (plan2.session(staleness_bound=0).execute(s)
+                              for s in case["stack"]))):
+            raise AssertionError(f"{what}: the batch is not bitwise "
+                                 f"{BATCH} serial executes")
+        rec = {"kind": kind, "executor": ex, "mode": mode,
+               "fogs": plan2.num_fogs, "fail_nodes_ms": case["fail_ms"],
+               "first_execute_ms": first_ms, "batch_ms": batch_ms,
+               "fault_checks": case["fault_checks"],
+               "launches": counts[3 * i]}
+        if mode == "recompile":
+            survivors = dataclasses.replace(
+                plan2.cluster, nodes=[n for n in case["base"].cluster.nodes
+                                      if n.name != CRASH_NODE])
+            cfg = case["base"].config
+            fresh = Engine(case["base"].model, survivors,
+                           executor=cfg.executor, aggregation="pallas",
+                           compressor=cfg.compressor, exchange=cfg.exchange,
+                           staleness_bound=cfg.staleness_bound,
+                           validate="strict", device="cuda").compile(g)
+            same = (np.array_equal(plan2.placement.assignment,
+                                   fresh.placement.assignment)
+                    and all(np.array_equal(getattr(plan2.partitioned, f),
+                                           getattr(fresh.partitioned, f))
+                            for f in ("part_of", "slot_of", "senders_halo",
+                                      "boundary_rows", "boundary_mask")))
+            if not same:
+                raise AssertionError(f"{what}: the host layout is not a "
+                                     f"fresh compile's on the survivors")
+            if not np.array_equal(first, fresh.session(
+                    staleness_bound=0).execute(case["x"])):
+                raise AssertionError(f"{what}: not bitwise a fresh compile")
+            del fresh
+        elif ex == "sim":
+            if not np.array_equal(first, case["before"]):
+                raise AssertionError(f"{what}: not bitwise the pre-crash "
+                                     f"execute")
+        else:
+            c = daq_errors(first, f64_forward(models, plan2, kind)(
+                case["x"]))
+            rec["daq_vs_f64"] = c
+            if kind in DAQ_GATED_KINDS and c["ratio"] > 1:
+                raise AssertionError(f"{what}: DAQ wire beyond the "
+                                     f"reference's bar: {c}")
+        log(f"  {what}: {plan2.num_fogs} fogs, fail_nodes "
+            f"{case['fail_ms']:.1f} ms, first execute {first_ms:.1f} ms, "
+            f"batch {batch_ms:.1f} ms"
+            + (f", DAQ vs f64 ratio {rec['daq_vs_f64']['ratio']:.3g}"
+               if "daq_vs_f64" in rec else "") + "; launches as linted")
+        recs.append(rec)
+    return recs
+
+
+def recorded_batches(sess, wrappers):
+    """Wrap ``sess.execute_many`` (what the Server calls once a batch) to
+    record each batch's plan, staleness, size, launches and output."""
+    calls = []
+    orig = sess.execute_many
+
+    def execute_many(feats, **kw):
+        before = {n: w.launches for n, w in wrappers.items()}
+        out = orig(feats, **kw)
+        calls.append({"plan": sess.plan, "staleness": sess.last_staleness,
+                      "b": len(feats), "out": out, "launches": {
+                          n: w.launches - before[n]
+                          for n, w in wrappers.items()}})
+        return out
+    sess.execute_many = execute_many
+    return calls
+
+
+class host_only:
+    """Within the block, the port's block-CSR products return zeros on the
+    CPU instead of running their plain versions: a replay's host decisions
+    (simulated clock, recovery tiers, staleness) read no product, so a CPU
+    replay of full SIoT costs only its host work."""
+
+    def __init__(self, bsp, ops):
+        self.bsp, self.ops = bsp, ops
+
+    def __enter__(self):
+        class Zero:
+            def aggregate_traced(self, h, subset=None):
+                return torch.zeros_like(h)
+        self.saved = (self.bsp._folded_csrs, self.bsp._kernel_sum,
+                      self.ops.block_csr_for)
+        self.bsp._folded_csrs = lambda pg, device: (None, None)
+        self.bsp._kernel_sum = lambda pg, h, *a, **kw: torch.zeros_like(h)
+        self.ops.block_csr_for = lambda *a, **kw: Zero()
+        return self
+
+    def __exit__(self, *exc):
+        (self.bsp._folded_csrs, self.bsp._kernel_sum,
+         self.ops.block_csr_for) = self.saved
+
+
+def cpu_copy(plan):
+    """``plan``'s host state on the CPU: the same graph, placement and
+    layout (an empty device cache), the model and edge list copied to
+    the CPU, and the cluster's nodes copied (stragglers mutate a node's
+    load in place)."""
+    edges = type(plan.edges)(*(t.cpu() if torch.is_tensor(t) else t
+                               for t in plan.edges))
+    return dataclasses.replace(
+        plan, model=plan.model.to("cpu"), edges=edges,
+        cluster=copy.deepcopy(plan.cluster),
+        config=plan.config.with_overrides(device="cpu"),
+        partitioned=dataclasses.replace(plan.partitioned, device_cache={}))
+
+
+def cpu_replay(cpu_plan, trace, faults, bsp, ops, **session_kw) -> list:
+    """A CPU replay of ``trace`` under ``faults`` (None: fault-free) on a
+    ``cpu_copy``, host work only (see ``host_only``)."""
+    with host_only(bsp, ops):
+        return cpu_plan.server(max_batch=SERVER_MAX_BATCH, faults=faults,
+                               **session_kw).replay(trace)
+
+
+def loads_kept(plan, fn):
+    """``fn`` with the cluster's background loads put back after it (a
+    straggler still running when a replay ends keeps its extra load)."""
+    def run():
+        loads = [n.background_load for n in plan.cluster.nodes]
+        try:
+            return fn()
+        finally:
+            for n, load in zip(plan.cluster.nodes, loads):
+                n.background_load = load
+    return run
+
+
+def fault_tags(r) -> tuple:
+    return (r.request_id, r.recovered, r.retries, r.capacity, r.staleness)
+
+
+def fresh_and_stale(bsp, plan) -> tuple:
+    """(fresh, stale) embeddings of ``plan`` for its stored features: a
+    fresh serve's, and the replay of the halo tables that serve records
+    (``bsp_infer_stale`` over ``build_halo_tables``; mesh plans)."""
+    sess = plan.session(staleness_bound=0)
+    x = sess.collect()
+    fresh = sess.execute(x)
+    if plan.config.executor != "mesh-bsp":
+        return fresh, fresh
+    backend = sess.resolve_executor()
+    layers = backend.run_layers(plan, x, plan.placement.assignment,
+                                plan.partitioned, plan.config.exchange,
+                                aggregation="pallas")
+    tables = bsp.build_halo_tables(plan.partitioned, [x] + layers[:-1])
+    stale = bsp.bsp_infer_stale(list(plan.model.params), plan.model.kind, x,
+                                plan.partitioned, tables, device="cuda",
+                                aggregation="pallas")
+    return fresh, stale
+
+
+def check_batches(what: str, calls, kernel_lint, bsp, k: int,
+                  segment: bool = False) -> dict:
+    """Gates of a replay's recorded batches: each batch's launches exact
+    (a fresh mesh serve what ``launches_for_plan`` predicts for a batch, a
+    stale one 2K ``block_spmm_batched``; a single-program batch K
+    ``block_spmm``, batched for two or more; a segment-sum batch of b
+    b * K segment sums) and each output bitwise the fresh (staleness 0)
+    or stale replay of the plan that served it. Returns the counts of
+    fresh and stale examples and of plans seen."""
+    refs, n_fresh, n_stale = {}, 0, 0
+    for i, c in enumerate(calls):
+        plan, b, s = c["plan"], c["b"], c["staleness"]
+        mesh = plan.config.executor == "mesh-bsp"
+        want = dict.fromkeys(REPLACES, 0)
+        if segment:
+            want["segment_sum"] = b * k * SEGMENT_SUMS[plan.model.kind]
+        elif mesh and s == 0:
+            want = lint_counts(kernel_lint, plan, True)
+        elif mesh:
+            want["block_spmm_batched"] = 2 * k
+        else:
+            want["block_spmm" + ("" if b == 1 else "_batched")] = k
+        check_launches(f"{what} batch {i}", c["launches"], want)
+        if id(plan) not in refs:
+            refs[id(plan)] = fresh_and_stale(bsp, plan) if not segment \
+                else (plan.session(staleness_bound=0,
+                                   aggregation="segment_sum").query()
+                      .embeddings,) * 2
+        fresh, stale = refs[id(plan)]
+        want_emb = stale if (mesh and s > 0) else fresh
+        for e in c["out"]:
+            if not np.array_equal(e, want_emb):
+                kind = "stale replay" if mesh and s else "fresh serve"
+                raise AssertionError(f"{what} batch {i} (staleness {s}, "
+                                     f"{plan.provenance}): not bitwise the "
+                                     f"{kind} of its plan")
+        n_fresh += b * (s == 0)
+        n_stale += b * (s > 0)
+    return {"fresh": n_fresh, "stale": n_stale, "plans": len(refs)}
+
+
+def mesh_schedule(api, free, span: float):
+    """Phase 3h's schedule on the mesh, placed on the fault-free replay
+    ``free`` of the same trace (the clocks agree up to the first event):
+    a ``halo_loss`` past ``max_retries`` (6 lost rounds, no node named) at
+    the service instant of the first batch whose predecessor left the
+    halo store able to serve once more stale (tier 2), then 2 lost rounds
+    (tier 1), a 3x straggler on SLOW_NODE, a crash of CRASH_NODE and its
+    recover (tier 3 and the restore)."""
+    batches = sorted({(r.batch_index, r.service_start, r.staleness)
+                      for r in free})
+    j = next(i for i in range(1, len(batches))
+             if batches[i - 1][2] + 1 <= STALE_BOUND
+             and batches[i][1] > batches[i - 1][1])
+    t_stale = batches[j][1]
+    t_retry = batches[min(j + 2, len(batches) - 1)][1] + 1e-6
+    F = api.faults.Fault
+    return api.faults.FaultSchedule([
+        F(t_stale, "halo_loss", losses=6),
+        F(max(t_retry, t_stale + 1e-6), "halo_loss", losses=2),
+        F(0.35 * span, "straggler", node=SLOW_NODE, duration=0.2 * span,
+          slowdown=3.0),
+        F(0.5 * span, "crash", node=CRASH_NODE),
+        F(0.8 * span, "recover", node=CRASH_NODE)])
+
+
+def chaos_mesh(Engine, api, bsp, ops, plans, drive_each, wrappers) -> dict:
+    """Phase 3h, the chaos replay on the mesh (GCN, ``halo_async`` with
+    STALE_BOUND, the DAQ wire): FAULT_REQUESTS Poisson requests at phase
+    3f's rate, first fault-free, then under ``mesh_schedule``; 0 drops,
+    availability 1.0, the four tier tags and a degraded window, the
+    session back on the original plan; every batch's launches exact and
+    its outputs bitwise the fresh serve or the stale replay of the plan
+    that served it; an untagged response bitwise the fault-free one at the
+    same staleness; every response's recovered / retries / capacity /
+    staleness those of a CPU replay of the same schedule and trace."""
+    from repro_torch.analysis import kernel_lint
+    plan = plans["gcn", "mesh-bsp"][0]
+    k = plan.model.num_layers
+    rate = server_rate(plan)
+    trace = api.traces.poisson(FAULT_REQUESTS, rate, seed=0)
+    span = max(r.arrival_time for r in trace)
+    cpu_plan = cpu_copy(plan)
+    free_srv = plan.server(max_batch=SERVER_MAX_BATCH)
+    free_calls = recorded_batches(free_srv.session, wrappers)
+    chaos_srv = [None]
+
+    def chaos():
+        t0 = time.perf_counter()
+        out = chaos_srv[0].replay(trace)
+        return out, time.perf_counter() - t0
+    state = {}
+
+    def free_run():
+        out, wall = replay_thunk(free_srv, trace)()[0::2]
+        sched = mesh_schedule(api, out, span)
+        srv = plan.server(max_batch=SERVER_MAX_BATCH, faults=sched)
+        state.update(sched=sched, calls=recorded_batches(srv.session,
+                                                         wrappers))
+        chaos_srv[0] = srv
+        return out, wall
+    outs, counts = drive_each("chaos-mesh", [free_run,
+                                             loads_kept(plan, chaos)])
+    (free, free_s), (out, chaos_s) = outs
+    srv, sched = chaos_srv[0], state["sched"]
+    summary = srv.summarize(out)
+    if len(out) != FAULT_REQUESTS or summary["availability"] != 1.0:
+        raise AssertionError(f"chaos mesh: {len(out)} responses of "
+                             f"{FAULT_REQUESTS}, {summary}")
+    tags = [r.recovered for r in out]
+    for tag in ("stale", "retry", "failover", "restored"):
+        if tag not in tags:
+            raise AssertionError(f"chaos mesh: no response tagged {tag!r} "
+                                 f"({tags})")
+    if "degraded" not in [r.capacity for r in out] or \
+            srv.session.plan is not plan or srv._crashed:
+        raise AssertionError("chaos mesh: no degraded window, or not "
+                             "restored onto the original plan")
+    stats = {"free": check_batches("chaos mesh (fault-free)", free_calls,
+                                   kernel_lint, bsp, k),
+             "chaos": check_batches("chaos mesh", state["calls"],
+                                    kernel_lint, bsp, k)}
+    by_id = {r.request_id: r for r in free}
+    same = 0
+    for r in out:
+        ref = by_id[r.request_id]
+        if r.recovered is None and r.capacity == "full" and \
+                r.staleness == ref.staleness:
+            same += 1
+            if not np.array_equal(r.embeddings, ref.embeddings):
+                raise AssertionError(f"chaos mesh: untagged response "
+                                     f"{r.request_id} is not the "
+                                     f"fault-free one")
+    if not same:
+        raise AssertionError("chaos mesh: no untagged response to compare")
+    t0 = time.perf_counter()
+    cpu = [fault_tags(r) for r in cpu_replay(cpu_plan, trace, sched, bsp,
+                                             ops)]
+    cpu_s = time.perf_counter() - t0
+    if cpu != [fault_tags(r) for r in out]:
+        raise AssertionError(f"chaos mesh: tags differ from the CPU "
+                             f"replay: {cpu} vs "
+                             f"{[fault_tags(r) for r in out]}")
+    rec = {"rate_rps": rate, "schedule": [dataclasses.astuple(f)
+                                          for f in sched],
+           "fault_free_replay_s": free_s, "replay_s": chaos_s,
+           "cpu_replay_s": cpu_s, "replayed_in_flight": srv.replayed,
+           "tags": {t: tags.count(t) for t in set(tags) if t},
+           "degraded": sum(r.capacity == "degraded" for r in out),
+           "untagged_compared": same, "batches": stats,
+           "launches": counts[1],
+           **{key: summary[key] for key in
+              ("availability", "retried", "recovered", "latency_p50_s",
+               "latency_p95_s", "throughput_rps", "makespan_s")}}
+    log(f"  chaos mesh: {FAULT_REQUESTS} requests at {rate:.2f}/s, "
+        f"schedule {sched!r}; tags {rec['tags']}, {rec['degraded']} "
+        f"degraded, {srv.replayed} in flight replayed; replay {chaos_s:.2f} "
+        f"s (fault-free {free_s:.2f} s); every batch bitwise its plan's "
+        f"fresh serve or stale replay ({stats['chaos']}), {same} untagged "
+        f"== fault-free, tags == the CPU replay ({cpu_s:.1f} s); simulated "
+        f"p95 {rec['latency_p95_s'] * 1e3:.1f} ms; launches exact")
+    return rec
+
+
+def chaos_property(api, bsp, ops, plans, drive_each, wrappers) -> list:
+    """Phase 3h, tests/test_faults.py:370's seeded chaos property on the
+    phase-3 plan (GCN): its trace (FAULT_REQUESTS arrivals 0.03 s apart)
+    and ``FaultSchedule.random(..., **CHAOS)`` over the fault-free
+    replay's simulated makespan, replayed on ``sim`` (the kernel path and
+    ``aggregation="segment_sum"``) and ``single`` (segment sum): 0 drops,
+    availability 1.0, every batch's launches exact and its outputs
+    bitwise the fresh serve of the plan that served it (single-program
+    numerics do not depend on the assignment), the tags those of a CPU
+    replay of the same executor."""
+    from repro_torch.analysis import kernel_lint
+    plan = plans["gcn", "sim"][0]
+    k = plan.model.num_layers
+    trace = [api.Request(arrival_time=i * 0.03)
+             for i in range(FAULT_REQUESTS)]
+    cpu_plan = cpu_copy(plan)
+    span = max(r.finish_time for r in cpu_replay(cpu_plan, trace, None,
+                                                 bsp, ops))
+    sched = api.faults.FaultSchedule.random(
+        [n.name for n in plan.cluster.nodes], horizon=span, **CHAOS)
+    cases = [("sim", "pallas"), ("sim", "segment_sum"),
+             ("single", "segment_sum")]
+    runs, servers, calls = [], [], []
+    for ex, agg in cases:
+        srv = plan.server(max_batch=SERVER_MAX_BATCH, faults=sched,
+                          executor=ex, aggregation=agg)
+        servers.append(srv)
+        calls.append(recorded_batches(srv.session, wrappers))
+        runs.append(loads_kept(plan, replay_thunk(srv, trace)))
+    outs, counts = drive_each("chaos-property", runs)
+    cpu = {ex: [fault_tags(r) for r in cpu_replay(
+        cpu_plan, trace, sched, bsp, ops, executor=ex)]
+        for ex in ("sim", "single")}
+    recs = []
+    for (ex, agg), srv, c, (out, _, wall), n in zip(cases, servers, calls,
+                                                    outs, counts):
+        what = f"chaos property {ex} {agg}"
+        summary = srv.summarize(out)
+        if len(out) != FAULT_REQUESTS or summary["availability"] != 1.0:
+            raise AssertionError(f"{what}: {len(out)} responses, {summary}")
+        stats = check_batches(what, c, kernel_lint, bsp, k,
+                              segment=agg == "segment_sum")
+        if cpu[ex] != [fault_tags(r) for r in out]:
+            raise AssertionError(f"{what}: tags differ from the CPU replay")
+        tags = [r.recovered for r in out]
+        rec = {"executor": ex, "aggregation": agg, "replay_s": wall,
+               "horizon_s": span, "events": sched.counts(),
+               "tags": {t: tags.count(t) for t in set(tags) if t},
+               "degraded": sum(r.capacity == "degraded" for r in out),
+               "batches": stats, "launches": n,
+               **{key: summary[key] for key in
+                  ("availability", "retried", "recovered", "latency_p95_s",
+                   "throughput_rps")}}
+        log(f"  {what}: {sched!r} over {span:.2f} s; tags {rec['tags']}, "
+            f"{rec['degraded']} degraded; replay {wall:.2f} s; every batch "
+            f"bitwise its plan's serve; tags == the CPU replay; launches "
+            f"exact")
+        recs.append(rec)
+    return recs
+
+
+def recover_after_update(Engine, api, bsp, plans, drive_each,
+                         wrappers) -> dict:
+    """Phase 3h, a recover after a graph update (the branch the JAX
+    reference cannot run): on the mesh plan (GCN) CRASH_NODE crashes, a
+    structural ``GraphDelta`` (2 sensors added with 6 edges, 8 edges
+    removed) lands while it is down, then it recovers. The restored plan
+    is a full-cluster plan of the current graph whose host layout ``==``
+    a fresh compile's and whose execute is bitwise that compile's; every
+    batch's launches exact and outputs bitwise its plan's fresh serve or
+    stale replay."""
+    from repro_torch.analysis import kernel_lint
+    plan = plans["gcn", "mesh-bsp"][0]
+    g = plan.graph
+    k = plan.model.num_layers
+    rate = server_rate(plan)
+    trace = list(api.traces.poisson(FAULT_REQUESTS // 2, rate, seed=1))
+    span = max(r.arrival_time for r in trace)
+    rng = np.random.default_rng(17)
+    v, f = g.num_vertices, g.feature_dim
+    hubs = rng.choice(v, 6, replace=False)
+    cut = rng.choice(g.num_edges, 8, replace=False)
+    delta = api.GraphDelta(
+        add_features=g.features[rng.choice(v, 2, replace=False)],
+        add_edges=[(v + i % 2, int(h)) for i, h in enumerate(hubs)],
+        remove_edges=[(int(g.senders[e]), int(g.receivers[e]))
+                      for e in cut])
+    F = api.faults.Fault
+    sched = api.faults.FaultSchedule([
+        F(0.2 * span, "crash", node=CRASH_NODE),
+        F(0.7 * span, "recover", node=CRASH_NODE)])
+    srv = plan.server(max_batch=SERVER_MAX_BATCH, faults=sched)
+    calls = recorded_batches(srv.session, wrappers)
+    stream = sorted(trace + [api.UpdateRequest(delta=delta,
+                                               arrival_time=0.45 * span)],
+                    key=lambda r: r.arrival_time)
+    outs, counts = drive_each("recover-update",
+                              [replay_thunk(srv, stream)])
+    out, restored, wall = outs[0]
+    resp = [r for r in out if isinstance(r, api.Response)]
+    if len(resp) != len(trace) or "restored" not in [r.recovered
+                                                     for r in resp]:
+        raise AssertionError(f"recover after update: {len(resp)} "
+                             f"responses, tags "
+                             f"{[r.recovered for r in resp]}")
+    if restored.provenance == "failover" or srv._crashed or \
+            restored.graph.num_vertices != v + 2:
+        raise AssertionError("recover after update: the session is not on "
+                             "a full-cluster plan of the updated graph")
+    t0 = time.perf_counter()
+    fresh = Engine.from_plan(plan).compile(restored.graph)
+    fresh_s = time.perf_counter() - t0
+    for name in ("part_of", "slot_of", "senders_halo", "boundary_rows",
+                 "boundary_mask", "feats"):
+        if not np.array_equal(getattr(restored.partitioned, name),
+                              getattr(fresh.partitioned, name)):
+            raise AssertionError(f"recover after update: {name} differs "
+                                 f"from a fresh compile")
+    x = restored.session().collect()
+    if not np.array_equal(restored.session(staleness_bound=0).execute(x),
+                          fresh.session(staleness_bound=0).execute(x)):
+        raise AssertionError("recover after update: the restored plan's "
+                             "execute is not bitwise a fresh compile's")
+    stats = check_batches("recover after update", calls, kernel_lint, bsp,
+                          k)
+    rec = {"replay_s": wall, "fresh_compile_s": fresh_s,
+           "plans": [c["plan"].provenance for c in calls],
+           "tags": [r.recovered for r in resp if r.recovered],
+           "batches": stats, "launches": counts[0]}
+    log(f"  recover after update: plans "
+        f"{sorted(set(rec['plans']))}, tags {rec['tags']}; the restored "
+        f"plan == a fresh compile of the updated graph (layout, execute "
+        f"bitwise); replay {wall:.2f} s; launches exact")
+    return rec
+
+
+def fleet_faults(api, fleet, drive_each) -> dict:
+    """Phase 3h, phase 3g's fleet with ``faults={"north": crash + recover
+    of its last fog}``: the phase-3g trace (no site set down), 0 drops,
+    the north site failing over and back, every response bitwise a
+    session of its tier, launches exact; routes reported."""
+    g = fleet.cloud_plan.graph
+    north = fleet.site("north").plan
+    node = north.cluster.nodes[-1].name
+    rate = server_rate(fleet.sites[0].plan) * len(FLEET_SITES)
+
+    def features_fn(i, rng):
+        return g.features + rng.normal(scale=0.01, size=g.features.shape)
+    trace = api.traces.poisson(
+        FLEET_REQUESTS, rate, seed=0, features_fn=features_fn,
+        origin_fn=api.traces.geo_origins(fleet.centroids(), seed=1))
+    span = max(r.arrival_time for r in trace)
+    F = api.faults.Fault
+    sched = api.faults.FaultSchedule([F(0.2 * span, "crash", node=node),
+                                      F(0.7 * span, "recover", node=node)])
+    fs = fleet.server(capacity=FLEET_CAPACITY, max_batch=SERVER_MAX_BATCH,
+                      faults={"north": sched})
+    submitted = []
+
+    def run():
+        t0 = time.perf_counter()
+        for r in trace:
+            submitted.append(fs.submit(r))
+        return fs.drain(), time.perf_counter() - t0
+    outs, counts = drive_each("fleet-faults", [run])
+    out, wall = outs[0]
+    summary = fs.summarize(out)
+    responses = [r for r in out if isinstance(r, api.Response)]
+    if len(responses) != FLEET_REQUESTS or summary["dropped"]:
+        raise AssertionError(f"fleet faults: {len(responses)} responses, "
+                             f"{summary['dropped']} dropped")
+    k = north.model.num_layers
+    want = dict.fromkeys(REPLACES, 0)
+    for site in fs.tier_names:
+        mine = [r for r in responses if r.site == site]
+        for b, _ in batches_of(mine).values():
+            want["block_spmm" + ("" if b == 1 else "_batched")] += k
+    check_launches("fleet faults", counts[0], want)
+    plans = {s.name: s.plan for s in fleet.sites}
+    plans["cloud"] = fleet.cloud_plan
+    feats_of = {r.request_id: r.features for r in submitted}
+    sessions = {}
+    for r in responses:
+        sess = sessions.setdefault(r.site, plans[r.site].session(
+            staleness_bound=0))
+        if not np.array_equal(r.embeddings, sess.execute(
+                sess.collect(feats_of[r.request_id]))):
+            raise AssertionError(f"fleet faults: response {r.request_id} "
+                                 f"({r.site}) is not bitwise its tier's "
+                                 f"session")
+    tags = {s: sorted({str(r.recovered) for r in responses if r.site == s})
+            for s in fs.tier_names}
+    rec = {"crashed": f"north/{node}", "replay_s": wall,
+           "launches": counts[0], "routes": summary["routes"],
+           "tags": tags, "dropped": summary["dropped"],
+           "availability": summary["availability"],
+           "served": {s: v["served"] for s, v in summary["sites"].items()}}
+    log(f"  fleet faults: north/{node} crash and recover; routes "
+        f"{summary['routes']}, served {rec['served']}, tags {tags}, "
+        f"dropped 0; every response bitwise its tier's session; replay "
+        f"{wall:.2f} s; launches exact")
+    return rec
+
+
+def verifier_path(analysis, plans) -> dict:
+    """Phase 3h, the static verifier at full SIoT: ``verify_plan`` (host
+    ms, the plan family) on the sim and mesh plans, the kernel and cache
+    families on each (0 errors, 0 warnings), and one corrupted copy of the mesh plan (a
+    dropped halo row) that strict verification must refuse."""
+    rec = {}
+    for (kind, ex), (plan, _) in plans.items():
+        t0 = time.perf_counter()
+        analysis.verify_plan(plan, mode="strict")
+        ms = (time.perf_counter() - t0) * 1e3
+        report = analysis.run_checks(plan, families=("kernel", "cache"))
+        if not report.ok or report.warnings:
+            raise AssertionError(f"verifier {kind} {ex}: "
+                                 f"{report.format()}")
+        rec[f"{kind}/{ex}"] = {"verify_plan_ms": ms,
+                               "checks_ran": len(report.ran)}
+    plan = plans["gcn", "mesh-bsp"][0]
+    pg = plan.partitioned
+    p = int(np.argmax(pg.boundary_mask.sum(axis=1)))
+    mask = pg.boundary_mask.copy()
+    mask[p, 0] = 0.0
+    bad = dataclasses.replace(plan, partitioned=dataclasses.replace(
+        pg, boundary_mask=mask, device_cache={}))
+    try:
+        analysis.verify_plan(bad, mode="strict")
+    except analysis.PlanValidationError as e:
+        rec["corrupted"] = sorted({d.check_id for d in e.report.errors})
+    else:
+        raise AssertionError("verifier: a dropped halo row passed strict "
+                             "validation")
+    ms = {key: round(v["verify_plan_ms"], 1) for key, v in rec.items()
+          if key != "corrupted"}
+    log(f"  verifier: verify_plan ms {ms}; every family silent; a dropped "
+        f"halo row refused by {rec['corrupted']}")
     return rec
 
 
@@ -2601,7 +3311,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs on a CUDA card", file=sys.stderr)
         return 1
-    from repro_torch import api
+    from repro_torch import analysis, api
     from repro_torch.api import Engine
     from repro_torch.configs import registry
     from repro_torch.core import compression, frontier
@@ -2812,9 +3522,30 @@ def main() -> int:
     t_3g = time.perf_counter()
     frontiers, stream = frontier_paths(Engine, models, g, drive_each, ga, dq)
     staled = stale_path(Engine, models, g, bsp, api, drive_each, stream)
-    fleet = fleet_path(Engine, models, g, api, drive_each)
+    fleet, fleet_obj = fleet_path(Engine, models, g, api, drive_each)
     phase_3g_s = time.perf_counter() - t_3g
     log(f"  phase 3g: {phase_3g_s:.1f} s")
+
+    log("phase 3h: failover, recovery tiers, the static verifier")
+    t_3h = time.perf_counter()
+    t0 = time.perf_counter()
+    plans = fault_plans(Engine, models, g)
+    fault_rec = {"compile_s": {f"{k}/{ex}": c
+                               for (k, ex), (_, c) in plans.items()},
+                 "plans_compile_s": time.perf_counter() - t0}
+    fault_rec["failover"] = failover_path(Engine, models, g, analysis, api,
+                                          plans, drive_each)
+    fault_rec["chaos_mesh"] = chaos_mesh(Engine, api, bsp, ops, plans,
+                                         drive_each, wrappers)
+    fault_rec["chaos_property"] = chaos_property(api, bsp, ops, plans,
+                                                 drive_each, wrappers)
+    fault_rec["recover_after_update"] = recover_after_update(
+        Engine, api, bsp, plans, drive_each, wrappers)
+    fault_rec["fleet"] = fleet_faults(api, fleet_obj, drive_each)
+    fault_rec["verifier"] = verifier_path(analysis, plans)
+    del plans, fleet_obj
+    fault_rec["phase_s"] = time.perf_counter() - t_3h
+    log(f"  phase 3h: {fault_rec['phase_s']:.1f} s")
     subset_launches = {
         path: {name: sum(r["launches_subset"][name] for rec in recs
                          for r in rec["runs"])
@@ -2851,6 +3582,7 @@ def main() -> int:
             "library_ms": sum(c["library_ms"] for c in main_cases),
             **{k: v for k, v in rec.items() if k != "cases"},
             "cases": rec["cases"]})
+    print(json.dumps({"fault_path": fault_rec}), flush=True)
     print(json.dumps({"compaction": compaction,
                       "main_path": served, "mesh_path": meshed,
                       "segment_sum_path": {"sim": seg_sim,

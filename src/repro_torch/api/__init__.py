@@ -30,10 +30,15 @@ _LAZY = {
     "FleetServer": "repro_torch.api.fleet",
     "Router": "repro_torch.api.fleet",
     "Site": "repro_torch.api.fleet",
+    "Fault": "repro_torch.api.faults",
+    "FaultSchedule": "repro_torch.api.faults",
+    "FaultInjector": "repro_torch.api.faults",
+    "FailoverAudit": "repro_torch.api.faults",
     "SLOPolicy": "repro_torch.api.slo",
     "DegradationLevel": "repro_torch.api.slo",
     "AdaptiveBatchController": "repro_torch.api.slo",
     "Rejection": "repro_torch.api.slo",
+    "faults": "repro_torch.api.faults",    # submodule: the module itself
     "fleet": "repro_torch.api.fleet",      # submodule: the module itself
     "traces": "repro_torch.api.traces",    # submodule: the module itself
     "updates": "repro_torch.api.updates",  # submodule: the module itself

@@ -4,6 +4,7 @@
     Plan.session() -> Session -> Session.query() -> QueryResult
     Plan.server() -> Server -> Server.replay(trace) -> [Response, ...]
     Engine.apply_delta(plan, GraphDelta) -> Plan
+    Engine.fail_nodes(plan, crashed) -> Plan
 
 ``Engine`` captures the pipeline *configuration* (every stage is a
 string-keyed registry entry, plus the torch device the numerics run on);
@@ -48,11 +49,6 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP Queue 1 "
-                               f"item {item}")
-
-
 class Engine:
     """A configured-but-uncompiled serving pipeline.
 
@@ -86,8 +82,12 @@ class Engine:
         fresh exchange is forced (0 = every serve syncs, bitwise
         ``exchange="halo"``). Rejected for exchanges without stale
         tolerance.
-      validate: the static verifier's knob, which is not ported yet:
-        anything but "off" raises.
+      validate: static plan verification mode — "off" (default), "warn"
+        (emit ``PlanInvariantWarning`` per finding) or "strict" (raise
+        ``repro_torch.analysis.PlanValidationError``). Runs the
+        ``repro_torch.analysis`` plan invariant checks at ``compile`` /
+        ``apply_delta`` / ``fail_nodes`` exit (host numpy; nothing is
+        launched).
     """
 
     def __init__(self, model, cluster: Union[str, "simulation.FogCluster"]
@@ -129,9 +129,9 @@ class Engine:
                 f"staleness_bound={staleness_bound} needs a stale-tolerant "
                 f"exchange (e.g. 'halo_async'), got "
                 f"{EXCHANGES.canonical(exchange)!r}")
-        if validate != "off":
-            raise _not_ported(f"validate={validate!r}",
-                              "4, static verifier")
+        if validate not in ("off", "warn", "strict"):
+            raise ValueError(f"unknown validate mode {validate!r}; "
+                             f"available: off, warn, strict")
         self.config = EngineConfig(
             partitioner=PARTITIONERS.canonical(partitioner),
             placement=PLACEMENTS.canonical(placement),
@@ -145,7 +145,15 @@ class Engine:
             bytes_per_vertex=bytes_per_vertex, aggregation=aggregation,
             device=str(self.device), staleness_bound=staleness_bound,
             update_max_imbalance=update_max_imbalance,
-            update_max_cut_growth=update_max_cut_growth)
+            update_max_cut_growth=update_max_cut_growth,
+            validate=validate)
+
+    def _validated(self, plan: Plan) -> Plan:
+        """Run the static plan invariant checks per ``config.validate``."""
+        if self.config.validate != "off":
+            from repro_torch.analysis import verify_plan
+            verify_plan(plan, mode=self.config.validate)
+        return plan
 
     def compile(self, graph: Graph) -> Plan:
         """Setup phase (paper steps 1-2): profile, register, plan, freeze."""
@@ -176,10 +184,10 @@ class Engine:
         partitioned = bsp.build_partitioned(
             graph, placement.assignment,
             build_blocks=needs_shards and mode == "pallas")
-        return Plan(model=self.model, graph=graph, cluster=cluster,
-                    fogs=fogs, placement=placement, partitioned=partitioned,
-                    config=cfg,
-                    edges=EdgeList.from_graph(graph, device=self.device))
+        return self._validated(
+            Plan(model=self.model, graph=graph, cluster=cluster, fogs=fogs,
+                 placement=placement, partitioned=partitioned, config=cfg,
+                 edges=EdgeList.from_graph(graph, device=self.device)))
 
     @classmethod
     def from_plan(cls, plan: Plan) -> "Engine":
@@ -197,7 +205,8 @@ class Engine:
                    aggregation=cfg.aggregation, device=cfg.device,
                    staleness_bound=cfg.staleness_bound,
                    update_max_imbalance=cfg.update_max_imbalance,
-                   update_max_cut_growth=cfg.update_max_cut_growth)
+                   update_max_cut_growth=cfg.update_max_cut_growth,
+                   validate=cfg.validate)
 
     def compile_fleet(self, graph: Graph, sites) -> "Fleet":
         """Compile a geo-distributed fleet: one Plan per named fog site
@@ -244,7 +253,8 @@ class Engine:
                       aggregation=cfg.aggregation, device=cfg.device,
                       staleness_bound=cfg.staleness_bound,
                       update_max_imbalance=cfg.update_max_imbalance,
-                      update_max_cut_growth=cfg.update_max_cut_growth)
+                      update_max_cut_growth=cfg.update_max_cut_growth,
+                      validate=cfg.validate)
             kw.update(over)
             return Engine(self.model, cluster, **kw)
 
@@ -256,8 +266,115 @@ class Engine:
                              ).compile(graph)
         return Fleet(sites=site_objs, cloud_plan=cloud_plan)
 
-    def fail_nodes(self, plan: Plan, crashed, **kwargs):
-        raise _not_ported("Engine.fail_nodes", "3, fault tolerance")
+    # -- node-level fault tolerance ------------------------------------------
+
+    def fail_nodes(self, plan: Plan, crashed, *,
+                   assignment: Optional[np.ndarray] = None,
+                   mode: Optional[str] = None) -> Plan:
+        """Shard failover: evict crashed nodes, re-place their shards.
+
+        ``crashed`` is one node name / index or a sequence of them
+        (``SimNode.name`` entries of ``plan.cluster.nodes``). The default
+        repair path keeps the survivors' profiled fog metadata:
+        ``evacuate_assignment`` marks the crashed shards' vertices
+        unassigned, ``repair_assignment`` greedily re-places them onto the
+        survivors (min-cut-aware, capacity-bounded), ``refresh_placement``
+        re-prices, and ``build_partitioned`` lays the survivors' shards out
+        anew — falling back to a full compile on the surviving cluster when
+        the repaired partitioning degrades past
+        ``config.update_max_imbalance``. ``mode`` forces "repair" or
+        "recompile" ("recompile" IS a fresh ``Engine.compile`` on the
+        surviving cluster, re-tagged).
+
+        The returned Plan has ``provenance="failover"``, a
+        degraded-capacity ``cluster`` holding only the survivors, and
+        ``config.cluster_spec=None``: a failover plan carrying the original
+        spec string would resurrect the crashed node on the next
+        ``from_plan`` recompile and price update repairs against capacity
+        that no longer exists. Its layout is new, so its ``device_cache``
+        starts empty: the first execute folds and compacts the survivors'
+        shards on the device. The graph is unchanged, so a repair plan
+        shares ``plan.edges``.
+        """
+        if mode not in (None, "repair", "recompile"):
+            raise ValueError(f"mode must be None, 'repair' or 'recompile', "
+                             f"got {mode!r}")
+        nodes = plan.cluster.nodes
+        names = [n.name for n in nodes]
+        if isinstance(crashed, (str, int, np.integer)):
+            crashed = [crashed]
+        evicted = set()
+        for c in crashed:
+            if isinstance(c, (int, np.integer)):
+                j = int(c)
+                if not 0 <= j < len(nodes):
+                    raise ValueError(f"node index {j} out of range for "
+                                     f"{len(nodes)} nodes")
+            else:
+                if c not in names:
+                    raise KeyError(f"unknown node {c!r}; cluster has: "
+                                   f"{', '.join(names)}")
+                j = names.index(c)
+            evicted.add(j)
+        if not evicted:
+            raise ValueError("fail_nodes needs at least one crashed node")
+        keep = [j for j in range(len(nodes)) if j not in evicted]
+        if not keep:
+            raise ValueError(
+                f"cannot fail every node ({sorted(names[j] for j in evicted)}"
+                f" is the whole cluster); at least one must survive")
+        cfg = plan.config
+        survivors = dataclasses.replace(
+            plan.cluster, nodes=[nodes[j] for j in keep])
+        if mode != "recompile":
+            base = (plan.placement.assignment if assignment is None
+                    else np.asarray(assignment, np.int64))
+            evacuated = incremental.evacuate_assignment(base, keep,
+                                                        len(nodes))
+            repaired = incremental.repair_assignment(plan.graph, evacuated,
+                                                     len(keep))
+            imb_before = incremental.imbalance_of(base, len(nodes))
+            imb = incremental.imbalance_of(repaired, len(keep))
+            if (mode == "repair"
+                    or imb <= cfg.update_max_imbalance
+                    * max(1.0, imb_before)):
+                fogs = tuple(plan.fogs[j] for j in keep)
+                placement = incremental.refresh_placement(
+                    plan.graph, repaired, np.arange(len(keep)), fogs,
+                    bytes_per_vertex=cfg.bytes_per_vertex,
+                    k_layers=self.model.num_layers,
+                    sync_cost=plan.cluster.sync_cost)
+                needs_shards = self._executor.needs_block_shards
+                agg = bsp.resolve_aggregation(
+                    cfg.aggregation, self.model.kind,
+                    exchange=cfg.exchange if needs_shards else None,
+                    device=self.device)
+                build_blocks = ((needs_shards and agg == "pallas")
+                                or plan.partitioned.local_csr is not None)
+                partitioned = bsp.build_partitioned(
+                    plan.graph, repaired, build_blocks=build_blocks,
+                    n=len(keep))
+                return self._validated(Plan(
+                    model=self.model, graph=plan.graph, cluster=survivors,
+                    fogs=fogs, placement=placement, partitioned=partitioned,
+                    config=cfg.with_overrides(cluster_spec=None),
+                    edges=plan.edges, provenance="failover"))
+        # Recompile: the full setup phase on the surviving cluster (fresh
+        # per-node profiling seeds at the survivors' new indices) — the
+        # result IS a fresh Engine.compile of that cluster, re-tagged.
+        eng = Engine(self.model, survivors, network=cfg.network,
+                     partitioner=cfg.partitioner, placement=cfg.placement,
+                     compressor=cfg.compressor, exchange=cfg.exchange,
+                     executor=cfg.executor, hidden=cfg.hidden,
+                     seed=cfg.seed, sync_cost=cfg.sync_cost,
+                     bytes_per_vertex=cfg.bytes_per_vertex,
+                     aggregation=cfg.aggregation, device=cfg.device,
+                     staleness_bound=cfg.staleness_bound,
+                     update_max_imbalance=cfg.update_max_imbalance,
+                     update_max_cut_growth=cfg.update_max_cut_growth,
+                     validate=cfg.validate)
+        return dataclasses.replace(eng.compile(plan.graph),
+                                   provenance="failover")
 
     # -- dynamic-graph updates ----------------------------------------------
 
@@ -341,8 +458,9 @@ class Engine:
                 and np.array_equal(base, plan.placement.assignment)
                 and force != "recompile"):
             report = UpdateReport(mode="noop", **report_kw)
-            return dataclasses.replace(plan, provenance="incremental",
-                                       update_report=report)
+            return self._validated(
+                dataclasses.replace(plan, provenance="incremental",
+                                    update_report=report))
 
         recompile_reason = ""
         if force != "incremental" and dp.structural:
@@ -423,10 +541,11 @@ class Engine:
         report = UpdateReport(
             mode="features" if not dp.structural else "incremental",
             dirty_local=dirty_l, dirty_halo=dirty_h, **report_kw)
-        return Plan(model=self.model, graph=dp.graph, cluster=cluster,
-                    fogs=plan.fogs, placement=placement,
-                    partitioned=partitioned, config=cfg, edges=edges,
-                    provenance="incremental", update_report=report)
+        return self._validated(
+            Plan(model=self.model, graph=dp.graph, cluster=cluster,
+                 fogs=plan.fogs, placement=placement,
+                 partitioned=partitioned, config=cfg, edges=edges,
+                 provenance="incremental", update_report=report))
 
     def __repr__(self) -> str:
         c = self.config

@@ -34,8 +34,9 @@ may serve up to ``staleness_bound`` consecutive requests from recorded
 halo tables instead of stalling every superstep on the exchange, with
 the served staleness recorded on each ``Response``. ``staleness_bound=0``
 is bitwise the synchronous ``halo`` exchange (the fresh path IS the halo
-exchange — see ``bsp._wire_exchange``). Fault tolerance inside a site
-(``faults=``) is not ported: ROADMAP Queue 1 item 3.
+exchange — see ``bsp._wire_exchange``). ``faults=`` gives named sites
+chaos schedules of their own (``repro_torch.api.faults``): a node crash
+fails shards over within its site.
 
     fleet = Engine(model, "1A+3B", exchange="halo_async",
                    staleness_bound=2).compile_fleet(
@@ -262,9 +263,11 @@ class FleetServer:
         for every tier, or a per-site table from
         :func:`repro_torch.api.slo.per_site` (``"default"`` covers unnamed
         sites, ``"cloud"`` the last-resort tier).
-      faults: per-site chaos tables belong to fault tolerance, which is
-        not ported: anything but None raises ``NotImplementedError``
-        (whole-site outages are ``set_down``).
+      faults: optional per-site chaos table ``{site_name:
+        FaultSchedule}`` (``repro_torch.api.faults``) — each named site's
+        Server replays its schedule on its own clock (node crashes fail
+        shards over *within* the site; whole-site outages are
+        ``set_down``). The cloud tier never takes node faults.
       max_batch / max_wait / pipelined / adaptive_batch / session kwargs:
         forwarded to each per-site ``Server``/``Session``.
 
@@ -285,12 +288,14 @@ class FleetServer:
                  staleness_bound: Optional[int] = None,
                  faults: Optional[Mapping[str, object]] = None,
                  **session_kw):
-        if faults is not None:
-            raise NotImplementedError(
-                "FleetServer(faults=...) is not ported yet: ROADMAP Queue 1 "
-                "item 3, fault tolerance")
         self.fleet = fleet
         self.router = Router(fleet, capacity=capacity)
+        if faults is not None:
+            unknown = set(faults) - set(fleet.site_names)
+            if unknown:
+                raise ValueError(
+                    f"fault schedules for unknown sites {sorted(unknown)}; "
+                    f"available: {', '.join(fleet.site_names)}")
         if isinstance(slo, Mapping):
             unknown = (set(slo) - set(fleet.site_names)
                        - {CLOUD, "default"})
@@ -311,7 +316,9 @@ class FleetServer:
             if staleness_bound is not None:
                 kw["staleness_bound"] = int(staleness_bound)
             self.servers[site.name] = site.plan.server(
-                slo=self._slo_for(site.name), **srv_kw, **kw)
+                slo=self._slo_for(site.name),
+                faults=None if faults is None else faults.get(site.name),
+                **srv_kw, **kw)
         # The cloud tier serves fresh: single-program numerics, no
         # cross-fog exchange, nothing to replay.
         self.servers[CLOUD] = fleet.cloud_plan.server(
@@ -452,6 +459,7 @@ class FleetServer:
             out[name] = srv.session.update(delta)
             srv.last_update_report = out[name]
             srv._svc_cache.clear()
+            srv._note_plan()   # re-track the fault-recovery restore target
         return out
 
     # -- serving -------------------------------------------------------------

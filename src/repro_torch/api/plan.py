@@ -111,6 +111,12 @@ class EngineConfig:
     # update_max_cut_growth x the pre-update cut fraction.
     update_max_imbalance: float = 2.0
     update_max_cut_growth: float = 1.5
+    # Static plan verification (repro_torch.analysis): "off" | "warn" |
+    # "strict". strict runs the plan invariant checks at Engine.compile /
+    # apply_delta / fail_nodes exit and raises PlanValidationError on any
+    # violation; warn emits PlanInvariantWarning instead. Never changes
+    # what is compiled.
+    validate: str = "off"
 
     def with_overrides(self, **kw) -> "EngineConfig":
         return dataclasses.replace(self, **kw)
@@ -122,8 +128,12 @@ class Plan:
 
     ``provenance`` records how the plan was produced: "compile" (the full
     setup phase), "incremental" (``Engine.apply_delta`` repaired an
-    existing plan) or "recompile" (a delta tripped a repair threshold and
-    the full pipeline re-ran); ``update_report`` is the
+    existing plan), "recompile" (a delta tripped a repair threshold and
+    the full pipeline re-ran) or "failover" (``Engine.fail_nodes``
+    re-placed a crashed node's shards onto the surviving,
+    degraded-capacity cluster; such plans carry ``cluster_spec=None`` so
+    later recompiles and pricing never resurrect the crashed node);
+    ``update_report`` is the
     :class:`~repro_torch.api.updates.UpdateReport` of the delta that
     produced an updated plan (None for fresh compiles). ``edges`` is built
     from ``graph`` and is rebuilt whenever a delta changes the topology.
@@ -198,9 +208,9 @@ class Plan:
                faults=None, **session_kw) -> "Server":
         """Open a request-level server (micro-batching + pipelined
         collect/execute) over a fresh session; ``slo``/``adaptive_batch``
-        activate the SLO control plane (``repro_torch.api.slo``); extra
-        kwargs go to ``session()``. ``faults`` belongs to fault tolerance,
-        which is not ported: anything but None raises."""
+        activate the SLO control plane (``repro_torch.api.slo``); ``faults``
+        installs a chaos schedule (``repro_torch.api.faults``); extra
+        kwargs go to ``session()``."""
         from repro_torch.api.server import Server
         return Server(self.session(**session_kw), max_batch=max_batch,
                       max_wait=max_wait, pipelined=pipelined, slo=slo,

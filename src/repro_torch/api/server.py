@@ -47,7 +47,11 @@ responses are bitwise serial ones. The micro-batch is stacked into one
 (plus one ``dequant_spmm_batched`` on the mesh's DAQ halo wire); a batch
 of one takes the serial path and launches ``block_spmm``.
 
-Fault tolerance (``faults=``) is not ported: ROADMAP Queue 1 item 3.
+With ``faults=`` (a :class:`repro_torch.api.faults.FaultSchedule`) the
+server replays chaos events on its simulated clock and walks the recovery
+tiers: retry with backoff, stale ride-through, shard failover
+(``Engine.fail_nodes``) and restore; responses carry ``retries``,
+``recovered`` and ``capacity``.
 
     server = plan.server(max_batch=8)
     responses = server.replay(traces.poisson(64, rate=4.0))
@@ -69,6 +73,7 @@ from repro_torch.api.slo import (AdaptiveBatchController, Rejection,
                                  SLOPolicy, default_ladder)
 from repro_torch.api.updates import GraphDelta, UpdateReport, UpdateRequest
 from repro_torch.core import simulation
+from repro_torch.kernels import ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,7 +128,7 @@ class Response(QueryResult):
     fresh synchronous exchange; > 0 only under ``exchange="halo_async"``
     with a positive ``staleness_bound``).
 
-    Fault outcome (inert without a fault injector):
+    Fault outcome (``repro_torch.api.faults``; inert without an injector):
     ``retries`` counts tier-1 halo-exchange retry attempts charged to
     this response (``breakdown["recovery"]`` carries their backoff
     seconds), ``recovered`` names the strongest recovery tier that fired
@@ -203,8 +208,12 @@ class Server:
         an unseeded one: no curve on record was measured on the card)
         that picks the micro-batch size per drain from the observed
         batched-latency curve; ``max_batch`` stays the hard cap.
-      faults: chaos events for fault tolerance, which is not ported:
-        anything but None raises ``NotImplementedError``.
+      faults: a :class:`repro_torch.api.faults.FaultSchedule` (or
+        ``FaultInjector``, or a list of ``Fault`` events) replayed against
+        this server's simulated clock — node crashes walk the three
+        recovery tiers (retry/backoff -> stale ride-through -> shard
+        failover); see ``repro_torch.api.faults``. None (default) adds
+        zero overhead: the fault path is never consulted.
 
     The server runs on a simulated clock: collection and execution free
     times persist across ``submit``/``drain`` calls, so one server can
@@ -217,11 +226,8 @@ class Server:
                  slo: Union[None, bool, SLOPolicy] = None,
                  adaptive_batch: Union[None, bool,
                                        AdaptiveBatchController] = None,
-                 faults=None):
-        if faults is not None:
-            raise NotImplementedError(
-                "Server(faults=...) is not ported yet: ROADMAP Queue 1 "
-                "item 3, fault tolerance")
+                 faults: Union[None, "FaultSchedule", "FaultInjector",
+                               Sequence] = None):
         if not isinstance(session, Session):   # accept a Plan for brevity
             session = session.session()
         if max_batch < 1:
@@ -262,6 +268,35 @@ class Server:
         # and the serving accounting share one pricing call.
         self._svc_cache: Dict[Tuple[str, int, int, bool],
                               simulation.ServingResult] = {}
+        # -- node-level fault tolerance (repro_torch.api.faults) ------------
+        self.injector = None
+        if faults is not None:
+            from repro_torch.api.faults import FaultInjector, FaultSchedule
+            if isinstance(faults, FaultInjector):
+                self.injector = faults
+            elif isinstance(faults, FaultSchedule):
+                self.injector = FaultInjector(faults)
+            else:
+                self.injector = FaultInjector(FaultSchedule(faults))
+            known = {n.name for n in session.plan.cluster.nodes}
+            bad = set(self.injector.schedule.node_names) - known
+            if bad:
+                raise ValueError(
+                    f"fault schedule targets unknown nodes "
+                    f"{sorted(bad)}; cluster has: {', '.join(sorted(known))}")
+        #: most recent full-cluster plan — the restore target when every
+        #: crashed node has recovered (re-tracked on graph updates).
+        self._full_plan = session.plan
+        #: names of currently crashed (failed-over) nodes.
+        self._crashed: set = set()
+        # live stragglers: node name -> (extra background load, expiry t).
+        self._slow: Dict[str, Tuple[float, float]] = {}
+        # recovery charge pending for the next served batch:
+        # (tier tag, priced seconds, retry attempts).
+        self._recovery: Optional[Tuple[str, float, int]] = None
+        #: requests that were in flight across a failover and were served
+        #: on the degraded plan instead of being dropped.
+        self.replayed = 0
 
     # -- admission ----------------------------------------------------------
 
@@ -366,6 +401,15 @@ class Server:
             while i < len(order):
                 if self.slo is not None:
                     order[i:] = self._reorder_ready(reqs, order[i:], eff)
+                if self.injector is not None:
+                    # Chaos events up to the next service instant fire
+                    # before the batch forms: a crash here fails the node
+                    # over and the remaining requests (still queued =
+                    # in flight) are served on the degraded plan instead
+                    # of being dropped.
+                    self._advance_faults(
+                        max(self._collect_floor(), eff[order[i]]),
+                        in_flight=len(order) - i)
                 req = reqs[order[i]]
                 if isinstance(req, UpdateRequest):
                     # Consume the update *before* applying it: if the
@@ -390,6 +434,7 @@ class Server:
                 i += len(batch)   # only after serving: a failed batch requeues
             if self.session.pending_updates:   # deferred: one coalesced repair
                 self.last_update_report = self.session.flush_updates()
+                self._note_plan()
         except BaseException as exc:
             # Don't lose work on a mid-drain failure (bad executor key,
             # wrong feature shape, rejected delta, ...): requeue
@@ -436,6 +481,7 @@ class Server:
             if report is not None:
                 self.last_update_report = report
             self._svc_cache.clear()   # pricing may have moved with the graph
+            self._note_plan()
             return UpdateResponse(request_id=req.request_id,
                                   arrival_time=arrival,
                                   applied=report is not None,
@@ -461,6 +507,7 @@ class Server:
             self.last_update_report = report
         self._pipe_state = simulation.schedule_state(sched)
         self._svc_cache.clear()   # pricing may have moved with the graph
+        self._note_plan()
         return UpdateResponse(request_id=req.request_id,
                               arrival_time=arrival,
                               applied=report is not None,
@@ -468,6 +515,187 @@ class Server:
                               report=report, service_time=t_u,
                               finish_time=sched.execute_end,
                               deadline=deadline, priority=req.priority)
+
+    # -- fault tolerance (repro_torch.api.faults) ---------------------------
+
+    def _advance_faults(self, t: float, in_flight: int = 0) -> None:
+        """Replay every scheduled fault due by simulated time ``t``.
+
+        Straggler expiries are undone first (their end time may precede
+        the next injected event), then each due event walks the recovery
+        machinery: stragglers mutate the live node's ``background_load``
+        (pricing only — numerics are load-independent), halo losses walk
+        the retry -> stale -> failover tier ladder, crashes fail the node
+        over immediately, and recovers restore the full-cluster plan.
+        """
+        for name, (extra, end) in list(self._slow.items()):
+            if end <= t + 1e-12:
+                self._set_load(name, -extra)
+                del self._slow[name]
+        for f in self.injector.due(t):
+            if f.kind == "straggler":
+                if f.node in self._crashed:
+                    continue   # a crashed node cannot also be slow
+                old = self._slow.pop(f.node, None)
+                if old is not None:
+                    self._set_load(f.node, -old[0])
+                extra = f.slowdown - 1.0
+                if self._set_load(f.node, extra):
+                    self._slow[f.node] = (extra, f.time + f.duration)
+            elif f.kind == "halo_loss":
+                self._handle_halo_loss(f, t, in_flight)
+            elif f.kind == "crash":
+                if f.node not in self._crashed:
+                    self._crash(f.node, t, in_flight)
+            elif f.kind == "recover":
+                self._recover(f.node, t)
+
+    def _handle_halo_loss(self, f, t: float, in_flight: int) -> None:
+        """Walk the three recovery tiers for a lost halo exchange:
+        (1) retry with exponential backoff within the exchange's timeout,
+        (2) ride through on recorded stale halo tables (halo_async within
+        ``staleness_bound``), (3) declare the peer dead and fail its
+        shard over. The priced recovery seconds charge the next batch."""
+        sess = self.session
+        if getattr(sess._executor, "pipeline", "") != "multi":
+            return   # no cross-fog exchange round to lose
+        rec_s, attempts, ok = sess._exchange.recovery_cost(
+            f.losses, sess.plan.cluster.sync_cost)
+        if ok:
+            self._add_recovery("retry", rec_s, attempts)
+            return
+        if sess.can_serve_stale():
+            self._add_recovery("stale", rec_s, attempts)
+            return
+        names = {n.name for n in sess.plan.cluster.nodes}
+        self._add_recovery("retry", rec_s, attempts)
+        if f.node is not None and f.node in names and len(names) > 1:
+            self._crash(f.node, t, in_flight)
+
+    def _crash(self, name: str, t: float, in_flight: int) -> None:
+        """Fail node ``name``'s shard over onto the surviving cluster.
+
+        The session rebases onto ``Engine.fail_nodes`` output (a repair
+        onto the survivors, or a fresh compile on them), the priced
+        failover time — re-uploading the evicted shard's rows over the LAN
+        plus the rebuild flops on the degraded capacity — occupies the
+        execution stage on the simulated clock, and the ``in_flight``
+        requests still queued are replayed on the new plan (zero drops).
+        Crashing the last surviving node is ignored: there is nowhere to
+        move the shard, so serving rides on (a real deployment would page
+        here).
+        """
+        sess = self.session
+        nodes = sess.plan.cluster.nodes
+        names = [n.name for n in nodes]
+        if name not in names or len(names) <= 1:
+            return
+        old = self._slow.pop(name, None)
+        if old is not None:
+            self._set_load(name, -old[0])
+        j = names.index(name)
+        moved = int((np.asarray(sess.state.placement.assignment) == j).sum())
+        sess.failover([name])
+        self._crashed.add(name)
+        t_f = simulation.simulate_failover(
+            sess.plan.cluster, moved, sess.plan.graph.feature_dim)
+        self._occupy(t, t_f)
+        self.replayed += in_flight
+        self._add_recovery("failover", t_f, 0)
+
+    def _recover(self, name: str, t: float) -> None:
+        """Bring node ``name`` back: rebase onto the full-cluster restore
+        target (recompiled first if graph updates landed while degraded),
+        still minus any *other* nodes that remain crashed. Priced like a
+        failover over the vertices that move back."""
+        old = self._slow.pop(name, None)
+        if old is not None:
+            self._set_load(name, -old[0])
+        if name not in self._crashed:
+            return
+        self._crashed.discard(name)
+        sess = self.session
+        g = sess.plan.graph
+        full = self._full_plan
+        same = g is full.graph
+        if not same:
+            same = (ops.graph_fingerprint(g) == ops.graph_fingerprint(
+                full.graph) and np.array_equal(g.features,
+                                               full.graph.features))
+        from repro_torch.api.engine import Engine  # lazy: import cycle
+        if not same:
+            # Graph updates landed while degraded: the restore target is
+            # a fresh full-cluster compile of the *current* graph (the JAX
+            # reference imports a module that does not exist here, so it
+            # has no output for this branch).
+            full = Engine.from_plan(full)._recompile(g)
+            self._full_plan = full
+        if self._crashed:
+            plan2 = Engine.from_plan(full).fail_nodes(
+                full, sorted(self._crashed))
+        else:
+            plan2 = full
+        # Vertices whose owning *node* changes move back over the wire.
+        old_names = np.array([f.name for f in sess.plan.fogs])
+        new_names = np.array([f.name for f in plan2.fogs])
+        moved = int((old_names[np.asarray(sess.state.placement.assignment)]
+                     != new_names[np.asarray(plan2.placement.assignment)]
+                     ).sum())
+        sess.rebind(plan2)
+        t_r = simulation.simulate_failover(
+            plan2.cluster, moved, plan2.graph.feature_dim)
+        self._occupy(t, t_r)
+        self._add_recovery("restored", t_r, 0)
+
+    _TIER_RANK = {"retry": 0, "stale": 1, "restored": 2, "failover": 3}
+
+    def _add_recovery(self, tag: str, seconds: float, retries: int) -> None:
+        """Charge ``seconds`` of recovery work to the next served batch,
+        merging with any charge already pending (strongest tag wins)."""
+        if self._recovery is None:
+            self._recovery = (tag, float(seconds), int(retries))
+            return
+        t0, s0, n0 = self._recovery
+        rank = self._TIER_RANK
+        self._recovery = (tag if rank.get(tag, 0) >= rank.get(t0, 0) else t0,
+                          s0 + float(seconds), n0 + int(retries))
+
+    def _occupy(self, t: float, seconds: float) -> None:
+        """Occupy the execution stage with ``seconds`` of recovery work
+        starting no earlier than ``t`` (same clock as update repairs)."""
+        sched = simulation.pipeline_schedule(
+            [(t, 0.0, seconds)], pipelined=self.pipelined,
+            start=self._pipe_state)[-1]
+        self._pipe_state = simulation.schedule_state(sched)
+        self._svc_cache.clear()
+        self._degraded.clear()
+        self._rebuild_ladder()
+
+    def _set_load(self, name: str, delta: float) -> bool:
+        """Adjust a live node's background load by ``delta`` (straggler
+        pricing); no-op (False) when the node is not in the current
+        cluster — e.g. it crashed while slow."""
+        for node in self.session.plan.cluster.nodes:
+            if node.name == name:
+                node.background_load = max(0.0,
+                                           node.background_load + delta)
+                self._svc_cache.clear()
+                return True
+        return False
+
+    def _rebuild_ladder(self) -> None:
+        """Re-derive the degradation ladder after a plan swap (a failover
+        plan gets the single survivor-degraded rung; restore brings the
+        full ladder back). Explicit ``SLOPolicy.ladder`` lists stick."""
+        if self.slo is not None and self.slo.ladder is None:
+            self.ladder = default_ladder(self.session)
+
+    def _note_plan(self) -> None:
+        """Re-track the full-cluster restore target after a graph update
+        (only while no node is crashed: a degraded plan must never
+        become the restore target)."""
+        if not self._crashed:
+            self._full_plan = self.session.plan
 
     def serve(self, requests: Iterable[Request]) -> List[Response]:
         """Submit then drain a whole arrival trace."""
@@ -677,6 +905,12 @@ class Server:
         res = self._account_for(key, b, level, staleness=staleness)
         c_t = float(res.collect.max())
         e_t = res.total_latency - c_t
+        # Any pending recovery charge (halo retries, failover repair)
+        # rides on this batch's execution stage and is consumed here.
+        rec_tag, rec_s, rec_n = (self._recovery if self._recovery is not None
+                                 else (None, 0.0, 0))
+        self._recovery = None
+        e_t += rec_s
         sched = simulation.pipeline_schedule(
             [(ready, c_t, e_t)], pipelined=self.pipelined,
             start=self._pipe_state)[-1]
@@ -698,6 +932,8 @@ class Server:
             breakdown: Dict[str, float] = {
                 "queue": queue_delay, "collect": c_t, "execute": e_t,
                 "unpack": float(res.unpack.max()), "total": latency}
+            if self.injector is not None:
+                breakdown["recovery"] = rec_s
             out.append(Response(
                 embeddings=emb, latency=latency, throughput=res.throughput,
                 breakdown=breakdown, wire_bytes=res.wire_bytes / b,
@@ -710,7 +946,10 @@ class Server:
                 deadline=deadline,
                 deadline_met=(None if deadline is None
                               else bool(latency <= deadline + 1e-9)),
-                degradation=level, staleness=staleness))
+                degradation=level, staleness=staleness,
+                retries=rec_n, recovered=rec_tag,
+                capacity=("degraded"
+                          if sess.plan.provenance == "failover" else "full")))
             sess.tick()   # per-request adapt_every accounting (step 5)
         if sess.adapt_every:
             self._svc_cache.clear()   # adaptation may have moved placement

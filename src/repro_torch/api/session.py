@@ -64,11 +64,6 @@ class QueryResult:
     accuracy: Optional[float] = None
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP Queue 1 "
-                               f"item {item}")
-
-
 class _HaloStore:
     """Recorded halo tables for stale-tolerant serving (halo_async).
 
@@ -636,9 +631,6 @@ class Session:
                                  plan2.graph.feature_dim)
         return plan2.update_report
 
-    def failover(self, crashed, *, mode: Optional[str] = None):
-        raise _not_ported("Session.failover", "3, fault tolerance")
-
     def can_serve_stale(self) -> bool:
         """Whether the NEXT execute could ride through on recorded halo
         tables: a store exists, tables are recorded for the current graph
@@ -652,6 +644,52 @@ class Session:
         return (recorded
                 and store.revision == ops.graph_fingerprint(self.plan.graph)
                 and store.age + 1 <= store.bound)
+
+    # -- node-level fault tolerance ------------------------------------------
+
+    def rebind(self, plan2) -> None:
+        """Rebase this session onto ``plan2`` (same graph, new layout).
+
+        The failover/recovery rebase: scheduler state re-anchors on the
+        new placement, profiled fog models swap for the new plan's, halo
+        tables invalidate (they are laid out per the old partitioning),
+        mesh-family activation caches clear (single-program numerics are
+        assignment-independent, so those survive) and the session's
+        layout becomes ``plan2.partitioned`` (whose device cache the next
+        mesh execute fills). Mirrors the ``flush_updates`` rebase, minus
+        the graph change.
+        """
+        if plan2.graph.num_vertices != self.plan.graph.num_vertices:
+            raise ValueError(
+                "rebind() is a same-graph rebase; use update()/"
+                "flush_updates() for graph mutations")
+        if self._halo is not None:
+            self._halo.invalidate()
+        if self._acache is not None and self._acache.family == "mesh":
+            self._acache.clear()
+        self.plan = plan2
+        self.state.placement = dataclasses.replace(
+            plan2.placement,
+            assignment=np.array(plan2.placement.assignment, copy=True))
+        self.fogs = [dataclasses.replace(
+            f, latency_model=dataclasses.replace(
+                f.latency_model, beta=np.array(f.latency_model.beta)))
+            for f in plan2.fogs]
+        self._partitioned = plan2.partitioned
+
+    def failover(self, crashed, *, mode: Optional[str] = None):
+        """Tier-3 recovery: evict ``crashed`` node(s), re-place their
+        shards onto the survivors (``Engine.fail_nodes``) and rebase this
+        session onto the degraded-capacity failover plan. Queries keep
+        flowing — on single-program numerics they stay bitwise the
+        pre-crash serves. Returns the new plan.
+        """
+        from repro_torch.api.engine import Engine   # lazy: avoid import cycle
+        plan2 = Engine.from_plan(self.plan).fail_nodes(
+            self.plan, crashed,
+            assignment=self.state.placement.assignment, mode=mode)
+        self.rebind(plan2)
+        return plan2
 
     # -- adaptation ---------------------------------------------------------
 

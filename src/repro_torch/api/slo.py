@@ -382,8 +382,7 @@ def slo_classes(classes: Sequence[Tuple[float, int, Optional[float]]]):
 
 
 # ----------------------------------------------------------------------------
-# Per-site policies (for a fleet front-end; the port has none yet: ROADMAP
-# Queue 1 item 2, fleet and stale halos)
+# Per-site policies (for the fleet front-end, ``repro_torch.api.fleet``)
 # ----------------------------------------------------------------------------
 
 

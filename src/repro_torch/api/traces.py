@@ -27,9 +27,8 @@ trace with one latency budget and class rank, or ``slo_fn(i, rng) ->
 ``slo_fn`` wins over the scalar kwargs; in ``mixed`` traces it annotates
 updates too.
 
-Geo annotations (read by a fleet router, which the port does not have
-yet: ROADMAP Queue 1 item 2, fleet and stale halos): every
-generator takes ``origin_fn(i) -> (lat, lon)`` to stamp per-request geo
+Geo annotations (read by the fleet router, ``repro_torch.api.fleet``):
+every generator takes ``origin_fn(i) -> (lat, lon)`` to stamp per-request geo
 coordinates — :func:`geo_origins` builds one from site centroids with a
 zipfian site-popularity mixer. ``origin_fn`` owns its own RNG stream, so
 the default (None) keeps every existing trace byte-identical: the shared

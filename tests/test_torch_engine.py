@@ -161,20 +161,35 @@ def test_default_device_without_cuda_raises():
 @pytest.mark.parametrize("knob", ["validate", "failover", "fail_nodes",
                                   "server_faults"])
 def test_knobs_outside_the_slice_raise_not_implemented(knob):
+    """The knobs that raised before fault tolerance and the verifier were
+    ported now run (tests/test_torch_faults.py and
+    tests/test_torch_analysis.py hold them to the JAX package)."""
     _, gt, _, tparams = _setup("gcn")
     model = (tparams, "gcn")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if knob == "validate":
-            Engine(model, device="cpu", validate="warn")
-        else:
-            eng = Engine(model, device="cpu", compressor="none")
-            plan = eng.compile(gt)
-            if knob == "failover":
-                plan.session().failover(None)
-            elif knob == "fail_nodes":
-                eng.fail_nodes(plan, 0)
-            else:
-                plan.server(faults=[("crash", 0.1, "A0")])
+    if knob == "validate":
+        plan = Engine(model, device="cpu", validate="warn").compile(gt)
+        assert plan.config.validate == "warn"
+        with pytest.raises(ValueError, match="validate mode"):
+            Engine(model, device="cpu", validate="loud")
+        return
+    eng = Engine(model, device="cpu", compressor="none")
+    plan = eng.compile(gt)
+    crashed = plan.cluster.nodes[-1].name
+    if knob == "failover":
+        sess = plan.session()
+        plan2 = sess.failover(crashed)
+        assert sess.plan is plan2 and plan2.provenance == "failover"
+    elif knob == "fail_nodes":
+        plan2 = eng.fail_nodes(plan, crashed)
+        assert plan2.provenance == "failover"
+        assert plan2.config.cluster_spec is None
+        assert crashed not in [n.name for n in plan2.cluster.nodes]
+    else:
+        from repro_torch.api.faults import Fault
+        srv = plan.server(faults=[Fault(0.1, "crash", node=crashed)])
+        assert srv.injector.remaining == 1
+        with pytest.raises(ValueError, match="unknown nodes"):
+            plan.server(faults=[Fault(0.1, "crash", node="A0")])
 
 
 def test_from_plan_and_session_overrides():

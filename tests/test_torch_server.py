@@ -504,8 +504,15 @@ def test_stream_warns_stays_lazy_and_equals_query():
 
 
 def test_faults_raise_not_implemented_naming_the_item():
+    """``faults=`` is ported: a schedule installs an injector, and what is
+    not a schedule of ``Fault`` events is refused as in the reference."""
+    from repro_torch.api.faults import Fault, FaultInjector, FaultSchedule
     _, tplan = _plans("segment_sum")
-    with pytest.raises(NotImplementedError, match="item 3, fault tolerance"):
+    with pytest.raises(TypeError, match="Fault events"):
         tplan.server(faults=[("crash", 0.1, "A0")])
-    with pytest.raises(NotImplementedError, match="fault tolerance"):
+    with pytest.raises(TypeError):
         Server(tplan.session(), faults=object())
+    sched = FaultSchedule([Fault(0.1, "halo_loss")])
+    assert Server(tplan.session(), faults=sched).injector.schedule is sched
+    inj = FaultInjector(sched)
+    assert tplan.server(faults=inj).injector is inj

@@ -238,8 +238,10 @@ def test_compile_fleet_shape_equals_reference():
     with pytest.raises(ValueError, match="at least one site"):
         Engine((_setup()[3], "gcn"), "1A+2B", device="cpu").compile_fleet(
             _setup()[1], {})
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tf.server(faults={"north": []})
+    with pytest.raises(ValueError, match="unknown sites"):
+        tf.server(faults={"nowhere": []})
+    assert tf.server(faults={"north": []}).servers["north"].injector \
+        is not None
 
 
 def test_router_decisions_equal_reference():
