@@ -27,7 +27,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.segment_sum import (LongSegments, long_threshold,
+from repro_torch.kernels.segment_sum import (LongSegments, Transposed,
+                                             cached_long_segments,
                                              receiver_order, segment_sum)
 
 
@@ -52,11 +53,12 @@ class EdgeList(_Edges):
     """COO connectivity on one device, with the receivers' summation order
     (``kernels.segment_sum.receiver_order`` over the unmasked edges),
     computed once where the edge list is built unless given; the gather
-    index, the long segments and the degrees are derived from it once, on
-    first use. Masked edges carry no message: they are left out of every
-    sum, so an inf or NaN in a masked edge's source row does not reach its
-    receiver (the reference's ``segment_sum`` of ``src * 0`` would add
-    NaN). The mask holds only 0 and 1 (checked here)."""
+    index, the long segments, the degrees and the transposed orders of a
+    backward are derived from it once, on first use. Masked edges carry no
+    message: they are left out of every sum and every gradient, so an inf
+    or NaN in a masked edge's source row does not reach its receiver (the
+    reference's ``segment_sum`` of ``src * 0`` would add NaN). The mask
+    holds only 0 and 1 (checked here)."""
 
     def __new__(cls, senders, receivers, mask, num_vertices: int,
                 order=None, offsets=None):
@@ -81,10 +83,24 @@ class EdgeList(_Edges):
         """The receivers whose sums of rows of ``features`` floats get a
         CTA of their own on the card (``kernels.segment_sum.LongSegments``
         of these offsets), built once per threshold."""
-        t = long_threshold(features)
-        if t not in self._long:
-            self._long[t] = LongSegments(self.offsets, features)
-        return self._long[t]
+        return cached_long_segments(self._long, self.offsets, features)
+
+    @functools.cached_property
+    def _transposed(self) -> dict:
+        return {}
+
+    def transposed(self, rows: int, per_edge: bool = False) -> Transposed:
+        """The transposed order of this list's sums over a table of
+        ``rows`` rows gathered by ``gather`` (``per_edge``: over one row per
+        edge, gathered by the order): what a sum's backward sums over
+        (``kernels.segment_sum.Transposed``), built once per table on the
+        first backward."""
+        key = (rows, per_edge)
+        if key not in self._transposed:
+            self._transposed[key] = Transposed(
+                self.order, self.offsets,
+                self.order if per_edge else self.gather, rows)
+        return self._transposed[key]
 
     @functools.cached_property
     def degree(self) -> torch.Tensor:
@@ -136,10 +152,13 @@ def _segment_sum(x: torch.Tensor, edges: EdgeList,
                  w: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Each receiver's terms ``(w[e] *) x[idx[k]]`` (e the edge of entry k
     of the order; ``idx`` defaults to the order, one row of ``x`` per
-    edge) summed in edge order."""
+    edge) summed in edge order; differentiable, its backward summing over
+    the edge list's cached transposed order."""
     feats = 1 if x.ndim == 1 else x.shape[1]
     return segment_sum(x, edges.order, edges.offsets, idx=idx, w=w,
-                       long=edges.long_segments(feats))
+                       long=edges.long_segments(feats),
+                       transposed=functools.partial(
+                           edges.transposed, x.shape[0], idx is None))
 
 
 def masked_degree(edges: EdgeList) -> torch.Tensor:

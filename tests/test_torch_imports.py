@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it never imports JAX or the JAX package.
 
-Every module under ``src/repro_torch/``, the root ``chip_smoke.py`` and the
-port's GPU scripts are checked by AST for ``jax``, ``jaxlib`` and ``repro`` imports (``repro_torch``
+Every module under ``src/repro_torch/``, the root ``chip_smoke.py``, the
+port's GPU scripts and its examples (``examples/torch_*.py``) are checked
+by AST for ``jax``, ``jaxlib`` and ``repro`` imports (``repro_torch``
 itself is fine), and a fresh interpreter that imports every port module
 must end with none of those in ``sys.modules``.
 """
@@ -19,7 +20,10 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_query.py",
     ROOT / "scripts" / "phase2_kernels.py",
-    ROOT / "scripts" / "frontier_reach.py"]
+    ROOT / "scripts" / "frontier_reach.py"] + sorted(
+    (ROOT / "examples").glob("torch_*.py"))
+EXAMPLES = ("torch_quickstart.py", "torch_traffic_forecasting.py",
+            "torch_distributed_fog_serving.py", "torch_llm_serving_iep.py")
 
 
 def _imported_roots(path: Path):
@@ -63,13 +67,24 @@ def test_port_has_the_slice_modules():
               "kernels.flash_attention", "kernels.segment_sum",
               "runtime.bsp", "models.config",
               "models.layers", "models.attention", "models.transformer",
-              "configs.registry", "configs.qwen1_5_0_5b", "launch.serve"):
+              "configs.registry", "configs.qwen1_5_0_5b", "launch.serve",
+              "runtime.serving", "api.demo"):
         assert f"repro_torch.{m}" in mods, m
     assert (PORT / "analysis" / "__main__.py").is_file()
     # the reference's hlo family reads XLA's compiled text: no counterpart
     assert "repro_torch.analysis.hlo" not in mods
     for src in ("block_spmm.cu", "flash_attention.cu", "segment_sum.cu"):
         assert (PORT / "kernels" / "csrc" / src).is_file()
+    for name in EXAMPLES:
+        assert ROOT / "examples" / name in FILES, name
+
+
+def test_gnn_models_has_training_and_the_case_study():
+    from repro_torch.gnn import models
+    for name in ("cross_entropy", "train_node_classifier", "astgcn_init",
+                 "astgcn_apply", "astgcn_spatial_sum", "train_astgcn",
+                 "forecast_errors"):
+        assert callable(getattr(models, name)), name
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
