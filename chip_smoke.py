@@ -47,8 +47,16 @@ Phases, in order; any failed check raises and the script exits non-zero:
                 dh = 128, S = 2048), a dh = 32 case, a window = 4096 case
                 at S = 8192 and a q_offset case (S = 1024 against T =
                 4096), the last two in f32 and in bf16 (every bf16 head dim
-                and mask branch of the wgmma kernel); yardstick
-                ``F.scaled_dot_product_attention``;
+                and mask branch of the wgmma kernel), and recurrentgemma-9b's
+                local attention at its long prefill (B = 1, S = 4096, H =
+                16, KV = 1, dh = 256, window 2048) in bf16 and f32;
+                yardstick ``F.scaled_dot_product_attention``;
+                selective_scan and rglru_scan (against the f32 step loop
+                at rtol 1e-4 / atol 1e-5, and the float64 one reported):
+                falcon-mamba-7b's di = 8192 with 16 states and
+                recurrentgemma-9b's w = 4096, each at a served decode step
+                (B = 4, S = 1) and at B = 1, S = 4096; no library call
+                computes a scan (library_ms null);
                 segment_sum: the fused gather-and-sum at the layers'
                 inputs: full-scale SIoT's edge list over its table (F = 52
                 and 64, the sim path's widths), GAT's self-looped list
@@ -245,7 +253,31 @@ Phases, in order; any failed check raises and the script exits non-zero:
               (set to 0 before each, like the launches): nonzero on
               "train", "astgcn" and "demo", 0 on every serving path. One
               ``{"train_path": ...}`` JSON line.
-  4. report   one ``{"kernels": [...]}`` JSON line (all seven kernels, the
+  3j. non-dense decoders  at full width through ``launch.serve.serve``
+              with SERVE's traffic (24 requests of 16 tokens, three pods,
+              batches of 4), each model its own driven path:
+              falcon-mamba-7b (64 Mamba layers), recurrentgemma-9b (38
+              layers: RG-LRU and dh-256 local attention, ``attn_impl=
+              "flash"``) and deepseek-v3-671b cut to 4 of its 61 layers (3
+              dense MLA, 1 MoE of 256 experts; the one depth cut). Per
+              model: tokens/s, the median prefill ms and decode ms a step,
+              launches exactly those the layer specs imply (a prefill two
+              scans a recurrent layer and one flash kernel a local-
+              attention layer, a decode step one scan a recurrent layer),
+              and in f32 activations the prefill's last logits against a
+              forward of its S tokens and the first decode step against a
+              forward of S + 1 (deepseek-v3: S + 1 steps decoded from
+              empty caches against a dropless forward), max |err| below
+              the reference's 5e-3 (tests/test_arch_smoke.py:69).
+              recurrentgemma-9b also prefills B = 1, S = 4096 in bf16
+              (timed, driven apart). qwen1.5-0.5b decodes 32 steps through
+              the int8 cache, held to its bf16 forward at the reference's
+              relative bar 0.05. Reduced variants of the four non-dense
+              configs are served on the card and on the CPU with the same
+              weights (prefill logits within rtol 1e-4 / atol 1e-4). Each
+              model is freed before the next. One ``{"nondense_path":
+              ...}`` JSON line.
+  4. report   one ``{"kernels": [...]}`` JSON line (all nine kernels, the
               block kernels with their subset cases and subset launches
               by path, the segment sum with its backward launches by
               path), the
@@ -254,7 +286,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
               numbers sum its main-path cases on the path named in
               ``ROW_PATH`` (one call per layer shape: the aggregation work
               of one query or one batch; one attention layer of the
-              S = 4096 prefill; one ``dequantize`` drive); ``launches``
+              S = 4096 prefill; one ``dequantize`` drive; a scan at a
+              served decode step); ``launches``
               sums the counts of every path driven.
 
 Without a CUDA card, or without the repository's ``src/`` beside it, the
@@ -288,6 +321,9 @@ PEAK_F32_FLOP_PER_S = 67e12
 PEAK_BF16_FLOP_PER_S = 989e12
 
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-4   # tests/test_kernels.py
+#: The scans against their f32 plain versions: the reference's kernel bar
+#: (tests/test_aggregation.py:51).
+SCAN_RTOL, SCAN_ATOL = 1e-4, 1e-5
 EMB_RTOL, EMB_ATOL = 1e-4, 1e-5         # tests/test_aggregation.py
 DAQ_BAR = 5e-2                          # tests/test_aggregation.py:81
 #: Kinds whose mesh checks against the float64 forward gate the run. The
@@ -312,6 +348,23 @@ SERVE = dict(requests=24, tokens=16, pods="1.0,1.6,2.4", batch_size=4,
              placement="iep")
 PREFILL_B, PREFILL_S = 2, 4096
 GREEDY = 8
+#: Phase 3j: the non-dense decoders served at full width, each with its
+#: depth cut (None: the full config). deepseek-v3-671b keeps its 3 dense
+#: MLA layers and 1 MoE layer of its 61: all 61 need 1.3 TB, one card 80 GB.
+NONDENSE = (("falcon-mamba-7b", "serve-falcon-mamba", None),
+            ("recurrentgemma-9b", "serve-recurrentgemma", None),
+            ("deepseek-v3-671b", "serve-deepseek-v3", 4))
+#: recurrentgemma-9b's long prefill (bf16): B = 1, S = 4096, so the local
+#: attention's window of 2048 and the dh-256 kernel do real work.
+RG_PREFILL_S = 4096
+#: The prefill / decode-vs-forward check in f32 activations: the
+#: reference's own bar for decode against a forward (max |err| < 5e-3,
+#: tests/test_arch_smoke.py:69), on full-width logits.
+DECODE_VS_FORWARD_ATOL = 5e-3
+#: The int8 KV cache against the bf16 forward: the reference's bar,
+#: max |err| / max |logit| < 0.05 (tests/test_serving_variants.py:51).
+QUANT_REL_BAR = 0.05
+QUANT_STEPS = 32
 #: Kinds held to segment-sum determinism on the card (GAT has no other
 #: path), and the segment sums a layer of each launches (GAT: its softmax
 #: denominators and its weighted messages).
@@ -332,7 +385,9 @@ SOURCES = {"block_spmm": CSRC + "block_spmm.cu",
            "dequant_spmm_batched": CSRC + "block_spmm.cu",
            "dequant": CSRC + "block_spmm.cu",
            "flash_attention": CSRC + "flash_attention.cu",
-           "segment_sum": CSRC + "segment_sum.cu"}
+           "segment_sum": CSRC + "segment_sum.cu",
+           "selective_scan": CSRC + "recurrence.cu",
+           "rglru_scan": CSRC + "recurrence.cu"}
 REPLACES = {
     "block_spmm": "src/repro/kernels/gather_aggregate.py:194",
     "block_spmm_batched": "src/repro/kernels/gather_aggregate.py:149",
@@ -342,12 +397,16 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:67",
     # Not a Pallas kernel: the XLA segment sum of the reference's layers.
     "segment_sum": "src/repro/gnn/layers.py:67",
+    # Not Pallas kernels: the reference's lax.scan time loops.
+    "selective_scan": "src/repro/models/ssm.py:79",
+    "rglru_scan": "src/repro/models/ssm.py:163",
 }
 #: The path whose main-path cases make a kernel's top-level numbers.
 ROW_PATH = {"block_spmm": "sim", "block_spmm_batched": "sim",
             "dequant_spmm": "mesh", "dequant_spmm_batched": "mesh",
             "dequant": "dequantize", "flash_attention": "prefill",
-            "segment_sum": "sim"}
+            "segment_sum": "sim", "selective_scan": "serve-falcon-mamba",
+            "rglru_scan": "serve-recurrentgemma"}
 #: The mesh path's four block kernels, in the order its counts are read.
 MESH_KERNELS = ("block_spmm", "block_spmm_batched", "dequant_spmm",
                 "dequant_spmm_batched")
@@ -378,7 +437,14 @@ PATH_KERNELS = {"sim": ("block_spmm", "block_spmm_batched"),
                 "train": ("segment_sum",),
                 "train-serve": ("block_spmm",),
                 "astgcn": ("segment_sum",),
-                "demo": ("segment_sum", "block_spmm")}
+                "demo": ("segment_sum", "block_spmm"),
+                "serve-falcon-mamba": ("selective_scan",),
+                "serve-recurrentgemma": ("rglru_scan", "flash_attention"),
+                "prefill-recurrentgemma": ("rglru_scan", "flash_attention"),
+                # MLA attends through the chunked path under either
+                # attn_impl, as in the reference, and the MoE's expert
+                # products are batched matmuls: no hand-written kernel.
+                "serve-deepseek-v3": ()}
 #: The block kernels whose wrappers also count their row-subset launches
 #: (``subset_launches``), the launches of a frontier query.
 SUBSET_KERNELS = MESH_KERNELS
@@ -1190,6 +1256,19 @@ FLASH_CASES = [
      4096, 0, None),
     ("q_offset", "folded", 1, 1024, 4096, 16, 16, 64, torch.bfloat16, 0,
      3072, None),
+    # recurrentgemma-9b's local attention (MQA, dh 256, window 2048) at
+    # phase 3j's B = 1, S = 4096 prefill.
+    ("rg local prefill", "model", 1, RG_PREFILL_S, RG_PREFILL_S, 16, 1, 256,
+     torch.bfloat16, 2048, 0, "prefill-recurrentgemma"),
+    ("rg local prefill f32", "model", 1, RG_PREFILL_S, RG_PREFILL_S, 16, 1,
+     256, torch.float32, 2048, 0, None),
+    # The same layers at phase 3j's served prefill (B = 4, prompts
+    # left-padded to 16): one partial key tile. The f32 case is the shape
+    # of phase 3j's f32 decode-vs-forward check.
+    ("rg local serve", "model", 4, 16, 16, 16, 1, 256, torch.bfloat16, 2048,
+     0, "serve-recurrentgemma"),
+    ("rg local serve f32", "model", 4, 16, 16, 16, 1, 256, torch.float32,
+     2048, 0, None),
 ]
 
 
@@ -1280,6 +1359,111 @@ def flash_cases(fa, ref) -> dict:
             f"({b_by})")
         del q, k, v, got, want, ql, kl, vl
         torch.cuda.empty_cache()
+    return out
+
+
+#: (name, B, S, path): the scans at a served batch's decode step (B = 4,
+#: S = 1) and prefill (B = 4, prompts left-padded to 16), both phase 3j's
+#: serve, and at one B = 1, S = 4096 sequence (the rglru_scan one is
+#: recurrentgemma's long prefill in phase 3j).
+SCAN_CASES = {"selective_scan": [("decode", 4, 1, "serve-falcon-mamba"),
+                                 ("serve prefill", 4, 16,
+                                  "serve-falcon-mamba"),
+                                 ("prefill 4096", 1, 4096, None)],
+              "rglru_scan": [("decode", 4, 1, "serve-recurrentgemma"),
+                             ("serve prefill", 4, 16,
+                              "serve-recurrentgemma"),
+                             ("prefill 4096", 1, RG_PREFILL_S,
+                              "prefill-recurrentgemma")]}
+#: Operations per (example, step, channel[, state]), an exp counted as one:
+#: the selective scan's dt a, exp, da h, dt b, db x, add, h c, add for each
+#: state; the RG-LRU's two gates (a product, exp, add, divide each), log_a,
+#: exp, i x, 2 log_a, exp, 1 -, max, sqrt, a h, m gx, add.
+SCAN_OPS = {"selective_scan": 8, "rglru_scan": 18}
+
+
+def scan_bound(name: str, b: int, s: int, width: int, states: int) -> tuple:
+    """Least time (ms) of one scan call, the larger of two floors: every
+    input read once and every output written once (f32) at the HBM rate,
+    and SCAN_OPS operations per element at the f32 rate."""
+    if name == "selective_scan":   # dt, x, y; b, c; a; h0, h_last
+        floats = (3 * b * s * width + 2 * b * s * states + width * states
+                  + 2 * b * width * states)
+        ops = SCAN_OPS[name] * b * s * width * states
+    else:                          # xc, hs; three gate vectors; h0, h_last
+        floats = 2 * b * s * width + 3 * width + 2 * b * width
+        ops = SCAN_OPS[name] * b * s * width
+    t_bytes = 4 * floats / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def scan_inputs(name: str, gen, b: int, s: int) -> tuple:
+    """Inputs at full width, drawn as the models' layers make them:
+    falcon-mamba's di = 8192, 16 states, dt after softplus, a =
+    -exp(log(1..16)); recurrentgemma's w = 4096 with its gate scales
+    (0.5) and lambda = 2 plus noise."""
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+    if name == "selective_scan":
+        di, st = 8192, 16
+        a = -torch.arange(1, st + 1, device="cuda",
+                          dtype=torch.float32).repeat(di, 1)
+        return (F.softplus(randn(b, s, di) - 2.0), randn(b, s, st),
+                randn(b, s, st), randn(b, s, di), a, randn(b, di, st))
+    w = 4096
+    return (randn(b, s, w), randn(w, scale=0.5), randn(w, scale=0.5),
+            2.0 + randn(w, scale=0.1), randn(b, w))
+
+
+def recurrence_cases(rc, ref) -> dict:
+    """Phase 2, the recurrence scans: each kernel against its plain version
+    (the f32 step loop) on the same inputs at the kernel bar rtol 1e-4 /
+    atol 1e-5 (every operation rounded alike, so the last state is expected
+    bitwise; y's sum over the states runs in another order in the plain
+    version's einsum), and against the float64 plain version (reported);
+    times of kernel and plain version. No single PyTorch call computes a
+    scan: library_ms is None."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    for name, cases in SCAN_CASES.items():
+        kern = getattr(rc, name)
+        plain = getattr(ref, name + "_ref")
+        out[name] = {"cases": []}
+        for case, b, s, path in cases:
+            args = scan_inputs(name, gen, b, s)
+            got = kern(*args)
+            want = plain(*args)
+            want64 = plain(*(a.double() for a in args))
+            err = errors(got[0], want[0], SCAN_RTOL, SCAN_ATOL)
+            err_h = errors(got[1], want[1], SCAN_RTOL, SCAN_ATOL)
+            if not all(torch.isfinite(g).all() for g in got) or \
+                    max(err["tol_ratio"], err_h["tol_ratio"]) > 1:
+                raise AssertionError(f"{name} {case}: {err} / last state "
+                                     f"{err_h} beyond rtol {SCAN_RTOL} / "
+                                     f"atol {SCAN_ATOL}")
+            width, states = args[0].shape[2], args[4].shape[-1] \
+                if name == "selective_scan" else 1
+            b_ms, b_by = scan_bound(name, b, s, width, states)
+            k_ms = time_ms(lambda: kern(*args), reps=20)
+            p_ms = time_ms(lambda: plain(*args), reps=3, warmup=1)
+            rec = {"case": name + " " + case, "B": b, "S": s,
+                   "width": width, "states": states, "path": path, **err,
+                   "last_state_max_abs_err": err_h["max_abs_err"],
+                   "last_state_bitwise": bool(torch.equal(got[1], want[1])),
+                   "f64_max_abs_err": errors(got[0], want64[0])[
+                       "max_abs_err"],
+                   "ms": k_ms, "plain_ms": p_ms, "library_ms": None,
+                   "bound_ms": b_ms, "bound_by": b_by}
+            out[name]["cases"].append(rec)
+            log(f"  {name} {case:13s} B={b} S={s}: err "
+                f"{err['max_abs_err']:.3g} (ratio {err['tol_ratio']:.3g}; "
+                f"last state bitwise {rec['last_state_bitwise']}; float64 "
+                f"{rec['f64_max_abs_err']:.3g}) kernel {k_ms:.4f} ms  plain "
+                f"{p_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+            del args, got, want, want64
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2240,11 +2424,11 @@ def long_prefill(tf, fa, cfg) -> dict:
     return res
 
 
-def small_serve_reference(sv, tf, registry) -> dict:
-    """A reduced qwen1.5-0.5b served through the kernel on the card and
-    through the plain version on the CPU, same weights: prefill logits of
+def small_serve_reference(sv, tf, registry, arch: str = ARCH) -> dict:
+    """A reduced ``arch`` served through the kernels on the card and
+    through the plain versions on the CPU, same weights: prefill logits of
     one batch within rtol 1e-4 / atol 1e-4; greedy tokens reported."""
-    cfg = dataclasses.replace(registry.reduced(registry.get(ARCH)),
+    cfg = dataclasses.replace(registry.reduced(registry.get(arch)),
                               attn_impl="flash")
     params = tf.init_params(cfg, torch.Generator().manual_seed(2))
     on_card = to_device(params, "cuda")
@@ -2262,10 +2446,254 @@ def small_serve_reference(sv, tf, registry) -> dict:
                                atol=LOGIT_ATOL, err_msg="reduced prefill: "
                                "card vs CPU")
     total = sum(len(r.done) for r in runs["cpu"]["requests"])
-    log(f"  reduced serve: card vs CPU prefill logits within rtol "
+    log(f"  reduced {arch} serve: card vs CPU prefill logits within rtol "
         f"{LOGIT_RTOL} / atol {LOGIT_ATOL}; greedy tokens agree {agree} / "
         f"{total}")
-    return {"greedy_tokens_agree": agree, "greedy_tokens": total}
+    return {"arch": cfg.name, "greedy_tokens_agree": agree,
+            "greedy_tokens": total}
+
+
+# ---------------------------------------------------------------------------
+# Phase 3j, the non-dense decoders at full width
+# ---------------------------------------------------------------------------
+
+def path_launches(cfg, batches: int, steps: int) -> dict:
+    """Launches of each kernel that ``cfg``'s layer specs imply for
+    ``batches`` served batches of one prefill and ``steps`` decode steps:
+    a prefill runs each recurrent layer's scan twice (the forward's and
+    the state's, which the reference recomputes from the uncast
+    projection) and, with ``attn_impl="flash"``, one flash kernel a GQA or
+    local-attention layer; a decode step one scan a recurrent layer."""
+    mixers = [spec.mixer for spec in cfg.layer_specs()]
+    attn = sum(m in ("gqa", "local_attn") for m in mixers) \
+        if cfg.attn_impl == "flash" else 0
+    out = {}
+    for name, kind in (("selective_scan", "mamba"), ("rglru_scan", "rglru")):
+        n = mixers.count(kind)
+        out[name] = batches * (2 * n + steps * n)
+    out["flash_attention"] = batches * attn
+    return out
+
+
+def check_path_launches(path: str, got: dict, want: dict) -> None:
+    """The path's counts of the three model kernels must be exactly
+    ``want``, and every other kernel's 0."""
+    for name, n in got.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"{path}: {n} {name} launches, expected "
+                                 f"{want.get(name, 0)} ({want})")
+
+
+def served_prompts(sv, cfg, n: int) -> torch.Tensor:
+    """The first ``n`` served requests' prompts, left-padded with token 0
+    as ``serve`` pads a batch."""
+    reqs = sv.make_requests(cfg, SERVE["requests"], SERVE["tokens"])[:n]
+    plen = max(len(r.prompt) for r in reqs)
+    toks = np.zeros((n, plen), np.int64)
+    for i, r in enumerate(reqs):
+        toks[i, plen - len(r.prompt):] = r.prompt
+    return torch.as_tensor(toks, device="cuda")
+
+
+def decode_vs_forward(sv, tf, cfg, params) -> dict:
+    """One served batch in f32 activations, at the reference's
+    decode-vs-forward bar: the prefill's last logits against a forward of
+    the same S tokens, and the first decode step after the prefill against
+    a forward of the S + 1 tokens (row S). A MoE model's prefill drops at
+    capacity 1.25 (as the reference's), which reaches the caches of every
+    layer after a MoE layer, while its decode is dropless: so, as the
+    reference's own check does (tests/test_arch_smoke.py:52-69), its S + 1
+    tokens are decoded from empty caches and every step is held to a
+    forward at capacity E / k.
+
+    Only the decode half is an independent check: decode attends through
+    the plain ``_sdpa`` (MLA: the weight-absorbed form) and runs the scans
+    at S = 1 from the prefill's state, against the forward's flash or
+    chunked attention and full-sequence scans. The prefill half runs the
+    forward's own mixer code and kernels, so it holds the port to itself
+    (it catches a prefill that computes its logits off the forward's
+    path, not a kernel fault)."""
+    cfg32 = dataclasses.replace(cfg, activation_dtype="float32")
+    toks = served_prompts(sv, cfg, SERVE["batch_size"])
+    b, s = toks.shape
+    with torch.inference_mode():
+        lp, caches = tf.prefill(params, cfg32, toks, cache_len=s + 1)
+        want_p = tf.forward(params, cfg32, toks)[0][:, -1:]
+        nxt = torch.argmax(lp[:, -1:], dim=-1)
+        full = torch.cat([toks, nxt], dim=1)
+        if cfg.num_experts:
+            del caches
+            caches = tf.init_cache(cfg32, b, s + 1, device="cuda")
+            steps = []
+            for t in range(s + 1):
+                logits, caches = tf.decode_step(params, cfg32, caches,
+                                                full[:, t:t + 1], t)
+                steps.append(logits)
+            ld = torch.cat(steps, dim=1)
+            want_d = tf.forward(params, cfg32, full, capacity_factor=(
+                cfg.num_experts / cfg.experts_per_token))[0]
+        else:
+            ld, _ = tf.decode_step(params, cfg32, caches, nxt, s)
+            want_d = tf.forward(params, cfg32, full)[0][:, s:s + 1]
+        del caches
+    rec = {"S": s, "B": b, "decode_from_empty_caches": bool(cfg.num_experts),
+           "prefill": errors(lp, want_p, 0.0, DECODE_VS_FORWARD_ATOL),
+           "decode": errors(ld, want_d, 0.0, DECODE_VS_FORWARD_ATOL),
+           "logit_max_abs": float(want_d.abs().max())}
+    log(f"  f32 prefill (S = {s}) / decode vs forward: max |err| "
+        f"{rec['prefill']['max_abs_err']:.3g} / "
+        f"{rec['decode']['max_abs_err']:.3g} (bar "
+        f"{DECODE_VS_FORWARD_ATOL}; |logit| up to "
+        f"{rec['logit_max_abs']:.3g}"
+        + ("; decoded from empty caches, dropless)" if cfg.num_experts
+           else ")"))
+    finite = bool(torch.isfinite(lp).all() and torch.isfinite(ld).all())
+    if not finite or max(rec[w]["tol_ratio"] for w in ("prefill",
+                                                       "decode")) > 1:
+        raise AssertionError(f"{cfg.name} prefill / decode vs forward: "
+                             f"{rec}")
+    return rec
+
+
+def rg_long_prefill(tf, cfg, params) -> dict:
+    """recurrentgemma-9b's bf16 prefill at B = 1, S = RG_PREFILL_S (the
+    served copy), twice: the second timed."""
+    served = tf.cast_params(params, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (1, RG_PREFILL_S), generator=gen,
+                         device="cuda")
+    times = []
+    with torch.inference_mode():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = tf.prefill(served, cfg, toks)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            del caches
+    if logits.shape != (1, 1, cfg.vocab_size) or \
+            not torch.isfinite(logits).all():
+        raise AssertionError(f"bad long prefill logits {tuple(logits.shape)}")
+    log(f"  prefill B=1 S={RG_PREFILL_S} (bf16): {times[1]:.1f} ms (first "
+        f"{times[0]:.1f} ms)")
+    return {"B": 1, "S": RG_PREFILL_S, "first_ms": times[0],
+            "ms": times[1]}
+
+
+def nondense_paths(sv, tf, registry, drive, launches) -> list:
+    """Phase 3j: falcon-mamba-7b, recurrentgemma-9b (flash) and
+    deepseek-v3-671b (4 of its 61 layers) at full width, each served
+    through ``launch.serve.serve`` with SERVE's traffic as its own driven
+    path, with exact launches, timings and the f32 decode-vs-forward
+    check; recurrentgemma's long prefill driven apart. Each model is freed
+    before the next."""
+    out = []
+    for arch, path, layers in NONDENSE:
+        cfg = registry.get(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        if any(s.mixer in ("gqa", "local_attn") for s in cfg.layer_specs()):
+            cfg = dataclasses.replace(cfg, attn_impl="flash")
+        cut = (f", depth cut to {layers} of {registry.get(arch).num_layers} "
+               f"layers" if layers else "")
+        log(f"  {arch}: {cfg.param_count() / 1e9:.3f} B parameters "
+            f"({cfg.param_dtype}){cut}")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = tf.init_params(cfg, torch.Generator(
+            device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        res = drive(path, lambda: sv.serve(cfg, device="cuda", params=params,
+                                           log=log, **SERVE))
+        n_batches = len(res["batches"])
+        want = path_launches(cfg, n_batches, SERVE["tokens"] - 1)
+        check_path_launches(path, launches[path], want)
+        for r in res["requests"]:
+            if len(r.done) != SERVE["tokens"] or not all(
+                    0 <= t < cfg.vocab_size for t in r.done):
+                raise AssertionError(f"{arch} request {r.rid}: bad tokens "
+                                     f"{r.done}")
+        b = res["batches"]
+        steady = b[1:] or b
+        rec = {"arch": cfg.name, "path": path, "num_layers": cfg.num_layers,
+               "depth_cut": layers, "parameters": cfg.param_count(),
+               "init_s": init_s, "batches": n_batches,
+               "tokens": res["tokens"], "wall_s": res["wall_s"],
+               "tokens_per_s": res["tokens_per_s"],
+               "first_prefill_ms": b[0]["prefill_ms"],
+               "prefill_ms_median": statistics.median(
+                   x["prefill_ms"] for x in steady),
+               "decode_ms_per_step_median": statistics.median(
+                   x["decode_ms"] / x["decode_steps"] for x in steady),
+               "launches": {k: v for k, v in launches[path].items() if v},
+               "launches_per_prefill": path_launches(cfg, 1, 0),
+               "launches_per_decode_step": {
+                   k: v - w for (k, v), w in zip(
+                       path_launches(cfg, 1, 1).items(),
+                       path_launches(cfg, 1, 0).values())},
+               "batch_timings": b}
+        log(f"  {arch} serve: {rec['tokens']} tokens in {rec['wall_s']:.2f} "
+            f"s ({rec['tokens_per_s']:.1f} tok/s), prefill "
+            f"{rec['prefill_ms_median']:.2f} ms / decode "
+            f"{rec['decode_ms_per_step_median']:.2f} ms a step (median "
+            f"after the first batch; first prefill "
+            f"{rec['first_prefill_ms']:.1f} ms); launches {rec['launches']} "
+            f"({rec['launches_per_prefill']} a prefill, "
+            f"{rec['launches_per_decode_step']} a decode step)")
+        rec["decode_vs_forward"] = decode_vs_forward(sv, tf, cfg, params)
+        if arch == "recurrentgemma-9b":
+            rec["long_prefill"] = drive("prefill-recurrentgemma",
+                                        lambda: rg_long_prefill(tf, cfg,
+                                                                params))
+            check_path_launches("prefill-recurrentgemma",
+                                launches["prefill-recurrentgemma"],
+                                path_launches(cfg, 2, 0))
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        rec["init_and_checks_s"] = time.perf_counter() - t0
+        log(f"  {arch}: peak {rec['peak_gb']:.1f} GB allocated, "
+            f"{rec['init_and_checks_s']:.1f} s")
+        out.append(rec)
+        del params, res
+        torch.cuda.empty_cache()
+    return out
+
+
+def quant_decode(tf, registry) -> dict:
+    """qwen1.5-0.5b at full width (bf16 served copy): QUANT_STEPS decode
+    steps from an empty int8 cache (``init_cache(quantized=True)``) against
+    the bf16 forward of the same tokens, at the reference's relative bar."""
+    cfg = dataclasses.replace(registry.get(ARCH), attn_impl="flash")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    served = tf.cast_params(tf.init_params(cfg, gen), cfg)
+    b = SERVE["batch_size"]
+    toks = torch.randint(0, cfg.vocab_size, (b, QUANT_STEPS), generator=gen,
+                         device="cuda")
+    with torch.inference_mode():
+        caches = tf.init_cache(cfg, b, QUANT_STEPS, quantized=True,
+                               device="cuda")
+        cache_bytes = sum(t.numel() * t.element_size() for c in caches
+                          for t in dataclasses.astuple(c))
+        outs = []
+        for t in range(QUANT_STEPS):
+            logits, caches = tf.decode_step(served, cfg, caches,
+                                            toks[:, t:t + 1], t)
+            outs.append(logits)
+        dec = torch.cat(outs, dim=1).float()
+        fwd = tf.forward(served, cfg, toks)[0].float()
+    rel = float((dec - fwd).abs().max() / fwd.abs().max())
+    bf16_bytes = 2 * 2 * b * QUANT_STEPS * cfg.num_kv_heads * cfg.head_dim \
+        * cfg.num_layers
+    log(f"  {ARCH} int8 KV cache: {QUANT_STEPS} decode steps vs the bf16 "
+        f"forward, max |err| / max |logit| = {rel:.4g} (bar "
+        f"{QUANT_REL_BAR}); cache {cache_bytes} bytes against {bf16_bytes} "
+        f"in bf16")
+    if not torch.isfinite(dec).all() or rel >= QUANT_REL_BAR:
+        raise AssertionError(f"int8 KV cache decode: relative error {rel}")
+    del served, caches
+    torch.cuda.empty_cache()
+    return {"steps": QUANT_STEPS, "B": b, "rel_err": rel,
+            "cache_bytes": cache_bytes, "bf16_cache_bytes": bf16_bytes}
 
 
 def to_device(tree, device):
@@ -3957,6 +4385,7 @@ def main() -> int:
     from repro_torch.kernels import daq_dequant as dq
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gather_aggregate as ga
+    from repro_torch.kernels import recurrence as rc
     from repro_torch.kernels import segment_sum as sg
     from repro_torch.launch import serve as sv
     from repro_torch.models import transformer as tf
@@ -4043,6 +4472,7 @@ def main() -> int:
     tables = dequant_tables(g, compression, datasets)
     results.update(dequant_kernel_cases(dq, ref, tables))
     results.update(flash_cases(fa, ref))
+    results.update(recurrence_cases(rc, ref))
 
     wrappers = {"block_spmm": ga.block_spmm,
                 "block_spmm_batched": ga.block_spmm_batched,
@@ -4050,7 +4480,9 @@ def main() -> int:
                 "dequant_spmm_batched": dq.dequant_spmm_batched,
                 "dequant": dq.dequant,
                 "flash_attention": fa.flash_attention,
-                "segment_sum": sg.segment_sum}
+                "segment_sum": sg.segment_sum,
+                "selective_scan": rc.selective_scan,
+                "rglru_scan": rc.rglru_scan}
     kernels = [wrappers[n] for n in REPLACES]
     launches, backward = {}, {}
 
@@ -4222,6 +4654,18 @@ def main() -> int:
     prefilled = drive("prefill", lambda: long_prefill(tf, fa, cfg))
     reduced = small_serve_reference(sv, tf, registry)
 
+    log("phase 3j: the non-dense decoders at full width (Mamba, RG-LRU with "
+        "local attention, MLA + MoE), the int8 KV cache")
+    t_3j = time.perf_counter()
+    nondense = {"models": nondense_paths(sv, tf, registry, drive, launches),
+                "quant_kv_cache": quant_decode(tf, registry),
+                "reduced_serve": [
+                    small_serve_reference(sv, tf, registry, arch)
+                    for arch in ("deepseek-v3-671b", "falcon-mamba-7b",
+                                 "grok-1-314b", "recurrentgemma-9b")]}
+    nondense["phase_s"] = time.perf_counter() - t_3j
+    log(f"  phase 3j: {nondense['phase_s']:.1f} s")
+
     kernel_rows = []
     for name, rec in results.items():
         main_cases = [c for c in rec["cases"] if c["path"] == ROW_PATH[name]]
@@ -4241,7 +4685,9 @@ def main() -> int:
             "plain_ms": sum(c["plain_ms"] for c in main_cases),
             "bound_ms": sum(c["bound_ms"] for c in main_cases),
             "bound_by": main_cases[-1]["bound_by"],
-            "library_ms": sum(c["library_ms"] for c in main_cases),
+            "library_ms": None if any(c["library_ms"] is None
+                                      for c in main_cases)
+            else sum(c["library_ms"] for c in main_cases),
             **{k: v for k, v in rec.items() if k != "cases"},
             "cases": rec["cases"]})
     print(json.dumps({"fault_path": fault_rec}), flush=True)
@@ -4256,6 +4702,7 @@ def main() -> int:
                       "serve_path": served_lm, "prefill_path": prefilled,
                       "reduced_serve": reduced}), flush=True)
     print(json.dumps({"train_path": trained}), flush=True)
+    print(json.dumps({"nondense_path": nondense}), flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -2,7 +2,8 @@
 """Phase 2 of ``chip_smoke.py`` for one group of kernels, for a given tree,
 so that two trees can be timed in turns on one card.
 
-    python3 scripts/phase2_kernels.py [TREE] [--flash | --segment | --dequant]
+    python3 scripts/phase2_kernels.py [TREE] [--flash | --segment | --dequant
+                                              | --serve | --activations]
 
 TREE (default: this repository) is the root of a checkout that holds
 ``chip_smoke.py`` and ``src/repro_torch`` (for example the parent commit
@@ -24,7 +25,20 @@ errors:
   ``dequantize`` drive, each unpadded and padded to the reference's
   256 x 128 tiling, and on a streaming 131,072 x 128 uint8 table (device
   time by CUDA events, median of 50; each bitwise the plain version),
-  through the public API only, so any tree of the port can run it.
+  through the public API only, so any tree of the port can run it;
+* ``--serve``: ``launch.serve.serve`` of qwen1.5-0.5b at full width with
+  the flash kernel and ``chip_smoke.SERVE``'s traffic, four times (the
+  first a warm-up): tokens/s and the median decode ms a step of each
+  run; then phase 3e's bf16 prefill (B = 2, S = 4096, the served copy)
+  six times, the first a warm-up (host clock ending in a sync). Through
+  the public API only, so any tree of the port can run it.
+* ``--activations``: the same serve and prefill in one process, the
+  MLP's activation switched in turns between JAX's formula written op by
+  op (``models.layers.silu``, the port's since it serves the non-dense
+  configs) and PyTorch's fused ``F.silu`` (``ABBA`` order, ``ROUNDS``
+  rounds, after a warm-up of each): what the op-by-op form costs the
+  dense path, apart from the noise between processes. Needs a tree
+  whose ``models.layers`` has ``silu``.
 
 Run ``parent, change, change, parent`` in one call to compare two versions.
 Needs a CUDA card.
@@ -43,6 +57,8 @@ group = ap.add_mutually_exclusive_group()
 group.add_argument("--flash", action="store_true")
 group.add_argument("--segment", action="store_true")
 group.add_argument("--dequant", action="store_true")
+group.add_argument("--serve", action="store_true")
+group.add_argument("--activations", action="store_true")
 args = ap.parse_args()
 root = Path(args.tree).resolve()
 sys.path.insert(0, str(root / "src"))
@@ -126,6 +142,94 @@ def dequant_times(cs, dq, ref, tables) -> list:
     return out
 
 
+def qwen_serve(cs):
+    """qwen1.5-0.5b at full width (flash) from seeded weights, and two
+    callables: one serve of SERVE's traffic, returning tokens/s and the
+    median decode ms a step; one bf16 prefill of B = PREFILL_B, S =
+    PREFILL_S through the served copy, returning its ms."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve as sv
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(registry.get(cs.ARCH), attn_impl="flash")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = tf.init_params(cfg, gen)
+    served = tf.cast_params(params, cfg)
+    toks = torch.randint(0, cfg.vocab_size, (cs.PREFILL_B, cs.PREFILL_S),
+                         generator=gen, device="cuda")
+
+    def serve():
+        res = sv.serve(cfg, device="cuda", params=params, log=None,
+                       **cs.SERVE)
+        return {"tokens_per_s": res["tokens_per_s"],
+                "decode_ms_per_step_median": statistics.median(
+                    b["decode_ms"] / b["decode_steps"]
+                    for b in res["batches"][1:])}
+
+    def prefill():
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tf.prefill(served, cfg, toks)
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+    return serve, prefill
+
+
+def serve_times(cs) -> dict:
+    """Four serves and six long prefills; the first of each a warm-up."""
+    serve, prefill = qwen_serve(cs)
+    out = {"serve": [], "prefill_ms": []}
+    for run in range(4):
+        out["serve"].append({"run": run, **serve()})
+        print(f"  serve run {run}: {out['serve'][-1]['tokens_per_s']:.1f} "
+              f"tok/s, decode "
+              f"{out['serve'][-1]['decode_ms_per_step_median']:.2f} ms a "
+              f"step", flush=True)
+    out["prefill_ms"] = [prefill() for _ in range(6)]
+    print(f"  prefill B={cs.PREFILL_B} S={cs.PREFILL_S} bf16: "
+          f"{out['prefill_ms']} ms", flush=True)
+    return out
+
+
+#: Rounds of the activation A/B; each runs both variants, ABBA.
+ROUNDS = 8
+
+
+def activation_times(cs) -> dict:
+    """``--activations``: per variant, ROUNDS serves and 2 ROUNDS long
+    prefills in turns, after a warm-up of each; the medians and every
+    reading."""
+    import torch.nn.functional as F
+    from repro_torch.models import layers
+    variants = {"jax": dict(layers._ACTIVATIONS),
+                "fused": {"silu": F.silu,
+                          "gelu": lambda x: F.gelu(x, approximate="tanh")}}
+    serve, prefill = qwen_serve(cs)
+    out = {v: {"decode_ms_per_step": [], "tokens_per_s": [],
+               "prefill_ms": []} for v in variants}
+    for r in range(ROUNDS + 1):
+        order = ("jax", "fused") if r % 2 else ("fused", "jax")
+        for v in order:
+            layers._ACTIVATIONS.update(variants[v])
+            sr = serve()
+            pr = [prefill(), prefill()]
+            if r == 0:
+                continue   # the warm-up
+            out[v]["decode_ms_per_step"].append(
+                sr["decode_ms_per_step_median"])
+            out[v]["tokens_per_s"].append(sr["tokens_per_s"])
+            out[v]["prefill_ms"].extend(pr)
+    layers._ACTIVATIONS.update(variants["jax"])
+    for v, rec in out.items():
+        rec["median"] = {k: statistics.median(x) for k, x in rec.items()}
+        print(f"  {v:5s}: decode {rec['median']['decode_ms_per_step']:.3f} "
+              f"ms a step, {rec['median']['tokens_per_s']:.1f} tok/s, "
+              f"prefill {rec['median']['prefill_ms']:.3f} ms (medians of "
+              f"{ROUNDS} / {ROUNDS} / {2 * ROUNDS})", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("phase2_kernels: no CUDA card", file=sys.stderr)
@@ -148,7 +252,11 @@ def main() -> int:
     for line in report.read_text().splitlines():
         if any(w in line for w in ("Compiling entry", "registers", "spill")):
             print("  ptxas", line.strip())
-    if args.flash:
+    if args.serve:
+        res = {"serve": serve_times(cs)}
+    elif args.activations:
+        res = {"activations": activation_times(cs)}
+    elif args.flash:
         from repro_torch.kernels import flash_attention as fa
         res = cs.flash_cases(fa, ref)
     elif args.segment:
@@ -170,8 +278,10 @@ def main() -> int:
                                     pg.n * pg.boundary_slots))
     print(json.dumps({
         "tree": str(root), "device": torch.cuda.get_device_name(0),
-        "cases": {name: rec if args.segment or args.dequant else
-                  [{k: c[k] for k in KEYS if k in c} for c in rec["cases"]]
+        "cases": {name: rec if args.segment or args.dequant or args.serve
+                  or args.activations
+                  else [{k: c[k] for k in KEYS if k in c}
+                        for c in rec["cases"]]
                   for name, rec in res.items()}}), flush=True)
     return 0
 

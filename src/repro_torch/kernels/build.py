@@ -28,6 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 #: library name -> CUDA source file under ``csrc/``.
 SOURCES = {"block_spmm": "block_spmm.cu",
            "flash_attention": "flash_attention.cu",
+           "recurrence": "recurrence.cu",
            "segment_sum": "segment_sum.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

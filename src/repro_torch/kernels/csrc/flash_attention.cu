@@ -34,11 +34,12 @@
 //
 // * bf16 -> flash_kernel_bf16, on the tensor cores. A CTA owns 64 * WG
 //   query rows of one (b, h): WG consumer warpgroups of 64 rows each (three
-//   at dh 32 and 64, two at dh 128, whose 64-float accumulator needs the
-//   registers) and one producer warpgroup, which hands its registers to the
-//   consumers (setmaxnreg) and from one thread brings Q once and then K and
-//   V tiles of 64 keys by TMA into a 3-stage ring of 128B-swizzled shared
-//   memory (64B at dh 32), with full / empty mbarriers. The 4-d tensor maps
+//   at dh 32 and 64, two at dh 128 and 256, whose 64- and 128-float
+//   accumulators need the registers) and one producer warpgroup, which
+//   hands its registers to the consumers (setmaxnreg) and from one thread
+//   brings Q once and then K and V tiles of 64 keys by TMA into a 3-stage
+//   ring of 128B-swizzled shared memory (64B at dh 32; 2 stages at dh 256,
+//   where Q is 64 KB and a stage 64 KB), with full / empty mbarriers. The 4-d tensor maps
 //   run over (dh, head, position, batch), so the strided layout and the
 //   GQA head h / group are read in place.
 //   Each consumer warpgroup computes S = Q K^T with wgmma.m64n64k16 (bf16
@@ -47,7 +48,8 @@
 //   that hold it; p = exp2(s * scale * log2(e) - max), one FFMA and one
 //   ex2.approx, relative error below 2^-22), and O += P V with P as the
 //   register A operand (the f32 accumulator fragment is the bf16 A fragment
-//   in place) and V the MN-major B operand (the transpose bit). P is split
+//   in place) and V the MN-major B operand (the transpose bit; at dh 256
+//   as two products of 128 columns). P is split
 //   into bf16 hi + lo (lo the bf16 of p - hi) and both go through the
 //   product: P keeps about 16 bits, so the output stays within one bf16
 //   rounding of the float64 answer as the reference's f32 products do (P in
@@ -61,11 +63,13 @@
 //   O / max(l, 1e-20) as bf16 (RN) from registers; rows >= S are never
 //   stored.
 // * f32 -> flash_kernel_f32 (f32 must stay IEEE f32: TF32 tensor cores would
-//   round the inputs to 10 bits): one CTA of 256 threads owns 64 query rows
+//   round the inputs to 10 bits): one CTA of 256 threads (211 KB of shared
+//   memory at dh 256) owns 64 query rows
 //   of one head and keeps them in shared memory (pre-scaled) for the whole
 //   pass; K and V stream through shared memory in 64-key tiles (K stored
 //   transposed, so score reads are conflict-free). Each thread holds a 4 x 4
-//   block of scores and a 4 x (dh / 16) block of the accumulator as f32 FMA
+//   block of scores and a 4 x (dh / 16) block of the accumulator (64 floats
+//   at dh 256) as f32 FMA
 //   on the CUDA cores; the row max and row sum are reduced across the 16
 //   threads of a row with warp shuffles; empty tiles are skipped.
 
@@ -286,10 +290,11 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <int D>
 struct Geo {
   // Three consumer warpgroups (192 rows share each K / V tile) where 160
-  // registers a thread hold a group's state; two of 240 at dh 128.
-  static constexpr int WG = D == 128 ? 2 : 3;           // consumer warpgroups
+  // registers a thread hold a group's state; two of 240 at dh 128 and 256.
+  // At dh 256 a K/V stage is 64 KB and Q 64 KB: two stages fit the 227 KB.
+  static constexpr int WG = D >= 128 ? 2 : 3;           // consumer warpgroups
   static constexpr int BN = 64;                         // keys per K/V tile
-  static constexpr int STAGES = 3;                      // K/V ring depth
+  static constexpr int STAGES = D == 256 ? 2 : 3;       // K/V ring depth
   static constexpr int BM = 64 * WG;                    // query rows per CTA
   static constexpr int CONSUMERS = 128 * WG;
   static constexpr int THREADS = CONSUMERS + 128;       // + producer group
@@ -602,7 +607,10 @@ __device__ __forceinline__ void issue_qk(float* s, uint32_t q_addr,
 }
 
 // O = O * alpha (per row), then O += P_hi V + P_lo V issued and committed:
-// BN / 16 k-steps of 16 keys, V the MN-major operand.
+// BN / 16 k-steps of 16 keys, V the MN-major operand. Head dims above 128
+// run as products of N = 128 columns (two swizzle chunks each): the
+// accumulator fragment of columns 128 h .. 128 h + 127 is entries 64 h ..
+// 64 h + 63, as in one N = D fragment.
 template <int D>
 __device__ __forceinline__ void issue_pv(float* acc, float alpha0,
                                          float alpha1, const uint32_t* hi,
@@ -616,14 +624,18 @@ __device__ __forceinline__ void issue_pv(float* acc, float alpha0,
     acc[4 * j + 2] *= alpha1;
     acc[4 * j + 3] *= alpha1;
   }
+  constexpr int N = D < 128 ? D : 128;   // columns a product
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < G::BN / 16; ++kk) {
-    const uint64_t dv =
-        make_desc(v_addr + kk * 16 * G::ROW, G::KV_CHUNK, G::ATOM, G::SWZ);
-    wgmma_rs<D>(acc, hi + 4 * kk, dv);
-    wgmma_rs<D>(acc, lo + 4 * kk, dv);
-  }
+  for (int kk = 0; kk < G::BN / 16; ++kk)
+#pragma unroll
+    for (int nh = 0; nh < D / N; ++nh) {
+      const uint64_t dv = make_desc(
+          v_addr + nh * (N / G::CH) * G::KV_CHUNK + kk * 16 * G::ROW,
+          G::KV_CHUNK, G::ATOM, G::SWZ);
+      wgmma_rs<N>(acc + nh * N / 2, hi + 4 * kk, dv);
+      wgmma_rs<N>(acc + nh * N / 2, lo + 4 * kk, dv);
+    }
   wgmma_commit();
 }
 
@@ -946,8 +958,8 @@ extern "C" {
 // (batch, position, head) of q, k, v and o in that order (12 values); the
 // head_dim axis is contiguous. dtype_code: 0 = float32, 1 = bfloat16 (all
 // four tensors; bf16 pointers 16-byte aligned and strides multiples of 8
-// elements, as TMA needs). head_dim 32, 64 or 128. Returns a cudaError_t
-// code.
+// elements, as TMA needs). head_dim 32, 64, 128 or 256. Returns a
+// cudaError_t code.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, const long long* st, int dtype_code,
                            int head_dim, int batch, int heads, int group,
@@ -967,6 +979,10 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                         s);
     case 128:
       return launch<128>(dtype_code, q, k, v, o, qs, ks, vs, os, batch,
+                         heads, group, s_len, t_len, scale, causal, window,
+                         q_offset, s);
+    case 256:
+      return launch<256>(dtype_code, q, k, v, o, qs, ks, vs, os, batch,
                          heads, group, s_len, t_len, scale, causal, window,
                          q_offset, s);
     default:

@@ -10,8 +10,9 @@ the model layout in place through strides and index the GQA kv head as
 ``h // group`` (no repeated K/V copy): bf16 on the tensor cores (wgmma,
 K/V by TMA), f32 in IEEE f32 on the CUDA cores. On CPU tensors they run
 the plain versions of ``kernels.ref``. f32 softmax statistics, output in
-q's dtype; head_dim 32, 64 or 128. TMA reads bf16 tensors in place, so on
-CUDA they need 16-byte aligned data and strides (``check_tma_layout``).
+q's dtype; head_dim 32, 64, 128 or 256 (recurrentgemma's). TMA reads bf16
+tensors in place, so on CUDA they need 16-byte aligned data and strides
+(``check_tma_layout``).
 
 The kernel counts its launches in ``flash_attention.launches``, raised by
 one at every launch (from either wrapper) and nowhere else.
@@ -25,7 +26,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_BATCH_HEADS = 65535   # grid.y limit of the launch geometry
 

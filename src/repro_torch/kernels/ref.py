@@ -241,3 +241,58 @@ def gather_segment_sum_ref(x: torch.Tensor, idx: torch.Tensor,
     every = torch.arange(terms.shape[0], dtype=torch.int32,
                          device=terms.device)
     return segment_sum_ref(terms, every, offsets)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, as JAX writes it: ``logaddexp(x, 0)`` =
+    max(x, 0) + log1p(exp(-|x|))."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def selective_scan_ref(dt: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                       x: torch.Tensor, a: torch.Tensor,
+                       h0: torch.Tensor):
+    """Mamba-1's recurrence, the ``lax.scan`` of the reference's
+    ``_mamba_inner`` (src/repro/models/ssm.py:68-80), one step at a time:
+
+        h = exp(dt_t a) h + (dt_t b_t) x_t,   y_t = sum_s h[:, :, s] c_t[s]
+
+    dt, x [B, S, di] (dt after softplus), b, c [B, S, st], a [di, st]
+    (``-exp(a_log)``), h0 [B, di, st], all in one float type (f32 on the
+    model's path, float64 for a yardstick). Every product and sum is one
+    tensor op, rounded on its own. Returns (y [B, S, di], h_last)."""
+    h = h0
+    ys = []
+    for t in range(dt.shape[1]):
+        dt_t = dt[:, t, :, None]                          # [B, di, 1]
+        da = torch.exp(dt_t * a)
+        db = dt_t * b[:, t, None, :]
+        h = da * h + db * x[:, t, :, None]
+        ys.append(torch.einsum("bds,bs->bd", h, c[:, t]))
+    return torch.stack(ys, dim=1), h
+
+
+#: RG-LRU's constant c (arXiv:2402.19427 §2.4; src/repro/models/ssm.py:124).
+LRU_C = 8.0
+
+
+def rglru_scan_ref(xc: torch.Tensor, w_input_gate: torch.Tensor,
+                   w_rec_gate: torch.Tensor, lambda_p: torch.Tensor,
+                   h0: torch.Tensor):
+    """The reference's ``_rglru_scan`` (src/repro/models/ssm.py:146-164):
+    the input and recurrence gates of the conv output xc [B, S, w], then
+    the diagonal recurrence h = a_t h + m_t (i_t x_t) one step at a time,
+    from h0 [B, w]. All tensors in one float type (f32 on the model's
+    path); the gate vectors are [w]. Returns (hs [B, S, w], h_last)."""
+    i_gate = 1 / (1 + torch.exp(-(xc * w_input_gate)))   # jax.nn.sigmoid
+    r_gate = 1 / (1 + torch.exp(-(xc * w_rec_gate)))
+    log_a = -LRU_C * softplus(lambda_p) * r_gate
+    a = torch.exp(log_a)
+    gated_x = i_gate * xc
+    mult = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
+    h = h0
+    hs = []
+    for t in range(xc.shape[1]):
+        h = a[:, t] * h + mult[:, t] * gated_x[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1), h

@@ -10,10 +10,10 @@ from a ``torch.Generator``; the JAX package's weights carry across through
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
-import torch.nn.functional as F
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -76,9 +76,10 @@ def sinusoidal_embedding(positions: torch.Tensor,
 
 def scaled_normal(gen: torch.Generator, shape, dtype,
                   scale: float) -> torch.Tensor:
-    """``scale`` times standard normal draws from ``gen``, on its device."""
+    """``scale`` times standard normal draws from ``gen``, on its device
+    (scaled in place: a full-width expert stack is gigabytes)."""
     return torch.randn(shape, generator=gen, dtype=dtype,
-                       device=gen.device) * scale
+                       device=gen.device).mul_(scale)
 
 
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype,
@@ -91,12 +92,42 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype,
     return p
 
 
-def _gelu(x: torch.Tensor) -> torch.Tensor:
-    # jax.nn.gelu defaults to the tanh approximation.
-    return F.gelu(x, approximate="tanh")
+# Activations as JAX writes them, op by op in the input's dtype (a bf16
+# input rounds after each op, as XLA's bf16 ops do, and a constant is first
+# rounded to that dtype): bitwise ``jax.nn`` in bf16 on the CPU but where
+# XLA flushes a subnormal to zero, within an ulp in f32. PyTorch's fused
+# ``F.silu`` / ``F.gelu`` round once and differ from JAX in the last bf16
+# bit of some outputs. Each op is a pass over the tensor: on the card the
+# op-by-op silu costs the dense long prefill about a tenth of its time
+# (PERF.md), the price of the reference's numbers.
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid``: 1 / (1 + exp(-x)) (``reciprocal`` rounds as the
+    divide does, in one pass where ``1 / t`` takes two)."""
+    return torch.reciprocal(1 + torch.exp(-x))
 
 
-_ACTIVATIONS = {"silu": F.silu, "gelu": _gelu}
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: x * sigmoid(x)."""
+    return x * sigmoid(x)
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(v: float, dtype: torch.dtype) -> float:
+    """``v`` rounded to ``dtype``, as JAX rounds a weakly typed constant (a
+    Python number: no copy to the card)."""
+    return torch.tensor(v, dtype=dtype).item()
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (approximate=True, its default), the tanh form."""
+    c0 = _rounded(math.sqrt(2 / math.pi), x.dtype)
+    c1 = _rounded(0.044715, x.dtype)
+    cdf = 0.5 * (1.0 + torch.tanh(c0 * (x + c1 * x ** 3)))
+    return x * cdf
+
+
+_ACTIVATIONS = {"silu": silu, "gelu": gelu}
 
 
 def mlp(params, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
@@ -122,11 +153,18 @@ def embed(params, tokens: torch.Tensor) -> torch.Tensor:
     return params["table"][tokens]
 
 
+def promoted_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in the promoted dtype of the two, as JAX computes a product
+    of mixed types (a bf16 activation against an f32 weight is an f32
+    product; neither operand is cast down)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
 def unembed(params, x: torch.Tensor) -> torch.Tensor:
-    """x @ table.T in the promoted dtype of the two, as JAX promotes a
-    bf16 activation against an f32 table (the table is not cast down)."""
-    dt = torch.promote_types(x.dtype, params["table"].dtype)
-    return x.to(dt) @ params["table"].to(dt).T
+    """x @ table.T in the promoted dtype of the two (the table is not cast
+    down)."""
+    return promoted_matmul(x, params["table"].T)
 
 
 def init_linear(gen: torch.Generator, d_in: int, d_out: int, dtype,

@@ -65,6 +65,7 @@ def test_port_has_the_slice_modules():
               "core.simulation", "kernels.gather_aggregate", "kernels.ref",
               "kernels.daq_dequant", "kernels.ops", "kernels.build",
               "kernels.flash_attention", "kernels.segment_sum",
+              "kernels.recurrence", "models.moe", "models.ssm",
               "runtime.bsp", "models.config",
               "models.layers", "models.attention", "models.transformer",
               "configs.registry", "configs.qwen1_5_0_5b", "launch.serve",
@@ -73,7 +74,8 @@ def test_port_has_the_slice_modules():
     assert (PORT / "analysis" / "__main__.py").is_file()
     # the reference's hlo family reads XLA's compiled text: no counterpart
     assert "repro_torch.analysis.hlo" not in mods
-    for src in ("block_spmm.cu", "flash_attention.cu", "segment_sum.cu"):
+    for src in ("block_spmm.cu", "flash_attention.cu", "segment_sum.cu",
+                "recurrence.cu"):
         assert (PORT / "kernels" / "csrc" / src).is_file()
     for name in EXAMPLES:
         assert ROOT / "examples" / name in FILES, name

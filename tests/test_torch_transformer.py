@@ -2,16 +2,18 @@
 
 Configurations and their reduced variants must be equal field by field.
 Layers (``rms_norm``, ``apply_rope``, the SiLU / GELU ``mlp``), the dense
-decoder (``forward``, ``prefill``, ``decode_step`` with the flash kernel's
-plain version or the chunked path, the windowed ring-buffer decode) and the
-serving loop (``place_batches``, greedy tokens of ``serve``) run on the
-same seeded numpy inputs and the JAX package's weights, carried across by
+decoders and the non-dense ones (MLA + MoE + MTP, MoE, Mamba, RG-LRU with
+local attention: ``forward``, ``prefill``, ``decode_step`` with the flash
+kernel's plain version or the chunked path, the windowed ring-buffer
+decode), ``init_cache`` for every config, ``cast_params`` and the serving
+loop (``place_batches``, greedy tokens of ``serve``) run on the same
+seeded numpy inputs and the JAX package's weights, carried across by
 ``transformer.params_from_numpy``. Logits must agree within the
 reference's model-level bar, rtol 1e-4 / atol 1e-4
 (tests/test_flash_attention.py:74); layers within rtol 1e-5 / atol 1e-5
 in float32 (both packages round the same f32 operations, in other orders)
 and one bf16 rounding (rtol 2**-7) in bfloat16; placements and greedy
-tokens exactly.
+tokens exactly; the served copy's logits bitwise.
 """
 import dataclasses
 import functools
@@ -221,15 +223,196 @@ def test_activation_dtype_copy_gives_the_same_numbers():
     assert a.dtype == torch.bfloat16 and torch.equal(a, b)
 
 
+# ----------------------------------------------------------------------------
+# The decoders off the dense path (MLA + MoE + MTP, MoE, Mamba, RG-LRU with
+# local attention)
+# ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("impl", IMPLS)
 @pytest.mark.parametrize("arch", NOT_DENSE)
-def test_layer_kinds_outside_the_dense_path_raise(arch):
-    cfg = treg.reduced(treg.get(arch))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        ttf.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        ttf.init_cache(cfg, 1, 8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tserve.serve(cfg, requests=1, tokens=1, device="cpu", log=None)
+def test_non_dense_forward_matches_jax(arch, impl):
+    jcfg, tcfg = _cfgs(arch, impl)
+    jp, tp = _params(arch)
+    toks = _tokens(tcfg, 2, 32, 8)
+    want, want_aux = jtf.forward(jp, jcfg, jnp.asarray(toks))
+    got, aux = ttf.forward(tp, tcfg, torch.as_tensor(toks))
+    assert got.shape == (2, 32, tcfg.vocab_size)
+    _close(got, want)
+    _close(aux, want_aux)
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("arch", NOT_DENSE)
+def test_non_dense_prefill_and_decode_match_jax(arch, impl):
+    """Prefill (MoE at capacity 1.25, the recurrent states recomputed as
+    the reference does) then 6 decode steps (dropless MoE)."""
+    for got, want in _prefill_and_decode(arch, impl, 16,
+                                         cache_len=16 + DECODE_STEPS):
+        _close(got, want)
+
+
+@pytest.mark.parametrize("arch", NOT_DENSE)
+def test_non_dense_windowed_decode_matches_jax(arch):
+    """A 32-token prefill into 16-entry rings (MLA's latent cache, GQA's
+    KV; recurrentgemma's local attention keeps its own window of 32, which
+    the decode then passes), then decode past them."""
+    for got, want in _prefill_and_decode(arch, "flash", 32, window=16):
+        _close(got, want)
+
+
+@pytest.mark.parametrize("arch", NOT_DENSE)
+def test_non_dense_init_params_have_the_reference_shapes(arch):
+    _, tcfg = _cfgs(arch)
+    jp, tp = _params(arch)
+    fresh = ttf.init_params(tcfg, torch.Generator().manual_seed(0))
+    flat = lambda t: jax.tree_util.tree_leaves(  # noqa: E731
+        jax.tree_util.tree_map(lambda a: (tuple(a.shape), str(a.dtype)), t))
+    assert flat(fresh) == flat(tp)
+    assert len(tp["layers"]) == tcfg.num_layers
+
+
+def test_mtp_subtree_carries_across_with_the_reference_shapes():
+    """DeepSeek-V3's MTP head: built by ``init_params`` and carried by
+    ``params_from_numpy`` leaf for leaf (one block, not stacked)."""
+    _, tcfg = _cfgs("deepseek-v3-671b")
+    jp, tp = _params("deepseek-v3-671b")
+    fresh = ttf.init_params(tcfg, torch.Generator().manual_seed(0))
+    assert set(tp["mtp"]) == {"proj", "block", "norm"}
+    want = jax.tree_util.tree_leaves_with_path(jp["mtp"])
+    got = jax.tree_util.tree_leaves_with_path(tp["mtp"])
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (_, g), (_, w), (_, f) in zip(
+            got, want, jax.tree_util.tree_leaves_with_path(fresh["mtp"])):
+        assert tuple(g.shape) == tuple(w.shape) == tuple(f.shape)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert "mtp" not in _params("grok-1-314b")[1]
+
+
+def test_recurrentgemma_stages_unstack_in_layer_order():
+    """recurrentgemma's reduced stages: a (rglru, rglru, local_attn) group
+    once; its full config: that group x 12, then (rglru, rglru) x 1. Each
+    port layer holds the reference's stacked slice of its stage."""
+    full = treg.get("recurrentgemma-9b")
+    assert [(tuple(s.mixer for s in g), r) for g, r in full.stages()] == \
+        [(("rglru", "rglru", "local_attn"), 12), (("rglru", "rglru"), 1)]
+    jcfg, tcfg = _cfgs("recurrentgemma-9b", num_layers=5)
+    jp = jtf.init_params(jcfg, jax.random.PRNGKey(3))
+    tp = ttf.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), tcfg)
+    order = [(0, 0, 0), (0, 0, 1), (0, 0, 2), (1, 0, 0), (1, 0, 1)]
+    for layer, (stage, r, j), spec in zip(tp["layers"], order,
+                                          tcfg.layer_specs()):
+        want = jp["stages"][stage][j]["mixer"]
+        key = "in_x" if spec.mixer == "rglru" else "wq"
+        np.testing.assert_array_equal(layer["mixer"][key].numpy(),
+                                      np.asarray(want[key][r]))
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("arch", jreg.list_archs())
+def test_init_cache_matches_jax_for_every_config(arch, quantized):
+    """One cache a layer, each the reference's (stage, repeat, spec) slice
+    in shape and dtype, all zeros; int8 codes with f32 scales for
+    attention when quantized."""
+    jcfg, tcfg = _cfgs(arch)
+    want = []
+    for (group, repeats), stage in zip(
+            jcfg.stages(), jtf.init_cache(jcfg, 2, 40, window=16,
+                                          quantized=quantized)):
+        for r in range(repeats):
+            want += [jax.tree_util.tree_map(lambda a: a[r], c)
+                     for c in stage]
+    got = ttf.init_cache(tcfg, 2, 40, window=16, quantized=quantized)
+    assert len(got) == len(want) == tcfg.num_layers
+    for g, w in zip(got, want):
+        assert type(g).__name__ == type(w).__name__
+        for gt, wt in zip(dataclasses.astuple(g), w):
+            assert tuple(gt.shape) == tuple(wt.shape)
+            assert str(gt.dtype).removeprefix("torch.") == str(wt.dtype)
+            assert not gt.any()
+
+
+_WIDE = dict(param_dtype="float32", activation_dtype="bfloat16")
+
+
+def _inputs(cfg, b, s, seed):
+    if cfg.input_mode == "embeddings":
+        return torch.as_tensor(np.random.default_rng(seed).normal(
+            size=(b, s, cfg.d_model)).astype(np.float32))
+    return torch.as_tensor(_tokens(cfg, b, s, seed))
+
+
+@pytest.mark.parametrize("arch", jreg.list_archs())
+def test_served_copy_is_bitwise_the_uncast_parameters(arch):
+    """``cast_params`` in the full configs' dtypes (f32 parameters, bf16
+    activations): forward, prefill and two decode steps give ``torch.equal``
+    logits from the served copy and from the uncast parameters. Only
+    parameters that every use casts to bf16 are cast (Mamba's mixer, the
+    RG-LRU's gates, conv and ``in_x``, MLA's ``wkv_a`` and the MoE router
+    keep f32)."""
+    _, tcfg = _cfgs(arch, **_WIDE)
+    params = ttf.init_params(tcfg, torch.Generator().manual_seed(1))
+    served = ttf.cast_params(params, tcfg)
+    x = _inputs(tcfg, 2, 12, 9)
+    a, _ = ttf.forward(params, tcfg, x)
+    b, _ = ttf.forward(served, tcfg, x)
+    assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+    runs = []
+    for p in (params, served):
+        logits, caches = ttf.prefill(p, tcfg, x, cache_len=14)
+        out = [logits]
+        for step in range(2):
+            tok = (x[:, -1:] if x.is_floating_point()
+                   else torch.argmax(out[-1][:, -1:], dim=-1))
+            logits, caches = ttf.decode_step(p, tcfg, caches, tok, 12 + step)
+            out.append(logits)
+        runs.append(out)
+    for u, v in zip(*runs):
+        assert torch.equal(u, v)
+
+
+#: Worst |port - JAX| over the logits of forward, prefill and 6 decode
+#: steps in bf16 activations with f32 parameters, measured once on the CPU
+#: against max |logit| of the JAX forward: falcon-mamba 0.0156 of 3.47
+#: (0.45 %), recurrentgemma 0.0234 of 3.13 (0.75 %), one and one and a half
+#: bf16 ulps of a logit near 3. The bar, 1e-2 * max|logit| (about two and
+#: a half bf16 roundings of the largest logit), leaves room for the
+#: rounding order of bf16 sums.
+BF16_BAR = 1e-2
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-9b"])
+def test_bf16_activations_with_f32_parameters_match_jax(arch):
+    """The full configs' dtypes through both packages: the f32 conv taps
+    lift Mamba's projections to f32 products, and each prefill state is
+    recomputed from the uncast projection, in both. The reference runs op
+    by op (``jax.disable_jit``), as the port does: under ``jit`` XLA's CPU
+    fusions keep f32 between bf16 ops, and the reference's own jitted
+    recurrentgemma forward lies 0.055 (1.8 % of max |logit|) from its
+    op-by-op run on these inputs."""
+    jcfg, tcfg = _cfgs(arch, **_WIDE)
+    jp, _ = _params(arch)
+    tp = ttf.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), tcfg)
+    toks = _tokens(tcfg, 2, 16, 10)
+    pairs = []
+    with jax.disable_jit():
+        want_f, _ = jtf.forward(jp, jcfg, jnp.asarray(toks))
+        got_f, _ = ttf.forward(tp, tcfg, torch.as_tensor(toks))
+        pairs.append((got_f, want_f))
+        jl, jc = jtf.prefill(jp, jcfg, jnp.asarray(toks), cache_len=22)
+        tl, tc = ttf.prefill(tp, tcfg, torch.as_tensor(toks), cache_len=22)
+        pairs.append((tl, jl))
+        for step in range(DECODE_STEPS):
+            tok = np.asarray(jnp.argmax(jl[:, -1:], axis=-1)).astype(np.int32)
+            jl, jc = jtf.decode_step(jp, jcfg, jc, jnp.asarray(tok),
+                                     jnp.asarray(16 + step))
+            tl, tc = ttf.decode_step(tp, tcfg, tc, torch.as_tensor(tok),
+                                     16 + step)
+            pairs.append((tl, jl))
+    scale = float(np.abs(np.asarray(want_f, np.float32)).max())
+    worst = max(float(np.abs(g.float().numpy()
+                             - np.asarray(w, np.float32)).max())
+                for g, w in pairs)
+    assert worst <= BF16_BAR * scale, (worst, scale)
 
 
 @pytest.mark.parametrize("window", [0, 16])
@@ -288,17 +471,18 @@ def test_place_batches_equals_the_reference(placement):
                 assert np.array_equal(np.asarray(got), np.asarray(want))
 
 
-@pytest.mark.parametrize("impl", IMPLS)
-def test_serve_gives_the_reference_greedy_tokens(impl):
+def _serve_against_jax(arch, impl, requests=6):
     """The port's ``serve`` on the CPU vs the reference's prefill /
-    decode_step loop (serve.py:125-160) on the same requests and weights."""
-    jcfg, tcfg = _cfgs("qwen1.5-0.5b", impl)
-    jp, tp = _params("qwen1.5-0.5b")
+    decode_step loop (serve.py:125-160) on the same requests and weights:
+    the greedy tokens must be equal."""
+    jcfg, tcfg = _cfgs(arch, impl)
+    jp, tp = _params(arch)
     tokens, size = 4, 2
-    out = tserve.serve(tcfg, requests=6, tokens=tokens, batch_size=size,
-                       device="cpu", params=tp, log=None)
+    out = tserve.serve(tcfg, requests=requests, tokens=tokens,
+                       batch_size=size, device="cpu", params=tp, log=None)
     reqs = out["requests"]
-    assert out["tokens"] == 6 * tokens and len(out["batches"]) == 3
+    assert out["tokens"] == requests * tokens
+    assert len(out["batches"]) == -(-requests // size)
     decode = _jax_decode(jcfg)
     for i in range(0, len(reqs), size):
         batch = reqs[i:i + size]
@@ -317,6 +501,29 @@ def test_serve_gives_the_reference_greedy_tokens(impl):
         want = np.stack(want, axis=1)
         for bi, r in enumerate(batch):
             assert r.done == want[bi].tolist(), (r.rid, r.done, want[bi])
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_serve_gives_the_reference_greedy_tokens(impl):
+    _serve_against_jax("qwen1.5-0.5b", impl)
+
+
+@pytest.mark.parametrize("arch", NOT_DENSE)
+def test_non_dense_serve_gives_the_reference_greedy_tokens(arch):
+    _serve_against_jax(arch, "flash", requests=4)
+
+
+@pytest.mark.parametrize("arch", jreg.list_archs())
+def test_serve_runs_every_config(arch):
+    """``serve`` takes each of the ten configs (reduced, CPU): every
+    request gets its tokens, each a token id of the vocabulary."""
+    _, tcfg = _cfgs(arch)
+    out = tserve.serve(tcfg, requests=2, tokens=3, batch_size=2,
+                       device="cpu", log=None)
+    assert out["tokens"] == 6
+    for r in out["requests"]:
+        assert len(r.done) == 3 and all(0 <= t < tcfg.vocab_size
+                                        for t in r.done)
 
 
 def test_serve_main_needs_a_device_or_runs_on_the_named_one():
