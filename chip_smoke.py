@@ -9,7 +9,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
               (sm_90a) into ``build/repro_torch/`` and prints the time, the
               ``ptxas`` report and the number of ``HGMMA`` (wgmma) and
               ``UTMALDG`` (TMA load) instructions in the flash library's
-              SASS (``cuobjdump -sass``; none fails the run).
+              SASS (``cuobjdump -sass``; none fails the run), and the
+              scans' instructions and their longest straight-line blocks
+              (``sass_blocks``).
   2. kernels  holds each kernel against its plain PyTorch version on the
               card, evaluated in float64 on the same inputs (rtol 1e-5 /
               atol 1e-4), at the main paths' shapes, and checks that every
@@ -52,11 +54,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
                 16, KV = 1, dh = 256, window 2048) in bf16 and f32;
                 yardstick ``F.scaled_dot_product_attention``;
                 selective_scan and rglru_scan (against the f32 step loop
-                at rtol 1e-4 / atol 1e-5, and the float64 one reported):
-                falcon-mamba-7b's di = 8192 with 16 states and
-                recurrentgemma-9b's w = 4096, each at a served decode step
-                (B = 4, S = 1) and at B = 1, S = 4096; no library call
-                computes a scan (library_ms null);
+                at rtol 1e-4 / atol 1e-5 with the last state bitwise, and
+                the float64 one reported): falcon-mamba-7b's di = 8192 with
+                16 states and recurrentgemma-9b's w = 4096, each at a
+                served decode step (B = 4, S = 1), a served prefill (B = 4,
+                S = 16) and at B = 1, S = 4096, then at ragged edges (B =
+                2, S = 37; widths 4,000 / 8,000 and 4,001 / 8,001); no
+                library call computes a scan (library_ms null);
                 segment_sum: the fused gather-and-sum at the layers'
                 inputs: full-scale SIoT's edge list over its table (F = 52
                 and 64, the sim path's widths), GAT's self-looped list
@@ -477,6 +481,30 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def sass_blocks(sass: str, kernel: str) -> tuple:
+    """``kernel``'s instruction count in ``cuobjdump -sass`` output, and
+    (length, MUFU.EX2 count) of its longest straight-line block and of its
+    longest one that computes an exp (a block starts at a branch target and
+    ends at a branch, call, exit or barrier): the selective scan's
+    whole-chunk block (one exp an update); the RG-LRU's chain steps and
+    gates (four exps a (t, channel))."""
+    body = next((part for part in sass.split("Function : ")[1:]
+                 if kernel in part.split("\n", 1)[0]), "")
+    ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)
+    targets = {int(t, 16) for _, text in ins
+               for t in re.findall(r"(?:BRA|CALL\S*)\s+0x([0-9a-f]+)", text)}
+    blocks, cur = [], []
+    for addr, text in ins:
+        if int(addr, 16) in targets:
+            blocks, cur = blocks + [cur], []
+        cur.append(text)
+        if re.search(r"\b(BRA|EXIT|CALL|RET|BAR)\b", text):
+            blocks, cur = blocks + [cur], []
+    stats = [(len(b), sum("MUFU.EX2" in t for t in b)) for b in blocks + [cur]]
+    return (len(ins), max(stats, default=(0, 0)),
+            max((st for st in stats if st[1]), default=(0, 0)))
 
 
 def errors(got: torch.Tensor, want: torch.Tensor, rtol: float = KERNEL_RTOL,
@@ -1362,19 +1390,28 @@ def flash_cases(fa, ref) -> dict:
     return out
 
 
-#: (name, B, S, path): the scans at a served batch's decode step (B = 4,
-#: S = 1) and prefill (B = 4, prompts left-padded to 16), both phase 3j's
+#: (name, B, S, width, path): the scans at a served batch's decode step (B =
+#: 4, S = 1) and prefill (B = 4, prompts left-padded to 16), both phase 3j's
 #: serve, and at one B = 1, S = 4096 sequence (the rglru_scan one is
-#: recurrentgemma's long prefill in phase 3j).
-SCAN_CASES = {"selective_scan": [("decode", 4, 1, "serve-falcon-mamba"),
-                                 ("serve prefill", 4, 16,
+#: recurrentgemma's long prefill in phase 3j); then ragged edges, S = 37 at
+#: B = 2 (a partial last chunk of time, no chunk reading into the next
+#: batch row), at 4,000 / 8,000 channels and at an odd width (a partial
+#: last CTA of channels: 4,001 and 8,001 are multiples of neither 16 nor
+#: 32, which 4,000 and 8,000 are).
+SCAN_CASES = {"selective_scan": [("decode", 4, 1, 8192,
                                   "serve-falcon-mamba"),
-                                 ("prefill 4096", 1, 4096, None)],
-              "rglru_scan": [("decode", 4, 1, "serve-recurrentgemma"),
-                             ("serve prefill", 4, 16,
+                                 ("serve prefill", 4, 16, 8192,
+                                  "serve-falcon-mamba"),
+                                 ("prefill 4096", 1, 4096, 8192, None),
+                                 ("ragged S", 2, 37, 8000, None),
+                                 ("ragged S, di", 2, 37, 8001, None)],
+              "rglru_scan": [("decode", 4, 1, 4096, "serve-recurrentgemma"),
+                             ("serve prefill", 4, 16, 4096,
                               "serve-recurrentgemma"),
-                             ("prefill 4096", 1, RG_PREFILL_S,
-                              "prefill-recurrentgemma")]}
+                             ("prefill 4096", 1, RG_PREFILL_S, 4096,
+                              "prefill-recurrentgemma"),
+                             ("ragged S", 2, 37, 4000, None),
+                             ("ragged S, w", 2, 37, 4001, None)]}
 #: Operations per (example, step, channel[, state]), an exp counted as one:
 #: the selective scan's dt a, exp, da h, dt b, db x, add, h c, add for each
 #: state; the RG-LRU's two gates (a product, exp, add, divide each), log_a,
@@ -1399,20 +1436,19 @@ def scan_bound(name: str, b: int, s: int, width: int, states: int) -> tuple:
                                  else "operations")
 
 
-def scan_inputs(name: str, gen, b: int, s: int) -> tuple:
-    """Inputs at full width, drawn as the models' layers make them:
-    falcon-mamba's di = 8192, 16 states, dt after softplus, a =
-    -exp(log(1..16)); recurrentgemma's w = 4096 with its gate scales
-    (0.5) and lambda = 2 plus noise."""
+def scan_inputs(name: str, gen, b: int, s: int, width: int) -> tuple:
+    """Inputs at ``width`` channels, drawn as the models' layers make them:
+    falcon-mamba's 16 states, dt after softplus, a = -exp(log(1..16));
+    recurrentgemma's gate scales (0.5) and lambda = 2 plus noise."""
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device="cuda") * scale
     if name == "selective_scan":
-        di, st = 8192, 16
+        di, st = width, 16
         a = -torch.arange(1, st + 1, device="cuda",
                           dtype=torch.float32).repeat(di, 1)
         return (F.softplus(randn(b, s, di) - 2.0), randn(b, s, st),
                 randn(b, s, st), randn(b, s, di), a, randn(b, di, st))
-    w = 4096
+    w = width
     return (randn(b, s, w), randn(w, scale=0.5), randn(w, scale=0.5),
             2.0 + randn(w, scale=0.1), randn(b, w))
 
@@ -1420,19 +1456,20 @@ def scan_inputs(name: str, gen, b: int, s: int) -> tuple:
 def recurrence_cases(rc, ref) -> dict:
     """Phase 2, the recurrence scans: each kernel against its plain version
     (the f32 step loop) on the same inputs at the kernel bar rtol 1e-4 /
-    atol 1e-5 (every operation rounded alike, so the last state is expected
-    bitwise; y's sum over the states runs in another order in the plain
-    version's einsum), and against the float64 plain version (reported);
-    times of kernel and plain version. No single PyTorch call computes a
-    scan: library_ms is None."""
+    atol 1e-5, with the last state bitwise, a gate (each chain runs its
+    steps in time order, every operation rounded alike; y only at the bar:
+    its sum over the states runs in another order in the plain version's
+    einsum), and against the float64 plain version (reported); times of
+    kernel and plain version. No single PyTorch call computes a first-order
+    linear recurrence: library_ms is None."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     out = {}
     for name, cases in SCAN_CASES.items():
         kern = getattr(rc, name)
         plain = getattr(ref, name + "_ref")
         out[name] = {"cases": []}
-        for case, b, s, path in cases:
-            args = scan_inputs(name, gen, b, s)
+        for case, b, s, width, path in cases:
+            args = scan_inputs(name, gen, b, s, width)
             got = kern(*args)
             want = plain(*args)
             want64 = plain(*(a.double() for a in args))
@@ -1443,8 +1480,10 @@ def recurrence_cases(rc, ref) -> dict:
                 raise AssertionError(f"{name} {case}: {err} / last state "
                                      f"{err_h} beyond rtol {SCAN_RTOL} / "
                                      f"atol {SCAN_ATOL}")
-            width, states = args[0].shape[2], args[4].shape[-1] \
-                if name == "selective_scan" else 1
+            if not torch.equal(got[1], want[1]):
+                raise AssertionError(f"{name} {case}: last state not bitwise "
+                                     f"the plain step loop's ({err_h})")
+            states = args[4].shape[-1] if name == "selective_scan" else 1
             b_ms, b_by = scan_bound(name, b, s, width, states)
             k_ms = time_ms(lambda: kern(*args), reps=20)
             p_ms = time_ms(lambda: plain(*args), reps=3, warmup=1)
@@ -1457,7 +1496,7 @@ def recurrence_cases(rc, ref) -> dict:
                    "ms": k_ms, "plain_ms": p_ms, "library_ms": None,
                    "bound_ms": b_ms, "bound_by": b_by}
             out[name]["cases"].append(rec)
-            log(f"  {name} {case:13s} B={b} S={s}: err "
+            log(f"  {name} {case:13s} B={b} S={s} width={width}: err "
                 f"{err['max_abs_err']:.3g} (ratio {err['tol_ratio']:.3g}; "
                 f"last state bitwise {rec['last_state_bitwise']}; float64 "
                 f"{rec['f64_max_abs_err']:.3g}) kernel {k_ms:.4f} ms  plain "
@@ -4418,6 +4457,17 @@ def main() -> int:
     log(f"  flash_attention SASS: {hgmma} HGMMA, {utmaldg} UTMALDG")
     if not hgmma or not utmaldg:
         raise AssertionError("the flash library has no wgmma or no TMA load")
+    # What the scans issue: their longest straight-line blocks.
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(build.library_path("recurrence"))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    for kernel in ("selective_scan_kernel", "rglru_scan_kernel",
+                   "rglru_short_kernel"):
+        total, (block, exps), (eblock, eexps) = sass_blocks(sass, kernel)
+        log(f"  {kernel} SASS: {total} instructions; longest straight-line "
+            f"block {block} ({exps} MUFU.EX2), longest with an exp {eblock} "
+            f"({eexps} MUFU.EX2)")
 
     log("phase 2: kernels vs plain versions")
     t0 = time.perf_counter()

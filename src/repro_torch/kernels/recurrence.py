@@ -5,10 +5,21 @@ The reference runs both time loops as ``jax.lax.scan`` inside XLA
 (``_mamba_inner`` and ``_rglru_scan``, src/repro/models/ssm.py); eagerly,
 a step loop would make about eight launches a step for each layer. On CUDA
 tensors ``selective_scan`` and ``rglru_scan`` launch the hand-written
-kernels of ``csrc/recurrence.cu`` (one thread a channel, the time order
-fixed, every operation rounded on its own as the plain version rounds it);
-on CPU tensors they run the plain step loops of ``kernels.ref``. Both take
-any S >= 1, so a decode step (S = 1) launches them too.
+kernels of ``csrc/recurrence.cu``; on CPU tensors they run the plain step
+loops of ``kernels.ref``. Both take any S >= 1 and any width, so a decode
+step (S = 1) launches them too.
+
+The kernels stream the time axis through shared memory in chunks (cp.async,
+several chunks in flight) and take the work that does not depend on the
+state off the chain: the RG-LRU's gate warps compute a chunk's a_t and
+m_t (i_t x_t) while one chain warp runs the previous chunk (32 channels a
+CTA), and the selective scan runs one thread per (channel, state), 16
+channels a CTA, with y summed over the states from a shared tile. Each
+(channel[, state]) chain runs its steps in time order in one thread and
+every operation is rounded on its own as the plain version rounds it, so
+the last state is bitwise the plain step loop's. The RG-LRU's gates and
+the selective scan's exp and shared-memory traffic bound them, not the
+chain (``csrc/recurrence.cu`` says how far).
 
 Each kernel counts its launches in ``selective_scan.launches`` and
 ``rglru_scan.launches``, raised by one at every launch and nowhere else.

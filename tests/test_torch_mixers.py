@@ -17,6 +17,8 @@ in other orders) and rtol 1e-4 / atol 1e-4 for logits
 exactly.
 """
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -163,9 +165,14 @@ def test_moe_keep_masks_in_the_model_equal_jax(arch, dropless, monkeypatch):
 # Mamba and RG-LRU
 # ----------------------------------------------------------------------------
 
-def _ssm_params(kind):
+#: Config changes that give each kind a channel count that is not a
+#: multiple of 32 (nor of 16): d_inner = 2 d_model = 200, lru_width = 200.
+RAGGED = {"mamba": dict(d_model=100), "rglru": dict(lru_width=200)}
+
+
+def _ssm_params(kind, **changes):
     arch = "falcon-mamba-7b" if kind == "mamba" else "recurrentgemma-9b"
-    jcfg, tcfg = _cfgs(arch)
+    jcfg, tcfg = _cfgs(arch, **changes)
     init = jssm.init_mamba if kind == "mamba" else jssm.init_rglru
     jp = init(jax.random.PRNGKey(6), jcfg, jnp.float32)
     if kind == "mamba":   # nonzero biases, so they are exercised
@@ -219,12 +226,19 @@ def test_recurrent_decode_matches_jax(kind):
         _close(got, want)
 
 
-def test_selective_scan_plain_version_matches_lax_scan():
+@pytest.mark.parametrize("width", ["config", "ragged"])
+@pytest.mark.parametrize("s", [1, 33, 37])
+def test_selective_scan_plain_version_matches_lax_scan(s, width):
     """``kernels.recurrence.selective_scan`` on CPU tensors (the plain step
     loop) inside ``_mamba_inner`` vs the reference's ``_mamba_inner`` and
-    its ``lax.scan``: y and the last state, from a nonzero h0."""
-    jcfg, tcfg, jp, tp = _ssm_params("mamba")
-    b, s, di, st = 2, 33, tcfg.ssm_d_inner, tcfg.ssm_state
+    its ``lax.scan``: y and the last state, from a nonzero h0; at a decode
+    step's S = 1 and at lengths that end inside a chunk of the kernel's
+    time axis, at the reduced config's d_inner and at one that is not a
+    multiple of 32 (the ragged shapes the kernel meets on the card)."""
+    jcfg, tcfg, jp, tp = _ssm_params(
+        "mamba", **(RAGGED["mamba"] if width == "ragged" else {}))
+    b, di, st = 2, tcfg.ssm_d_inner, tcfg.ssm_state
+    assert (di % 32 != 0) == (width == "ragged")
     xc, z = _normal(30, b, s, di), _normal(31, b, s, di)
     h0 = _normal(32, b, di, st)
     want_y, want_h = jssm._mamba_inner(jp, jnp.asarray(xc), jnp.asarray(z),
@@ -237,9 +251,15 @@ def test_selective_scan_plain_version_matches_lax_scan():
     _close(got_h, want_h)
 
 
-def test_rglru_scan_plain_version_matches_lax_scan():
-    jcfg, tcfg, jp, tp = _ssm_params("rglru")
-    b, s, w = 2, 33, tcfg.rglru_width
+@pytest.mark.parametrize("width", ["config", "ragged"])
+@pytest.mark.parametrize("s", [1, 33, 37])
+def test_rglru_scan_plain_version_matches_lax_scan(s, width):
+    """The same for ``rglru_scan`` against ``_rglru_scan``: hs and the last
+    state at S = 1, 33 and 37, at a width of 256 and of 200."""
+    jcfg, tcfg, jp, tp = _ssm_params(
+        "rglru", **(RAGGED["rglru"] if width == "ragged" else {}))
+    b, w = 2, tcfg.rglru_width
+    assert (w % 32 != 0) == (width == "ragged")
     xc, h0 = _normal(33, b, s, w, scale=2.0), _normal(34, b, w)
     want_hs, want_h = jssm._rglru_scan(jp, jnp.asarray(xc), jnp.asarray(h0))
     got_hs, got_h = trc.rglru_scan(torch.as_tensor(xc), tp["w_input_gate"],
@@ -271,6 +291,21 @@ def test_scan_plain_versions_compute_in_float64():
     assert hs64.dtype == torch.float64
     np.testing.assert_allclose(hs32.numpy(), hs64.numpy(), rtol=RTOL,
                                atol=ATOL)
+
+
+@pytest.mark.parametrize("name, width, states, want", [
+    ("selective_scan", 8192, 16, 0.1208), ("rglru_scan", 4096, 1, 0.0401)])
+def test_chip_smoke_scan_bound_is_pinned(name, width, states, want):
+    """The yardstick of the scans' times on the card: ``chip_smoke.
+    scan_bound`` at B = 1, S = 4096 and the models' widths (falcon-mamba's
+    di = 8192 with 16 states, recurrentgemma's w = 4096) stays what
+    PERF.md reports, bytes-bound."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    ms, by = chip_smoke.scan_bound(name, 1, 4096, width, states)
+    assert (round(ms, 4), by) == (want, "bytes")
 
 
 def test_scan_wrappers_reject_disagreeing_shapes():
