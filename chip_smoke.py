@@ -61,6 +61,16 @@ Phases, in order; any failed check raises and the script exits non-zero:
                 S = 16) and at B = 1, S = 4096, then at ragged edges (B =
                 2, S = 37; widths 4,000 / 8,000 and 4,001 / 8,001); no
                 library call computes a scan (library_ms null);
+                selective_scan_bwd and rglru_scan_bwd (the scans'
+                backward kernels, one launch and the partials' fixed-order
+                sums) against the plain reverse step loop in float64 on the
+                same inputs, every output at rtol 1e-4 / atol 1e-5 *
+                max(1, max|want|), two launches bitwise equal: at phase
+                3k's training shapes (falcon-mamba B = 2, S = 2048;
+                recurrentgemma's micro-batch B = 1, S = 3072), at B = 1,
+                S = 4096 and at B = 2, S = 37 with 8,001 / 4,001 channels
+                and a nonzero gradient of the last state; no library call
+                computes either (library_ms null);
                 segment_sum: the fused gather-and-sum at the layers'
                 inputs: full-scale SIoT's edge list over its table (F = 52
                 and 64, the sim path's widths), GAT's self-looped list
@@ -281,11 +291,39 @@ Phases, in order; any failed check raises and the script exits non-zero:
               weights (prefill logits within rtol 1e-4 / atol 1e-4). Each
               model is freed before the next. One ``{"nondense_path":
               ...}`` JSON line.
-  4. report   one ``{"kernels": [...]}`` JSON line (all nine kernels, the
+  3k. transformer training  at full width, each model freed before the
+              next, driven as its own path: falcon-mamba-7b cut to 4 of
+              64 layers (B = 2, S = 2048, one micro-batch) and
+              recurrentgemma-9b cut to 3 of 38 (one period; B = 2, S =
+              3072, two micro-batches), f32 parameters and bf16
+              activations, ``make_train_step`` with remat and AdamW
+              (warmup-cosine 3e-4, 2 of 4 steps), batches from
+              ``SyntheticCorpus``; 4 steps with a checkpoint at step 2
+              (``checkpoint.io``). Gates: restored into fresh parameters
+              and state, steps 3-4 bitwise the uninterrupted run's
+              parameters, moments and metrics; the first step's loss and
+              gradients with remat bitwise those without; in f32
+              activations at S = 256 the first step through the kernels
+              against the same step through the scans' plain forward and
+              backward (rtol 1e-4 / atol 1e-5 scaled per leaf); exact
+              launches (forward scans 2 a recurrent layer and micro-batch
+              under remat, backward kernels 1, one segment sum a
+              micro-batch for the embedding's fixed-order gradient);
+              finite losses. Printed: ms a step, training tokens/s, peak
+              memory, the backward kernels' share of a step. Reduced
+              falcon-mamba, recurrentgemma and deepseek-v3 take one step
+              on the card and on the CPU from the same weights (loss and
+              gradients at the same bar). ``train-cli``: ``python -m
+              repro_torch.launch.train`` at the reference's defaults
+              (granite-3-2b, 25m, 100 steps), in this process, then
+              resumed to 120: "resumed from step 100", the loss down by
+              0.3 (tests/test_substrate.py:82), 3 checkpoints kept. One
+              ``{"lm_train_path": ...}`` JSON line.
+  4. report   one ``{"kernels": [...]}`` JSON line (all eleven kernels, the
               block kernels with their subset cases and subset launches
               by path, the segment sum with its backward launches by
-              path), the
-              ``nvidia-smi`` name and power limit, and as the last line
+              path; the scans' backward kernels on the training paths),
+              the ``nvidia-smi`` name and power limit, and as the last line
               ``{"ok": true, "device": {...}}``. A kernel's top-level
               numbers sum its main-path cases on the path named in
               ``ROW_PATH`` (one call per layer shape: the aggregation work
@@ -303,6 +341,7 @@ import dataclasses
 import io
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -313,6 +352,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils import _pytree as pytree
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -391,7 +431,9 @@ SOURCES = {"block_spmm": CSRC + "block_spmm.cu",
            "flash_attention": CSRC + "flash_attention.cu",
            "segment_sum": CSRC + "segment_sum.cu",
            "selective_scan": CSRC + "recurrence.cu",
-           "rglru_scan": CSRC + "recurrence.cu"}
+           "rglru_scan": CSRC + "recurrence.cu",
+           "selective_scan_bwd": CSRC + "recurrence.cu",
+           "rglru_scan_bwd": CSRC + "recurrence.cu"}
 REPLACES = {
     "block_spmm": "src/repro/kernels/gather_aggregate.py:194",
     "block_spmm_batched": "src/repro/kernels/gather_aggregate.py:149",
@@ -404,13 +446,20 @@ REPLACES = {
     # Not Pallas kernels: the reference's lax.scan time loops.
     "selective_scan": "src/repro/models/ssm.py:79",
     "rglru_scan": "src/repro/models/ssm.py:163",
+    # Not kernels of the reference: the gradients XLA derives for its scans.
+    "selective_scan_bwd": "the gradient XLA derives for "
+                          "src/repro/models/ssm.py:79",
+    "rglru_scan_bwd": "the gradient XLA derives for "
+                      "src/repro/models/ssm.py:163",
 }
 #: The path whose main-path cases make a kernel's top-level numbers.
 ROW_PATH = {"block_spmm": "sim", "block_spmm_batched": "sim",
             "dequant_spmm": "mesh", "dequant_spmm_batched": "mesh",
             "dequant": "dequantize", "flash_attention": "prefill",
             "segment_sum": "sim", "selective_scan": "serve-falcon-mamba",
-            "rglru_scan": "serve-recurrentgemma"}
+            "rglru_scan": "serve-recurrentgemma",
+            "selective_scan_bwd": "train-falcon-mamba",
+            "rglru_scan_bwd": "train-recurrentgemma"}
 #: The mesh path's four block kernels, in the order its counts are read.
 MESH_KERNELS = ("block_spmm", "block_spmm_batched", "dequant_spmm",
                 "dequant_spmm_batched")
@@ -448,7 +497,16 @@ PATH_KERNELS = {"sim": ("block_spmm", "block_spmm_batched"),
                 # MLA attends through the chunked path under either
                 # attn_impl, as in the reference, and the MoE's expert
                 # products are batched matmuls: no hand-written kernel.
-                "serve-deepseek-v3": ()}
+                "serve-deepseek-v3": (),
+                # Training (phase 3k): the scans forward (and again under
+                # remat), their backward kernels, and the embedding's
+                # fixed-order gradient (a segment sum). The reference
+                # trains through the chunked attention: no flash.
+                "train-falcon-mamba": ("selective_scan", "selective_scan_bwd",
+                                       "segment_sum"),
+                "train-recurrentgemma": ("rglru_scan", "rglru_scan_bwd",
+                                         "segment_sum"),
+                "train-cli": ("segment_sum",)}
 #: The block kernels whose wrappers also count their row-subset launches
 #: (``subset_launches``), the launches of a frontier query.
 SUBSET_KERNELS = MESH_KERNELS
@@ -1503,6 +1561,121 @@ def recurrence_cases(rc, ref) -> dict:
                 f"{p_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
             del args, got, want, want64
     torch.cuda.empty_cache()
+    return out
+
+
+#: Phase 2's backward cases of the scans: (case, B, S, width, path, with
+#: dh_last): the training paths' shapes (falcon-mamba's B = 2, S = 2048;
+#: one of recurrentgemma's micro-batches, B = 1, S = LM_RG_S), the
+#: forward's long case and a ragged one (a partial chunk, a partial CTA of
+#: channels, a nonzero gradient of the last state).
+SCAN_BWD_CASES = {"selective_scan_bwd": [
+    ("train", 2, 2048, 8192, "train-falcon-mamba", False),
+    ("prefill 4096", 1, 4096, 8192, None, True),
+    ("ragged S, di", 2, 37, 8001, None, True)],
+    "rglru_scan_bwd": [
+    ("train micro-batch", 1, 3072, 4096, "train-recurrentgemma", False),
+    ("prefill 4096", 1, 4096, 4096, None, True),
+    ("ragged S, w", 2, 37, 4001, None, True)]}
+#: Operations per (example, step, channel[, state]) of each backward, an
+#: exp counted as one. Selective: the states recomputed (dt a, exp, da h,
+#: dt b, db x, add: 6), then g += dy c (2), dy h and its sum over the
+#: channels (2), g h_{t-1} da (2), g dt (1), g dt b and its sum over the
+#: states (2), g x b + gh a and its sum (5), g dt x and its sum (2), gh dt
+#: into da (2), g da (1): 25. RG-LRU: the gates recomputed (15 of the
+#: forward's 18), the reverse chain (add, product, g h_{t-1}: 3), the
+#: gate derivatives (d_m, d_gx, d_v 3, d_log_a 4, d_zr 4, d_zi 4, dxc 5)
+#: and the three sums over time (6): 46.
+SCAN_BWD_OPS = {"selective_scan_bwd": 25, "rglru_scan_bwd": 46}
+
+
+def scan_bwd_bound(name: str, b: int, s: int, width: int,
+                   states: int) -> tuple:
+    """Least time (ms) of one backward call: each input read once and each
+    output written once (f32) at the HBM rate, or SCAN_BWD_OPS operations
+    per element at the f32 rate, whichever is larger."""
+    if name == "selective_scan_bwd":
+        # in: dt, x, dy; b, c; a; h0, dh_last. out: ddt, dx; db, dc; da; dh0
+        floats = (5 * b * s * width + 4 * b * s * states
+                  + 2 * width * states + 3 * b * width * states)
+        ops = SCAN_BWD_OPS[name] * b * s * width * states
+    else:
+        # in: xc, hs, dhs; three gates; h0, dh_last. out: dxc; 3; dh0
+        floats = 4 * b * s * width + 6 * width + 3 * b * width
+        ops = SCAN_BWD_OPS[name] * b * s * width
+    t_bytes = 4 * floats / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def recurrence_bwd_cases(rc, ref) -> dict:
+    """Phase 2, the scans' backward kernels: one backward launch (and the
+    partials' fixed-order sums) against the plain reverse step loop
+    evaluated in float64 on the same inputs, every output at the kernel bar
+    rtol 1e-4 / atol 1e-5 * max(1, max|want|); two launches bitwise equal;
+    times of the backward and of the f32 plain version. No PyTorch call
+    computes either gradient: library_ms is None."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    out = {}
+    for name, cases in SCAN_BWD_CASES.items():
+        out[name] = {"cases": []}
+        fwd = name.removesuffix("_bwd")
+        for case, b, s, width, path, with_dh in cases:
+            args = scan_inputs(fwd, gen, b, s, width)
+            if fwd == "selective_scan":
+                dy = torch.randn(args[0].shape, generator=gen, device="cuda")
+                dh = (torch.randn(args[5].shape, generator=gen, device="cuda")
+                      if with_dh else None)
+                kern = lambda: rc._selective_bwd(*args, dy, dh)  # noqa: E731
+                plain = ref.selective_scan_bwd_ref
+                plain_args = (*args, dy, dh)
+                outs = ("ddt", "db", "dc", "dx", "da", "dh0")
+            else:
+                hs, _ = rc._rglru_fwd(*args)
+                dy = torch.randn(hs.shape, generator=gen, device="cuda")
+                dh = (torch.randn(args[4].shape, generator=gen, device="cuda")
+                      if with_dh else None)
+                kern = lambda: rc._rglru_bwd(*args, hs, dy, dh)  # noqa: E731
+                plain_args = (*args, hs, dy, dh)
+                plain = ref.rglru_scan_bwd_ref
+                outs = ("dxc", "dw_input_gate", "dw_rec_gate", "dlambda_p",
+                        "dh0")
+            got = kern()
+            again = kern()
+            bitwise = all(torch.equal(x, y) for x, y in zip(got, again))
+            d64 = [None if t is None else t.double() for t in plain_args]
+            if fwd == "rglru_scan":   # the float64 forward's own states
+                d64[5] = ref.rglru_scan_ref(*d64[:5])[0]
+            want = plain(*d64)
+            errs = {}
+            for o, g, w in zip(outs, got, want):
+                atol = SCAN_ATOL * max(1.0, float(w.abs().max()))
+                errs[o] = errors(g, w, SCAN_RTOL, atol)
+            worst = max(e["tol_ratio"] for e in errs.values())
+            if not bitwise or worst > 1 or not all(
+                    torch.isfinite(g).all() for g in got):
+                raise AssertionError(f"{name} {case}: bitwise {bitwise}, "
+                                     f"errors {errs}")
+            del again, want, d64
+            states = args[4].shape[-1] if fwd == "selective_scan" else 1
+            b_ms, b_by = scan_bwd_bound(name, b, s, width, states)
+            k_ms = time_ms(kern, reps=10)
+            p_ms = time_ms(lambda: plain(*plain_args), reps=2, warmup=1)
+            rec = {"case": name + " " + case, "B": b, "S": s, "width": width,
+                   "states": states, "path": path, "dh_last": with_dh,
+                   "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+                   "tol_ratio": worst, "errors": errs, "bitwise": bitwise,
+                   "ms": k_ms, "plain_ms": p_ms, "library_ms": None,
+                   "bound_ms": b_ms, "bound_by": b_by}
+            out[name]["cases"].append(rec)
+            log(f"  {name} {case:17s} B={b} S={s} width={width}: worst "
+                f"ratio {worst:.3g} (max err {rec['max_abs_err']:.3g}), "
+                f"bitwise run to run {bitwise}; backward {k_ms:.4f} ms  "
+                f"plain {p_ms:.2f} ms  bound {b_ms:.4f} ms ({b_by})  "
+                f"library: none")
+            del args, got, dy, dh, plain_args
+            torch.cuda.empty_cache()
     return out
 
 
@@ -4025,7 +4198,8 @@ DAQ_ACCURACY_DROP = 0.01                # tests/test_system.py:63
 AST_RTOL = 1e-3
 #: The paths whose runs take gradients: every other path must make no
 #: backward launch.
-BACKWARD_PATHS = ("train", "astgcn", "demo")
+BACKWARD_PATHS = ("train", "astgcn", "demo", "train-falcon-mamba",
+                  "train-recurrentgemma", "train-cli")
 #: The demo on the card against ``--device cpu``: its printed loss (3
 #: decimals) may differ by one unit in the last place.
 DEMO_LOSS_ATOL = 1e-3
@@ -4410,6 +4584,376 @@ def train_path(models, layers, datasets, ref, sg, Engine, g, drive,
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 3k, transformer training at full width
+# ---------------------------------------------------------------------------
+
+#: Phase 3k's training paths: (arch, path, layers kept, B, S, micro-batches),
+#: each at the config's full width and dtypes (f32 parameters, bf16
+#: activations) and cut in depth only, for memory and the script's time:
+#: falcon-mamba-7b keeps 4 of its 64 layers (0.953 B parameters, 15.3 GB
+#: with gradients and f32 moments), recurrentgemma-9b one period of its
+#: pattern, 3 of 38 (2.687 B, 43.0 GB); the whole models with AdamW state
+#: need 116 GB and 153 GB. recurrentgemma's S = 3072 passes its 2048
+#: window, so the local attention masks.
+LM_TRAIN = (("falcon-mamba-7b", "train-falcon-mamba", 4, 2, 2048, 1),
+            ("recurrentgemma-9b", "train-recurrentgemma", 3, 2, 3072, 2))
+LM_STEPS, LM_CKPT_STEP = 4, 2
+LM_SCHEDULE = dict(base_lr=3e-4, warmup=2, total=4)
+#: Gate 3: the first step's loss and gradients through the kernels against
+#: the same step through the scans' plain forward and backward, in f32
+#: activations at this sequence length.
+LM_PLAIN_S = 256
+#: The reference launcher's defaults (granite-3-2b, --size 25m, 100 steps,
+#: seq 256, batch 8), then the same run resumed to 120 steps; a
+#: checkpoint every 20 steps gives the keep-3 collection six to thin.
+TRAIN_CLI = ["--arch", "granite-3-2b", "--size", "25m", "--seq", "256",
+             "--batch", "8", "--ckpt-every", "20"]
+TRAIN_CLI_STEPS = (100, 120)
+CKPT_KEEP = 3
+#: The reference's learnability bar: the loss must fall by this much
+#: (tests/test_substrate.py:82).
+LEARN_DROP = 0.3
+#: Reduced configs trained one step on the card and on the CPU from the
+#: same weights (B = 2, S = REDUCED_TRAIN_S).
+REDUCED_TRAIN = ("falcon-mamba-7b", "recurrentgemma-9b", "deepseek-v3-671b")
+REDUCED_TRAIN_S = 32
+
+
+class BackwardCount:
+    """A scan wrapper's backward launches as a kernel row's ``launches``
+    (read and set to 0 like a wrapper's own count)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def launches(self) -> int:
+        return self.fn.backward_launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.fn.backward_launches = n
+
+
+def plain_scans(ref):
+    """The two scans' plain forward and backward (``kernels.ref``) as
+    autograd Functions: gate 3's yardstick on the card."""
+    class Selective(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *args):
+            ctx.save_for_backward(*args)
+            return ref.selective_scan_ref(*args)
+
+        @staticmethod
+        def backward(ctx, dy, dh_last):
+            return ref.selective_scan_bwd_ref(*ctx.saved_tensors, dy,
+                                              dh_last)
+
+    class RGLRU(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *args):
+            hs, h_last = ref.rglru_scan_ref(*args)
+            ctx.save_for_backward(*args, hs)
+            return hs, h_last
+
+        @staticmethod
+        def backward(ctx, dhs, dh_last):
+            return ref.rglru_scan_bwd_ref(*ctx.saved_tensors, dhs, dh_last)
+
+    return Selective.apply, RGLRU.apply
+
+
+@contextlib.contextmanager
+def patched(module, **names):
+    """``module``'s attributes replaced by ``names`` for the block."""
+    old = {k: getattr(module, k) for k in names}
+    for k, v in names.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(module, k, v)
+
+
+def on_card(batch: dict) -> dict:
+    return {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+
+
+def leaf_errors(got: list, want: list) -> dict:
+    """The worst leaf at the kernel bar (rtol 1e-4, atol 1e-5 * max(1,
+    max|want|) per leaf): its ratio and max |err|."""
+    worst = {"tol_ratio": 0.0, "max_abs_err": 0.0}
+    for g, w in zip(got, want):
+        atol = SCAN_ATOL * max(1.0, float(w.abs().max()))
+        e = errors(g, w, SCAN_RTOL, atol)
+        worst = {k: max(worst[k], e[k]) for k in worst}
+    return worst
+
+
+def lm_grads(tf, cfg, params, batch, mb: int, remat: bool):
+    """(loss, the gradient leaves) of ``mb`` micro-batches of ``batch``."""
+    loss, grads = tf.value_and_grad(params, cfg, batch, microbatches=mb,
+                                    remat=remat)
+    return loss, pytree.tree_leaves(grads)
+
+
+def lm_train_one(tf, registry, adamw, ckpt, pipeline, ref, ssm, drive,
+                 launches, spec, bwd_ms: float) -> dict:
+    """One phase-3k path: gates 3 (kernels against plain) and 2 (remat)
+    on the first step, then LM_STEPS AdamW steps driven as ``path`` with a
+    checkpoint at LM_CKPT_STEP, then gate 1: the checkpoint restored into
+    fresh parameters and state and the last steps run again, bitwise the
+    uninterrupted run."""
+    arch, path, layers, b, s, mb = spec
+    cfg = dataclasses.replace(registry.get(arch), num_layers=layers)
+    n = sum(sp.mixer in ("mamba", "rglru") for sp in cfg.layer_specs())
+    scan = ("selective_scan" if cfg.layer_specs()[0].mixer == "mamba"
+            else "rglru_scan")
+    log(f"  {arch}: {cfg.param_count() / 1e9:.3f} B parameters, depth cut "
+        f"to {layers} of {registry.get(arch).num_layers} layers ({n} "
+        f"{scan} layers), B = {b}, S = {s}, {mb} micro-batch(es)")
+    t_path = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = tf.init_params(cfg, gen)
+    shape = pipeline.InputShape
+
+    # Gate 3: the kernels against the plain scans, f32 activations.
+    cfg32 = dataclasses.replace(cfg, activation_dtype="float32")
+    small = on_card(pipeline.SyntheticCorpus(
+        cfg, shape("train", LM_PLAIN_S, b, "train"), seed=1).batch(0))
+    loss_k, g_k = lm_grads(tf, cfg32, params, small, 1, True)
+    sel, rg = plain_scans(ref)
+    with patched(ssm, selective_scan=sel, rglru_scan=rg):
+        loss_p, g_p = lm_grads(tf, cfg32, params, small, 1, True)
+    plain_err = leaf_errors(g_k, g_p)
+    loss_err = errors(loss_k, loss_p, SCAN_RTOL,
+                      SCAN_ATOL * max(1.0, abs(float(loss_p))))
+    del g_k, g_p
+    log(f"  kernels vs plain scans (f32, S = {LM_PLAIN_S}): loss "
+        f"{float(loss_k):.6f} vs {float(loss_p):.6f}; worst gradient leaf "
+        f"ratio {plain_err['tol_ratio']:.3g} (max err "
+        f"{plain_err['max_abs_err']:.3g})")
+    if max(plain_err["tol_ratio"], loss_err["tol_ratio"]) > 1:
+        raise AssertionError(f"{path}: kernels vs plain scans {plain_err}, "
+                             f"loss {loss_err}")
+
+    # Gate 2: remat bitwise no remat, on the first training batch.
+    corpus = pipeline.SyntheticCorpus(cfg, shape("train", s, b, "train"),
+                                      seed=0)
+    first = on_card(corpus.batch(0))
+    l1, g1 = lm_grads(tf, cfg, params, first, mb, True)
+    l0, g0 = lm_grads(tf, cfg, params, first, mb, False)
+    remat_bitwise = bool(torch.equal(l0, l1)) and all(
+        torch.equal(x, y) for x, y in zip(g0, g1))
+    del g0, g1
+    if not remat_bitwise:
+        raise AssertionError(f"{path}: remat's first-step loss or "
+                             f"gradients differ from remat off")
+    torch.cuda.empty_cache()
+
+    # The run, driven: LM_STEPS steps, a checkpoint at LM_CKPT_STEP.
+    opt = adamw.AdamW(learning_rate=adamw.warmup_cosine(**LM_SCHEDULE))
+    step = tf.make_train_step(cfg, opt, microbatches=mb, remat=True)
+    ckdir = ROOT / "build" / "ckpt_3k"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    need = 12 * cfg.param_count()
+    free = shutil.disk_usage(ROOT).free
+    if free < 1.2 * need:
+        raise AssertionError(f"{path}: {free / 1e9:.1f} GB free beside the "
+                             f"checkpoint's {need / 1e9:.1f} GB")
+    box = {"params": params, "state": opt.init(params)}
+    del params
+
+    def run(first_step: int, save: bool):
+        metrics, ms = [], []
+        save_s = None
+        for i in range(first_step, LM_STEPS):
+            batch = on_card(corpus.batch(i))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            box["params"], box["state"], m = step(box["params"],
+                                                  box["state"], batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append((m["loss"], m["grad_norm"]))
+            if save and i + 1 == LM_CKPT_STEP:
+                t0 = time.perf_counter()
+                ckpt.save(str(ckdir), i + 1, {"params": box["params"],
+                                              "opt": box["state"]})
+                save_s = time.perf_counter() - t0
+        return metrics, ms, save_s
+
+    torch.cuda.reset_peak_memory_stats()
+    metrics, ms, save_s = drive(path, lambda: run(0, True))
+    peak = torch.cuda.max_memory_allocated()
+    want = {scan: LM_STEPS * n * mb * 2, scan + "_bwd": LM_STEPS * n * mb,
+            "segment_sum": LM_STEPS * mb}
+    check_path_launches(path, launches[path], want)
+    losses = [float(m[0]) for m in metrics]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{path}: losses {losses}")
+    final = [t.cpu() for t in pytree.tree_leaves(
+        [box["params"], box["state"].m, box["state"].v])]
+    del box["params"], box["state"]
+    torch.cuda.empty_cache()
+
+    # Gate 1: resume from the checkpoint into fresh parameters and state.
+    t0 = time.perf_counter()
+    fresh = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(1))
+    target = {"params": fresh, "opt": opt.init(fresh)}
+    del fresh
+    restored = ckpt.restore(str(ckdir), target)
+    del target
+    box["params"], box["state"] = restored["params"], restored["opt"]
+    del restored
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    shutil.rmtree(ckdir, ignore_errors=True)
+    resumed, _, _ = run(LM_CKPT_STEP, False)
+    again = pytree.tree_leaves([box["params"], box["state"].m,
+                                box["state"].v])
+    resume_bitwise = (int(box["state"].step) == LM_STEPS and all(
+        torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])
+        for x, y in zip(resumed, metrics[LM_CKPT_STEP:])) and all(
+        torch.equal(x.cpu(), y) for x, y in zip(again, final)))
+    del again, final, box["params"], box["state"]
+    torch.cuda.empty_cache()
+    if not resume_bitwise:
+        raise AssertionError(f"{path}: the resumed steps differ from the "
+                             f"uninterrupted run")
+    steady = statistics.median(ms[1:])
+    rec = {"arch": arch, "path": path, "num_layers": layers,
+           "depth_cut": f"{layers} of {registry.get(arch).num_layers}",
+           "parameters": cfg.param_count(), "B": b, "S": s,
+           "microbatches": mb, "steps": LM_STEPS, "losses": losses,
+           "grad_norms": [float(m[1]) for m in metrics],
+           "step_ms": ms, "step_ms_median": steady,
+           "tokens_per_s": b * s / (steady / 1e3),
+           "peak_gb": peak / 1e9, "checkpoint_gb": need / 1e9,
+           "save_s": save_s, "restore_s": restore_s,
+           "backward_kernel_ms": bwd_ms,
+           "backward_share": bwd_ms * n * mb / steady,
+           "launches": {k: v for k, v in launches[path].items() if v},
+           "launches_per_step": {k: v // LM_STEPS for k, v in want.items()},
+           "gates": {"resume_bitwise": resume_bitwise,
+                     "remat_bitwise": remat_bitwise,
+                     "kernels_vs_plain": plain_err,
+                     "kernels_vs_plain_loss": loss_err,
+                     "finite": True},
+           "path_s": time.perf_counter() - t_path}
+    log(f"  {arch} train: {steady:.1f} ms a step (median after the first; "
+        f"first {ms[0]:.1f}), {rec['tokens_per_s']:.0f} training tokens/s, "
+        f"peak {rec['peak_gb']:.1f} GB allocated; losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; backward kernels "
+        f"{n * mb} x {bwd_ms:.3f} ms = {100 * rec['backward_share']:.2f} % "
+        f"of a step (phase 2's time); launches {rec['launches']}; "
+        f"checkpoint {need / 1e9:.1f} GB saved in {save_s:.1f} s, restored "
+        f"in {restore_s:.1f} s; resume, remat bitwise; {rec['path_s']:.1f} s")
+    return rec
+
+
+def train_cli(drive, launches) -> dict:
+    """``python -m repro_torch.launch.train`` at the reference's defaults
+    with a checkpoint directory, then again to TRAIN_CLI_STEPS[1], in this
+    process (``runpy``, as ``-m`` runs it) so that its launches count:
+    the second run resumes from the first's last checkpoint, the loss
+    falls by LEARN_DROP, CKPT_KEEP checkpoints stay."""
+    import runpy
+    ckdir = ROOT / "build" / "ckpt_cli"
+    shutil.rmtree(ckdir, ignore_errors=True)
+
+    def run(steps: int) -> str:
+        buf, old = io.StringIO(), sys.argv
+        sys.argv = ["train", *TRAIN_CLI, "--steps", str(steps),
+                    "--ckpt-dir", str(ckdir)]
+        try:
+            with contextlib.redirect_stdout(buf), warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                runpy.run_module("repro_torch.launch.train",
+                                 run_name="__main__")
+        except SystemExit as e:
+            if e.code not in (0, None):
+                raise AssertionError(f"launch.train exited {e.code}")
+        finally:
+            sys.argv = old
+        for line in buf.getvalue().splitlines():
+            log(f"    {line}")
+        return buf.getvalue()
+
+    t0 = time.perf_counter()
+    first, second = drive("train-cli", lambda: [run(n)
+                                                for n in TRAIN_CLI_STEPS])
+    wall = time.perf_counter() - t0
+    check_path_launches("train-cli", launches["train-cli"],
+                        {"segment_sum": TRAIN_CLI_STEPS[1]})
+    loss = {int(m.group(1)): float(m.group(2)) for m in re.finditer(
+        r"^step\s+(\d+) loss (\S+)", first + second, re.M)}
+    kept = sorted(p.name for p in ckdir.glob("step_*.npz"))
+    shutil.rmtree(ckdir, ignore_errors=True)
+    n0, n1 = TRAIN_CLI_STEPS
+    rec = {"argv": TRAIN_CLI, "steps": list(TRAIN_CLI_STEPS), "losses": loss,
+           "resumed": f"resumed from step {n0}" in second,
+           "drop": loss[1] - loss[n0], "kept": kept, "wall_s": wall,
+           "launches": {k: v for k, v in launches["train-cli"].items()
+                        if v}}
+    log(f"  train-cli: loss {loss[1]:.4f} at step 1, {loss[n0]:.4f} at "
+        f"{n0}, {loss.get(n1, float('nan')):.4f} at {n1} (drop "
+        f"{rec['drop']:.3f}, bar {LEARN_DROP}); resumed "
+        f"{rec['resumed']}; kept {kept}; {wall:.1f} s")
+    if not rec["resumed"] or rec["drop"] < LEARN_DROP or n1 not in loss \
+            or len(kept) != CKPT_KEEP:
+        raise AssertionError(f"train-cli: {rec}")
+    return rec
+
+
+def reduced_train(tf, registry, pipeline) -> list:
+    """Reduced falcon-mamba, recurrentgemma and deepseek-v3 (MLA, MoE's
+    auxiliary loss, the MTP loss): one step's loss and gradients on the
+    card and on the CPU from the same weights, at the kernel bar with the
+    atol scaled per leaf."""
+    out = []
+    for arch in REDUCED_TRAIN:
+        cfg = registry.reduced(registry.get(arch))
+        params = tf.init_params(cfg, torch.Generator().manual_seed(0))
+        batch = pipeline.SyntheticCorpus(cfg, pipeline.InputShape(
+            "train", REDUCED_TRAIN_S, 2, "train"), seed=0).batch(0)
+        host = {k: torch.as_tensor(v) for k, v in batch.items()}
+        lh, gh = lm_grads(tf, cfg, params, host, 1, True)
+        lc, gc = lm_grads(tf, cfg,
+                          to_device(params, "cuda"), on_card(batch), 1, True)
+        err = leaf_errors([g.cpu() for g in gc], gh)
+        loss_err = errors(lc.cpu(), lh, SCAN_RTOL,
+                          SCAN_ATOL * max(1.0, abs(float(lh))))
+        rec = {"arch": cfg.name, "loss_card": float(lc),
+               "loss_cpu": float(lh), "loss": loss_err, "gradients": err}
+        log(f"  reduced {arch} train step: card vs CPU loss "
+            f"{float(lc):.6f} / {float(lh):.6f}; worst gradient leaf ratio "
+            f"{err['tol_ratio']:.3g}")
+        if max(err["tol_ratio"], loss_err["tol_ratio"]) > 1:
+            raise AssertionError(f"reduced {arch} training: {rec}")
+        out.append(rec)
+    return out
+
+
+def lm_train_paths(tf, registry, adamw, ckpt, pipeline, ref, ssm, drive,
+                   launches, bwd_cases) -> dict:
+    """Phase 3k: the two full-width training paths, each freed before the
+    next, the reduced card-against-CPU steps and ``train-cli``."""
+    t0 = time.perf_counter()
+    bwd_ms = {c["path"]: c["ms"] for cases in bwd_cases.values()
+              for c in cases["cases"] if c["path"]}
+    paths = [lm_train_one(tf, registry, adamw, ckpt, pipeline, ref, ssm,
+                          drive, launches, spec, bwd_ms[spec[1]])
+             for spec in LM_TRAIN]
+    rec = {"paths": paths,
+           "reduced": reduced_train(tf, registry, pipeline),
+           "train_cli": train_cli(drive, launches)}
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4523,6 +5067,8 @@ def main() -> int:
     results.update(dequant_kernel_cases(dq, ref, tables))
     results.update(flash_cases(fa, ref))
     results.update(recurrence_cases(rc, ref))
+    bwd_cases = recurrence_bwd_cases(rc, ref)
+    results.update(bwd_cases)
 
     wrappers = {"block_spmm": ga.block_spmm,
                 "block_spmm_batched": ga.block_spmm_batched,
@@ -4533,6 +5079,8 @@ def main() -> int:
                 "segment_sum": sg.segment_sum,
                 "selective_scan": rc.selective_scan,
                 "rglru_scan": rc.rglru_scan}
+    wrappers["selective_scan_bwd"] = BackwardCount(rc.selective_scan)
+    wrappers["rglru_scan_bwd"] = BackwardCount(rc.rglru_scan)
     kernels = [wrappers[n] for n in REPLACES]
     launches, backward = {}, {}
 
@@ -4716,6 +5264,16 @@ def main() -> int:
     nondense["phase_s"] = time.perf_counter() - t_3j
     log(f"  phase 3j: {nondense['phase_s']:.1f} s")
 
+    log("phase 3k: transformer training at full width (the scans' backward "
+        "kernels, remat, micro-batches, AdamW, checkpoints, launch.train)")
+    from repro_torch.checkpoint import io as ckpt
+    from repro_torch.data import pipeline
+    from repro_torch.models import ssm
+    from repro_torch.optim import adamw
+    lm_trained = lm_train_paths(tf, registry, adamw, ckpt, pipeline, ref,
+                                ssm, drive, launches, bwd_cases)
+    log(f"  phase 3k: {lm_trained['phase_s']:.1f} s")
+
     kernel_rows = []
     for name, rec in results.items():
         main_cases = [c for c in rec["cases"] if c["path"] == ROW_PATH[name]]
@@ -4753,6 +5311,7 @@ def main() -> int:
                       "reduced_serve": reduced}), flush=True)
     print(json.dumps({"train_path": trained}), flush=True)
     print(json.dumps({"nondense_path": nondense}), flush=True)
+    print(json.dumps({"lm_train_path": lm_trained}), flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -296,3 +296,85 @@ def rglru_scan_ref(xc: torch.Tensor, w_input_gate: torch.Tensor,
         h = a[:, t] * h + mult[:, t] * gated_x[:, t]
         hs.append(h)
     return torch.stack(hs, dim=1), h
+
+
+def selective_scan_bwd_ref(dt: torch.Tensor, b: torch.Tensor,
+                           c: torch.Tensor, x: torch.Tensor, a: torch.Tensor,
+                           h0: torch.Tensor, dy: torch.Tensor,
+                           dh_last: Optional[torch.Tensor] = None):
+    """The gradient of ``selective_scan_ref`` for every input, one step at
+    a time in reverse: the states h_t are recomputed forward, then, from
+    g = dh_last (or 0), for t = S ... 1:
+
+        g += dy_t c_t;  dc_t = sum_d dy_t h_t;  dx_t = sum_s g dt_t b_t
+        ddt_t = sum_s g x_t b_t + sum_s (g h_{t-1} da_t) a
+        db_t = sum_d g dt_t x_t;  da += g h_{t-1} da_t dt_t;  g <- g da_t
+
+    with da_t = exp(dt_t a); dh0 is the last g. Shapes as the forward's
+    (``dy`` as y, ``dh_last`` as h0). Returns (ddt, db, dc, dx, da,
+    dh0)."""
+    h = h0
+    hs, das = [h0], []
+    for t in range(dt.shape[1]):
+        dt_t = dt[:, t, :, None]
+        da_t = torch.exp(dt_t * a)
+        h = da_t * h + (dt_t * b[:, t, None, :]) * x[:, t, :, None]
+        hs.append(h)
+        das.append(da_t)
+    g = torch.zeros_like(h0) if dh_last is None else dh_last
+    ddt, dx = torch.empty_like(dt), torch.empty_like(x)
+    db, dc = torch.empty_like(b), torch.empty_like(c)
+    da = torch.zeros_like(a)
+    for t in reversed(range(dt.shape[1])):
+        dt_t = dt[:, t, :, None]                          # [B, di, 1]
+        x_t = x[:, t, :, None]
+        b_t, c_t = b[:, t, None, :], c[:, t, None, :]     # [B, 1, st]
+        g = g + dy[:, t, :, None] * c_t
+        dc[:, t] = torch.einsum("bd,bds->bs", dy[:, t], hs[t + 1])
+        dx[:, t] = (g * dt_t * b_t).sum(-1)
+        gh = g * hs[t] * das[t]
+        ddt[:, t] = (g * x_t * b_t).sum(-1) + (gh * a).sum(-1)
+        db[:, t] = (g * dt_t * x_t).sum(1)
+        da = da + (gh * dt_t).sum(0)
+        g = g * das[t]
+    return ddt, db, dc, dx, da, g
+
+
+def rglru_scan_bwd_ref(xc: torch.Tensor, w_input_gate: torch.Tensor,
+                       w_rec_gate: torch.Tensor, lambda_p: torch.Tensor,
+                       h0: torch.Tensor, hs: torch.Tensor, dhs: torch.Tensor,
+                       dh_last: Optional[torch.Tensor] = None):
+    """The gradient of ``rglru_scan_ref`` for every input, from its output
+    ``hs`` (h_{t-1} is hs[t - 1], or h0): the reverse recurrence, from
+    g = dh_last (or 0), for t = S ... 1: g += dhs_t; d a_t = g h_{t-1},
+    d u_t = g; g <- a_t g (dh0 is the last g). Then the gate derivatives
+    per (t, channel): u = m (i x) with m = sqrt(max(1 - e^{2 log a},
+    1e-12)) (no gradient where the clamp holds), a = e^{log a}, log a =
+    -8 softplus(lambda) r, and the two sigmoids (derivative s (1 - s)).
+    Returns (dxc, dw_input_gate, dw_rec_gate, dlambda_p, dh0)."""
+    i_gate = 1 / (1 + torch.exp(-(xc * w_input_gate)))
+    r_gate = 1 / (1 + torch.exp(-(xc * w_rec_gate)))
+    neg_c_sp = -LRU_C * softplus(lambda_p)
+    log_a = neg_c_sp * r_gate
+    a = torch.exp(log_a)
+    gx = i_gate * xc
+    e2 = torch.exp(2.0 * log_a)
+    v = 1.0 - e2
+    m = torch.sqrt(torch.clamp_min(v, 1e-12))
+    h_prev = torch.cat([h0[:, None], hs[:, :-1]], dim=1)
+    g = torch.zeros_like(h0) if dh_last is None else dh_last
+    gs = torch.empty_like(hs)
+    for t in reversed(range(xc.shape[1])):
+        g = g + dhs[:, t]
+        gs[:, t] = g
+        g = a[:, t] * g
+    d_m = gs * gx
+    d_gx = gs * m
+    d_v = torch.where(v > 1e-12, d_m * 0.5 / m, torch.zeros_like(m))
+    d_log_a = gs * h_prev * a - 2.0 * d_v * e2
+    d_zr = d_log_a * neg_c_sp * r_gate * (1 - r_gate)
+    d_zi = d_gx * xc * i_gate * (1 - i_gate)
+    dxc = d_gx * i_gate + d_zr * w_rec_gate + d_zi * w_input_gate
+    sig_lam = 1 / (1 + torch.exp(-lambda_p))
+    d_lam = (d_log_a * r_gate).sum((0, 1)) * -LRU_C * sig_lam
+    return (dxc, (d_zi * xc).sum((0, 1)), (d_zr * xc).sum((0, 1)), d_lam, g)

@@ -237,7 +237,7 @@ def segment_sum(x: torch.Tensor, order: torch.Tensor, offsets: torch.Tensor,
                 *, idx: Optional[torch.Tensor] = None,
                 w: Optional[torch.Tensor] = None,
                 long: Optional[LongSegments] = None,
-                transposed=None) -> torch.Tensor:
+                transposed=None, backward: bool = False) -> torch.Tensor:
     """x [N] or [N, F] -> [V] or [V, F], V = len(offsets) - 1: each
     segment's terms ``(w[order[k]] *) x[idx[k]]`` over ``k = offsets[v] ..
     offsets[v + 1] - 1`` summed left to right from +0. ``idx`` defaults to
@@ -251,7 +251,9 @@ def segment_sum(x: torch.Tensor, order: torch.Tensor, offsets: torch.Tensor,
     goes through ``_SegmentSum``, and then ``transposed`` is required: a
     callable that returns its ``Transposed`` (of these order, offsets, idx
     and ``len(x)``, built once and kept, as ``gnn.layers.EdgeList.
-    transposed`` does) when a backward needs it."""
+    transposed`` does) when a backward needs it. ``backward=True`` marks a
+    call made for some other function's gradient (the embedding's): its
+    launch also counts in ``backward_launches``."""
     if x.ndim not in (1, 2):
         raise ValueError(f"segment_sum takes x [E] or [E, F] (a source "
                          f"table's rows with idx), got {tuple(x.shape)}")
@@ -279,7 +281,7 @@ def segment_sum(x: torch.Tensor, order: torch.Tensor, offsets: torch.Tensor,
                              "transposed= (e.g. functools.partial("
                              "EdgeList.transposed, len(x), idx is None))")
         return _SegmentSum.apply(x, w, order, offsets, idx, long, transposed)
-    return _sum(x, order, offsets, idx, w, long)
+    return _sum(x, order, offsets, idx, w, long, backward=backward)
 
 
 segment_sum.launches = 0

@@ -1,1 +1,2 @@
-"""Entry points: ``serve`` (transformer pods with Fograph-style placement)."""
+"""Entry points: ``serve`` (transformer pods with Fograph-style placement)
+and ``train`` (the training loop with checkpoints)."""

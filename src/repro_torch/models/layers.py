@@ -149,8 +149,40 @@ def init_embed(gen: torch.Generator, vocab: int, d_model: int, dtype):
     return {"table": scaled_normal(gen, (vocab, d_model), dtype, 0.02)}
 
 
+class _Embed(torch.autograd.Function):
+    """The table's rows for ``tokens``, with a fixed-order gradient: each
+    row's gradient sums its tokens' incoming rows in token order from +0
+    (``segment_sum`` over the tokens stably sorted by id: one launch of
+    its hand-written kernel on the card, the plain version on the CPU).
+    Autograd's own gradient of an index is an accumulating scatter, which
+    the card may sum in another order on every run."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.rows = table.shape[0]
+        return table[tokens]
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        from repro_torch.kernels.segment_sum import (LongSegments,
+                                                     receiver_order,
+                                                     segment_sum)
+        (tokens,) = ctx.saved_tensors
+        order, offsets = receiver_order(tokens.reshape(-1), ctx.rows)
+        rows = g.reshape(-1, g.shape[-1]).float()
+        out = segment_sum(rows, order, offsets,
+                          long=LongSegments(offsets, rows.shape[1]),
+                          backward=True)
+        return out.to(g.dtype), None
+
+
 def embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens]
+    table = params["table"]
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _Embed.apply(table, tokens)
+    return table[tokens]
 
 
 def promoted_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

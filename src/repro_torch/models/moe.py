@@ -99,12 +99,14 @@ def moe_ffn(params, x: torch.Tensor, cfg: ArchConfig, *,
     t, k = b * s, cfg.experts_per_token
     xf = x.reshape(t, d)
     r = route(params["router"], xf, cfg, capacity_factor)
-    safe_pos = torch.where(r.keep, r.position, r.capacity - 1)
-
     # Kept pairs into the [E, C, D] buffers (unique slots: an assignment).
+    # The rows come from xf repeated k times, one row a pair, so that every
+    # gather below reads each row once and its gradient is a scatter into
+    # distinct rows (a fixed order on the card) plus a sum over the k.
     xe = x.new_zeros((cfg.num_experts, r.capacity, d))
     kept = torch.nonzero(r.keep).squeeze(1)
-    xe[r.experts[kept], r.position[kept]] = xf[kept // k]
+    xk = xf[:, None, :].expand(t, k, d).reshape(t * k, d)
+    xe[r.experts[kept], r.position[kept]] = xk[kept]
     w_flat = (r.weights.reshape(-1) * r.keep).to(x.dtype)         # [T*k]
 
     dt = x.dtype
@@ -113,7 +115,11 @@ def moe_ffn(params, x: torch.Tensor, cfg: ArchConfig, *,
     ye = torch.bmm(act * up, params["w_down"].to(dt))             # [E, C, D]
 
     # Combine: each pair's expert output, weighted, summed over the slots.
-    out_slots = ye[r.experts, safe_pos] * w_flat[:, None]         # [T*k, D]
+    # A dropped pair (weight 0) reads a zero row past the capacity, so no
+    # two pairs read one expert slot.
+    ye = torch.cat([ye, ye.new_zeros((cfg.num_experts, 1, d))], dim=1)
+    slot = torch.where(r.keep, r.position, r.capacity)
+    out_slots = ye[r.experts, slot] * w_flat[:, None]             # [T*k, D]
     out = out_slots.reshape(t, k, d).sum(dim=1)
     if "shared" in params:
         out = out + mlp(params["shared"], xf)

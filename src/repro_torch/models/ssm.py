@@ -10,7 +10,10 @@ reference. The conv is the reference's Python ``sum`` over shifted slices,
 in its order. The time recurrences run through the hand-written kernels of
 ``kernels.recurrence`` (``selective_scan``, ``rglru_scan``) on the card,
 one launch a layer for a whole sequence or a decode step; on the CPU
-through their plain step loops.
+through their plain step loops. Both are autograd Functions: in training
+their gradients come from the hand-written backward kernels (one launch a
+layer), and ``xc.float()`` and ``softplus(dt.float())`` carry the
+gradients on to the projections, the conv and ``a_log``.
 
 A decode returns a new state (the reference's NamedTuples become
 dataclasses); the transformer's ``decode_step`` puts it in the caller's

@@ -16,10 +16,21 @@ Parameters are per layer (``params["layers"][i]``, its kind
 ``cfg.layer_specs()[i]``) and the layers run in a Python loop: the
 reference's stacked stages exist only to keep XLA's program small.
 ``params_from_numpy`` unstacks the JAX package's tree. The VLM / audio
-frontends are stubs that hand over [B, S, D] embeddings. Training
-(``loss_fn``, ``make_train_step``, the MTP loss) is not ported: ROADMAP
-Queue 1 item 6b. The reference's ``constrain_batch`` is a no-op without
-a device mesh and is dropped.
+frontends are stubs that hand over [B, S, D] embeddings. The
+reference's ``constrain_batch`` is a no-op without a device mesh and is
+dropped.
+
+Training: ``loss_fn`` (cross-entropy, plus ``0.01 * aux`` with MoE and
+``0.3 * _mtp_loss`` with an MTP head), ``value_and_grad`` (micro-batch
+gradients summed in f32, then divided) and ``make_train_step`` (AdamW
+from ``optim.adamw``). Training takes the uncast parameters
+(``cast_params`` is for serving). With
+``remat=True`` each unit the reference checkpoints (one repeat of a
+stage's group: recurrentgemma's (rglru, rglru, local_attn), a single layer
+elsewhere) runs under ``torch.utils.checkpoint`` and keeps only its input;
+its forward runs again in the backward. The gradients through the
+recurrent scans come from their hand-written backward kernels
+(``kernels.recurrence``), the embedding's from a fixed-order sum.
 """
 from __future__ import annotations
 
@@ -27,6 +38,8 @@ from typing import Any, Dict, List, Sequence
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
@@ -115,7 +128,11 @@ def params_from_numpy(tree, cfg: ArchConfig, device="cpu") -> Dict[str, Any]:
     The MTP sub-tree (one block, not stacked) carries across as it is.
     """
     def to_torch(a):
-        return torch.tensor(np.asarray(a), device=device)
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":   # ml_dtypes' bfloat16: by its bits
+            return torch.tensor(a.view(np.int16), device=device).view(
+                torch.bfloat16)
+        return torch.tensor(a, device=device)
 
     layers: List[dict] = []
     for (group, repeats), stage in zip(cfg.stages(), tree["stages"]):
@@ -232,21 +249,158 @@ def _logits(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return linear(params["head"], x)
 
 
+def _block(p, spec: LayerSpec, x: torch.Tensor, aux: torch.Tensor,
+           cfg: ArchConfig, window: int, capacity_factor=None):
+    """One layer: (x, aux) -> (x, aux plus its MoE auxiliary loss)."""
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    x = x + _mixer_forward(p["mixer"], spec, h, cfg, window).to(x.dtype)
+    if spec.ffn is not None:
+        x, a = _ffn(p, spec, x, cfg, capacity_factor)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
+def _run_layers(params, cfg: ArchConfig, x: torch.Tensor, window: int,
+                remat: bool = False, capacity_factor=None):
+    """Every layer in order -> (x, the sum of the MoE auxiliary losses).
+    With ``remat`` each unit the reference's ``jax.checkpoint`` covers (one
+    repeat of a stage's group, transformer.py:157) runs under
+    ``torch.utils.checkpoint``: only its inputs are kept, and its forward
+    runs again in the backward."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    specs = cfg.layer_specs()
+    i = 0
+    for group, repeats in cfg.stages():
+        for _ in range(repeats):
+            unit = list(zip(params["layers"][i:i + len(group)],
+                            specs[i:i + len(group)]))
+            i += len(group)
+
+            def run(h, a, unit=unit):
+                for p, spec in unit:
+                    h, a = _block(p, spec, h, a, cfg, window,
+                                  capacity_factor)
+                return h, a
+
+            x, aux = (checkpoint(run, x, aux, use_reentrant=False)
+                      if remat else run(x, aux))
+    return x, aux
+
+
 def forward(params, cfg: ArchConfig, inputs: torch.Tensor, *,
             window: int = 0, capacity_factor=None):
     """inputs: int tokens [B,S] or embeddings [B,S,D] -> (logits, aux);
     aux is the sum of the MoE layers' auxiliary losses (0 without MoE).
     ``capacity_factor`` overrides the MoE layers' default (1.25)."""
     x = _embed_inputs(params, cfg, inputs)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p, spec in zip(params["layers"], cfg.layer_specs()):
-        h = rms_norm(x, p["norm1"], cfg.norm_eps)
-        x = x + _mixer_forward(p["mixer"], spec, h, cfg, window).to(x.dtype)
-        if spec.ffn is not None:
-            x, a = _ffn(p, spec, x, cfg, capacity_factor)
-            if a is not None:
-                aux = aux + a
+    x, aux = _run_layers(params, cfg, x, window,
+                         capacity_factor=capacity_factor)
     return _logits(params, cfg, x), aux
+
+
+# ----------------------------------------------------------------------------
+# Loss / train step
+# ----------------------------------------------------------------------------
+
+def _ce_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return torch.mean(logz - gold)
+
+
+def loss_fn(params, cfg: ArchConfig, batch, *, remat: bool = True
+            ) -> torch.Tensor:
+    """The training loss of ``batch`` ({"inputs", "targets"}): one trunk
+    pass shared by the main head and the MTP head."""
+    x = _embed_inputs(params, cfg, batch["inputs"])
+    x, aux = _run_layers(params, cfg, x, 0, remat=remat)
+    loss = _ce_loss(_logits(params, cfg, x), batch["targets"])
+    if cfg.num_experts:
+        loss = loss + 0.01 * aux
+    if cfg.mtp_depth and "mtp" in params:
+        loss = loss + 0.3 * _mtp_loss(params, cfg, batch, x)
+    return loss
+
+
+def _mtp_loss(params, cfg: ArchConfig, batch, trunk_x: torch.Tensor
+              ) -> torch.Tensor:
+    """DeepSeek-V3 multi-token prediction (depth 1): predict t+2 from the
+    trunk state at t combined with the embedding of token t+1."""
+    inputs, targets = batch["inputs"], batch["targets"]
+    if inputs.dtype not in (torch.int32, torch.int64):
+        return torch.zeros((), dtype=torch.float32, device=trunk_x.device)
+    h_t = trunk_x[:, :-1]
+    e_next = _embed_inputs(params, cfg, inputs[:, 1:])
+    z = torch.cat([rms_norm(h_t, params["mtp"]["norm"], cfg.norm_eps),
+                   e_next], dim=-1)
+    z = linear(params["mtp"]["proj"], z)
+    zero = torch.zeros((), dtype=torch.float32, device=z.device)
+    z, _ = _block(params["mtp"]["block"], _mtp_spec(cfg), z, zero, cfg, 0)
+    return _ce_loss(_logits(params, cfg, z), targets[:, 1:])
+
+
+def _divide(t: torch.Tensor, n: int) -> torch.Tensor:
+    """t / n as a true division (a Python-number divisor is a product
+    with its reciprocal on the card)."""
+    return t / torch.tensor(float(n), dtype=t.dtype, device=t.device)
+
+
+def value_and_grad(params, cfg: ArchConfig, batch, *,
+                   microbatches: int = 1, remat: bool = True):
+    """(loss, gradient tree) of ``loss_fn`` over ``batch``, its leading
+    axis split into ``microbatches`` parts run one after the other: their
+    gradients are summed in f32 and divided by ``microbatches`` (as are
+    the losses), as the reference's ``lax.scan`` does. With one part the
+    gradients keep the parameters' dtype, as ``jax.value_and_grad``'s."""
+    flat, spec = pytree.tree_flatten(params)
+    leaves = [p.detach().requires_grad_() for p in flat]
+    tree = pytree.tree_unflatten(leaves, spec)
+    f32 = torch.float32
+    acc = [None] * len(leaves)     # f32 sums of non-f32 leaves' grads
+    loss = None
+    for i in range(microbatches):
+        part = batch if microbatches == 1 else {
+            k: v.reshape(microbatches, v.shape[0] // microbatches,
+                         *v.shape[1:])[i] for k, v in batch.items()}
+        lm = loss_fn(tree, cfg, part, remat=remat)
+        # f32 leaves sum their micro-batches' gradients in .grad, in order
+        # (autograd adds in place); the others into f32 sums.
+        lm.backward()
+        loss = lm.detach() if loss is None else loss + lm.detach()
+        if microbatches > 1:
+            for j, leaf in enumerate(leaves):
+                if leaf.dtype != f32 and leaf.grad is not None:
+                    g = leaf.grad.float()
+                    acc[j] = g if acc[j] is None else acc[j].add_(g)
+                    leaf.grad = None
+    grads = [a if a is not None else leaf.grad if leaf.grad is not None
+             else torch.zeros(leaf.shape, dtype=f32 if microbatches > 1
+                              else leaf.dtype, device=leaf.device)
+             for a, leaf in zip(acc, leaves)]
+    if microbatches > 1:
+        loss = _divide(loss, microbatches)
+        grads = [_divide(g, microbatches) for g in grads]
+    return loss, pytree.tree_unflatten(grads, spec)
+
+
+def make_train_step(cfg: ArchConfig, optimizer, *, microbatches: int = 1,
+                    remat: bool = True):
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    {"loss", "grad_norm"}): ``value_and_grad`` over ``microbatches``
+    parts, then the optimizer, which updates the parameters in place
+    (``AdamW.apply``)."""
+    def train_step(params, opt_state, batch):
+        loss, grads = value_and_grad(params, cfg, batch,
+                                     microbatches=microbatches, remat=remat)
+        sq = torch.zeros((), dtype=torch.float32, device=loss.device)
+        for g in pytree.tree_leaves(grads):
+            sq = sq + torch.sum(torch.square(g.float()))
+        params, opt_state = optimizer.apply(params, grads, opt_state)
+        return params, opt_state, {"loss": loss, "grad_norm": sq ** 0.5}
+
+    return train_step
 
 
 # ----------------------------------------------------------------------------

@@ -69,7 +69,8 @@ def test_port_has_the_slice_modules():
               "runtime.bsp", "models.config",
               "models.layers", "models.attention", "models.transformer",
               "configs.registry", "configs.qwen1_5_0_5b", "launch.serve",
-              "runtime.serving", "api.demo"):
+              "runtime.serving", "api.demo", "data.pipeline",
+              "optim.adamw", "checkpoint.io", "launch.train"):
         assert f"repro_torch.{m}" in mods, m
     assert (PORT / "analysis" / "__main__.py").is_file()
     # the reference's hlo family reads XLA's compiled text: no counterpart
