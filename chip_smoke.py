@@ -68,9 +68,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
                 max(1, max|want|), two launches bitwise equal: at phase
                 3k's training shapes (falcon-mamba B = 2, S = 2048;
                 recurrentgemma's micro-batch B = 1, S = 3072), at B = 1,
-                S = 4096 and at B = 2, S = 37 with 8,001 / 4,001 channels
-                and a nonzero gradient of the last state; no library call
-                computes either (library_ms null);
+                S = 4096, at B = 2, S = 37 with 8,001 / 4,001 channels
+                and a nonzero gradient of the last state, and at B = 3,
+                S = 5 (one partial chunk, fewer than the kernels' ring
+                stages); no library call computes either (library_ms
+                null);
                 segment_sum: the fused gather-and-sum at the layers'
                 inputs: full-scale SIoT's edge list over its table (F = 52
                 and 64, the sim path's widths), GAT's self-looped list
@@ -1567,16 +1569,20 @@ def recurrence_cases(rc, ref) -> dict:
 #: Phase 2's backward cases of the scans: (case, B, S, width, path, with
 #: dh_last): the training paths' shapes (falcon-mamba's B = 2, S = 2048;
 #: one of recurrentgemma's micro-batches, B = 1, S = LM_RG_S), the
-#: forward's long case and a ragged one (a partial chunk, a partial CTA of
-#: channels, a nonzero gradient of the last state).
+#: forward's long case, a ragged one (a partial chunk, a partial CTA of
+#: channels, a nonzero gradient of the last state) and a short one at
+#: B = 3 (S = 5: one partial chunk, fewer than the kernels' ring stages,
+#: and a partial cluster of CTAs at 8,001 channels).
 SCAN_BWD_CASES = {"selective_scan_bwd": [
     ("train", 2, 2048, 8192, "train-falcon-mamba", False),
     ("prefill 4096", 1, 4096, 8192, None, True),
-    ("ragged S, di", 2, 37, 8001, None, True)],
+    ("ragged S, di", 2, 37, 8001, None, True),
+    ("short", 3, 5, 8001, None, True)],
     "rglru_scan_bwd": [
     ("train micro-batch", 1, 3072, 4096, "train-recurrentgemma", False),
     ("prefill 4096", 1, 4096, 4096, None, True),
-    ("ragged S, w", 2, 37, 4001, None, True)]}
+    ("ragged S, w", 2, 37, 4001, None, True),
+    ("short", 3, 5, 4001, None, True)]}
 #: Operations per (example, step, channel[, state]) of each backward, an
 #: exp counted as one. Selective: the states recomputed (dt a, exp, da h,
 #: dt b, db x, add: 6), then g += dy c (2), dy h and its sum over the
@@ -5007,7 +5013,8 @@ def main() -> int:
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
     for kernel in ("selective_scan_kernel", "rglru_scan_kernel",
-                   "rglru_short_kernel"):
+                   "rglru_short_kernel", "selective_scan_bwd_kernel",
+                   "rglru_scan_bwd_kernel"):
         total, (block, exps), (eblock, eexps) = sass_blocks(sass, kernel)
         log(f"  {kernel} SASS: {total} instructions; longest straight-line "
             f"block {block} ({exps} MUFU.EX2), longest with an exp {eblock} "

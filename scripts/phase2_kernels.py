@@ -3,7 +3,8 @@
 so that two trees can be timed in turns on one card.
 
     python3 scripts/phase2_kernels.py [TREE] [--flash | --segment | --dequant
-                                              | --serve | --activations]
+                                              | --serve | --activations
+                                              | --scan-bwd]
 
 TREE (default: this repository) is the root of a checkout that holds
 ``chip_smoke.py`` and ``src/repro_torch`` (for example the parent commit
@@ -39,6 +40,12 @@ errors:
   rounds, after a warm-up of each): what the op-by-op form costs the
   dense path, apart from the noise between processes. Needs a tree
   whose ``models.layers`` has ``silu``.
+* ``--scan-bwd``: the tree's ``recurrence_bwd_cases`` (``selective_scan_bwd``
+  and ``rglru_scan_bwd``: each case against the float64 plain backward,
+  bitwise run to run, timed), after the two backward kernels' SASS sizes
+  (``sass_blocks``); a few minutes where the whole ``chip_smoke.py`` takes
+  twelve. Needs a tree whose ``kernels.recurrence`` has the scans'
+  backward (``_selective_bwd``, ``_rglru_bwd``).
 
 Run ``parent, change, change, parent`` in one call to compare two versions.
 Needs a CUDA card.
@@ -59,6 +66,7 @@ group.add_argument("--segment", action="store_true")
 group.add_argument("--dequant", action="store_true")
 group.add_argument("--serve", action="store_true")
 group.add_argument("--activations", action="store_true")
+group.add_argument("--scan-bwd", action="store_true")
 args = ap.parse_args()
 root = Path(args.tree).resolve()
 sys.path.insert(0, str(root / "src"))
@@ -67,8 +75,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 KEYS = ("case", "F", "B", "codes", "dtype", "S", "dh", "window", "q_offset",
-        "ms", "library_ms", "plain_ms", "bound_ms", "max_abs_err",
-        "tol_ratio")
+        "width", "ms", "library_ms", "plain_ms", "bound_ms", "max_abs_err",
+        "tol_ratio", "bitwise")
 
 
 def segment_times(Engine, models, g) -> list:
@@ -247,7 +255,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"tree {root}: built {build.build()}", flush=True)
     source = ("flash_attention" if args.flash else
-              "segment_sum" if args.segment else "block_spmm")
+              "segment_sum" if args.segment else
+              "recurrence" if args.scan_bwd else "block_spmm")
     report = Path(str(build.library_path(source)) + ".log")
     for line in report.read_text().splitlines():
         if any(w in line for w in ("Compiling entry", "registers", "spill")):
@@ -256,6 +265,21 @@ def main() -> int:
         res = {"serve": serve_times(cs)}
     elif args.activations:
         res = {"activations": activation_times(cs)}
+    elif args.scan_bwd:
+        import subprocess
+        from repro_torch.kernels import recurrence as rc
+        cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(build.library_path("recurrence"))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        for kernel in ("selective_scan_bwd_kernel", "rglru_scan_bwd_kernel"):
+            total, (block, exps), (eblock, eexps) = cs.sass_blocks(sass,
+                                                                   kernel)
+            print(f"  {kernel} SASS: {total} instructions; longest "
+                  f"straight-line block {block} ({exps} MUFU.EX2), longest "
+                  f"with an exp {eblock} ({eexps} MUFU.EX2)", flush=True)
+        res = cs.recurrence_bwd_cases(rc, ref)
     elif args.flash:
         from repro_torch.kernels import flash_attention as fa
         res = cs.flash_cases(fa, ref)

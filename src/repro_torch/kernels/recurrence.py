@@ -26,10 +26,13 @@ Both scans are differentiable (``_SelectiveScan``, ``_RGLRUScan``:
 launch of a hand-written backward kernel (``selective_scan_bwd_launch``,
 ``rglru_scan_bwd_launch`` in the same source), on a CPU tensor the plain
 reverse step loop (``ref.selective_scan_bwd_ref``, ``ref.rglru_scan_bwd_ref``).
-The selective scan's backward recomputes the states (the forward keeps
-none): a forward sweep keeps h at every ``SS_BWD_CHUNK``-th step, and the
-reverse sweep recomputes each chunk from its boundary. The RG-LRU's reads
-the forward's ``hs``, which autograd keeps, and recomputes the gates. The
+Both backward kernels stream time from the last chunk through the same
+kind of cp.async ring as the forwards. The selective scan's recomputes the
+states (the forward keeps none): a forward sweep keeps h at every
+``SS_BWD_CHUNK``-th step, and the reverse sweep rebuilds each chunk's
+states and their exps from its boundary into registers, once. The
+RG-LRU's reads the forward's ``hs``, which autograd keeps, and computes the
+gates once, in gate warps beside the warp that runs the reverse chain. The
 sums that cross CTAs (over channels for ``db`` and ``dc``, over batch rows
 for the gate vectors and ``a``) go through per-CTA partials summed by
 ``torch.sum`` over the partials' axis: a fixed order, no atomics, so a
@@ -55,8 +58,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: Steps between two states the selective scan's backward keeps (the
 #: kernel's chunk; its launch refuses another).
 SS_BWD_CHUNK = 16
-#: Channels a CTA of the selective scan's backward owns: its db / dc
-#: partials are one per such group.
+#: Channels a CTA of the selective scan's backward owns (the kernel's
+#: kSbG): its db / dc partials are one per such group.
 SS_BWD_CHANNELS = 16
 
 #: C signatures: selective_scan_launch(dt, b, c, x, a, h0, y, h_last, batch,

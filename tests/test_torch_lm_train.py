@@ -334,6 +334,25 @@ def test_chip_smoke_backward_bound_is_pinned(name, b, s, width, states,
     assert (round(ms, 4), by) == (want, "bytes")
 
 
+def _cu_constants() -> dict:
+    """The ``constexpr int`` constants of ``csrc/recurrence.cu``."""
+    import re
+    src = (Path(rc.__file__).parent / "csrc" / "recurrence.cu").read_text()
+    return {name: int(v) for name, v in
+            re.findall(r"constexpr int (\w+) = (\d+);", src)}
+
+
+@pytest.mark.parametrize("wrapper, kernel", [("SS_BWD_CHUNK", "kSbT"),
+                                             ("SS_BWD_CHANNELS", "kSbG")])
+def test_selective_backward_shapes_agree_with_the_kernel_source(wrapper,
+                                                                kernel):
+    """The wrapper's chunk (the kept states' spacing, ``h_keep``'s second
+    axis) and channel group (``db_part`` / ``dc_part``'s first axis) are
+    the backward kernel's, read from its source: a partial buffer of
+    another shape would be written out of range on the card."""
+    assert _cu_constants()[kernel] == getattr(rc, wrapper)
+
+
 # ----------------------------------------------------------------------------
 # The train step
 # ----------------------------------------------------------------------------
