@@ -144,6 +144,28 @@ Phases, in order; any failed check raises and the script exits non-zero:
               (its halo rows cross as f32 there). Afterwards a small
               graph is served on the card and on the CPU, on both
               executors, and compared.
+  3l. mesh over ranks  (run right after 3b) the same mesh with one fog
+              per process: six gloo ranks on the card
+              (``runtime.dist.spawn``; NCCL refuses two ranks on one
+              device, and gloo stages each CUDA tensor of an
+              ``all_gather`` through host memory, the wire between the
+              fogs), each serving GCN and SAGE on its own shard through
+              ``Engine(...).compile(g).session()``: QUERIES DAQ-wire
+              queries, QUERIES executes, one ``execute_many`` of 8, one
+              ``compressor="none"`` query and one
+              ``aggregation="segment_sum"`` query (GAT: the last only,
+              its sums stay on the segment sum), with the counts set to
+              0 just before and read just after on every rank (path
+              ``mesh-dist``, summed over the ranks). Gates: every rank's
+              output bitwise the same calls folded in this process; per
+              rank exactly K ``block_spmm`` + K ``dequant_spmm`` a DAQ
+              query or execute, K + K of the batched forms a batch, 2K
+              ``block_spmm`` an f32 query, K (GAT 2K) segment sums a
+              segment query; each BSP sync's bytes on the wire (``runtime.dist.
+              WIRE``) the layer's ``exchange_bytes``, the first a query's
+              ``exchange_bytes``; a four-fog plan on the six-rank group
+              refused by world size. Printed per rank and kind: median
+              query and execute ms, the ``all_gather`` ms a layer.
   3c. dequantize  ``ops.dequantize_features(..., device="cuda")`` on the
               same three code tables (one ``dequant`` launch each), held
               bitwise to the plain version.
@@ -362,9 +384,10 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bandwidth,
 # the f32 rate of the CUDA cores and the dense bf16 tensor-core rate (the
 # floor of a bf16 attention, whatever this kernel uses).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOP_PER_S = 67e12
-PEAK_BF16_FLOP_PER_S = 989e12
+from repro_torch.launch.mesh import (  # noqa: E402
+    H100_SXM_BF16_FLOP_PER_S as PEAK_BF16_FLOP_PER_S,
+    H100_SXM_F32_FLOP_PER_S as PEAK_F32_FLOP_PER_S,
+    H100_SXM_HBM_BYTES_PER_S as PEAK_BYTES_PER_S)
 
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-4   # tests/test_kernels.py
 #: The scans against their f32 plain versions: the reference's kernel bar
@@ -473,6 +496,9 @@ PATH_KERNELS = {"sim": ("block_spmm", "block_spmm_batched"),
                 "dequantize": ("dequant",),
                 "server": ("block_spmm", "block_spmm_batched"),
                 "server-mesh": MESH_KERNELS,
+                # Phase 3l: every rank's kernel and segment-sum queries,
+                # summed over the ranks.
+                "mesh-dist": MESH_KERNELS + ("segment_sum",),
                 "server-slo": ("segment_sum",),
                 "server-update": ("block_spmm", "dequant_spmm"),
                 "serve": ("flash_attention",),
@@ -3704,7 +3730,7 @@ class host_only:
                 return torch.zeros_like(h)
         self.saved = (self.bsp._folded_csrs, self.bsp._kernel_sum,
                       self.ops.block_csr_for)
-        self.bsp._folded_csrs = lambda pg, device: (None, None)
+        self.bsp._folded_csrs = lambda pg, device, *a: (None, None)
         self.bsp._kernel_sum = lambda pg, h, *a, **kw: torch.zeros_like(h)
         self.ops.block_csr_for = lambda *a, **kw: Zero()
         return self
@@ -4960,6 +4986,250 @@ def lm_train_paths(tf, registry, adamw, ckpt, pipeline, ref, ssm, drive,
     return rec
 
 
+# ----------------------------------------------------------------------------
+# Phase 3l: mesh-bsp with one fog per torch.distributed rank
+# ----------------------------------------------------------------------------
+
+#: Six gloo ranks on the one card, one a fog of the default "1A+4B+1C".
+#: NCCL refuses two ranks on one device; gloo stages each CUDA tensor of an
+#: all_gather through host memory, the wire between the fogs.
+DIST_RANKS = 6
+#: GAT's attention-weighted sums stay on the segment sum, as in the
+#: reference, so its ranks serve the segment-sum query only.
+DIST_KINDS = ("gcn", "sage", "gat")
+#: A cluster of four fogs, whose plan the six-rank group must refuse.
+DIST_MISMATCH = "1A+2B+1C"
+
+
+def dist_calls(Engine, models, g, kind: str, wrappers: dict) -> tuple:
+    """Phase 3l's calls for ``kind``, in the order every rank and the
+    folded run make them: QUERIES DAQ-wire queries, QUERIES executes of
+    the collected features, one ``execute_many`` of BATCH, one f32-wire
+    query (``compressor="none"``), one ``aggregation="segment_sum"``
+    query; GAT the last only. Returns per call its output, host ms,
+    launch deltas, and the bytes and seconds of its BSP syncs
+    (``runtime.dist.WIRE``), and the DAQ session's layout."""
+    from repro_torch.runtime.dist import WIRE
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = models.gnn_init(gen, kind, [g.feature_dim, DIMS_HIDDEN,
+                                         DIMS_OUT])
+    plan = Engine((params, kind), executor="mesh-bsp",
+                  aggregation="segment_sum" if kind == "gat" else "pallas",
+                  compressor="daq", device="cuda").compile(g)
+    sess = plan.session()
+    calls = []
+
+    def call(name, fn):
+        before = {n: w.launches for n, w in wrappers.items()}
+        syncs, secs = len(WIRE.sync_bytes), len(WIRE.seconds)
+        t0 = time.perf_counter()
+        out = fn()
+        ms = (time.perf_counter() - t0) * 1e3
+        calls.append({
+            "name": name, "out": out, "ms": ms,
+            "launches": {n: w.launches - before[n]
+                         for n, w in wrappers.items()
+                         if w.launches != before[n]},
+            "sync_bytes": WIRE.sync_bytes[syncs:],
+            "sync_ms": [s * 1e3 for s in WIRE.seconds[secs:]]})
+
+    if kind != "gat":
+        for i in range(QUERIES):
+            call(f"query{i}", sess.query)
+        feats = sess.collect()
+        for i in range(QUERIES):
+            call(f"execute{i}", lambda: sess.execute(feats))
+        rng = np.random.default_rng(7)
+        stack = np.stack([sess.collect(g.features + rng.normal(
+            scale=0.1, size=g.features.shape)) for _ in range(BATCH)])
+        call("batch", lambda: np.stack(sess.execute_many(stack)))
+        call("f32_query", plan.session(compressor="none").query)
+    call("segment_query", plan.session(aggregation="segment_sum").query)
+    for c in calls:
+        if hasattr(c["out"], "embeddings"):
+            c["exchange_bytes"] = c["out"].exchange_bytes
+            c["out"] = c["out"].embeddings
+    return calls, sess.partitioned()
+
+
+def dist_rank(rank: int, out_dir: str) -> None:
+    """One fog of phase 3l: ``dist_calls`` for every kind on its shard,
+    with the wrappers' counts set to 0 just before and read just after,
+    then a plan of another fog count, which the executor must refuse.
+    Saves its outputs and records under ``out_dir``."""
+    import torch.distributed as dist
+    from repro_torch.api import Engine
+    from repro_torch.gnn import datasets, models
+    from repro_torch.kernels import daq_dequant as dq
+    from repro_torch.kernels import gather_aggregate as ga
+    from repro_torch.kernels import segment_sum as sg
+    from repro_torch.runtime.dist import WIRE
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    wrappers = {"block_spmm": ga.block_spmm,
+                "block_spmm_batched": ga.block_spmm_batched,
+                "dequant_spmm": dq.dequant_spmm,
+                "dequant_spmm_batched": dq.dequant_spmm_batched,
+                "segment_sum": sg.segment_sum}
+    g = datasets.load("siot", 1.0, seed=0)
+    WIRE.reset()
+    WIRE.timed = True
+    for w in wrappers.values():
+        w.launches = 0
+    arrays, records = {}, {"rank": rank, "world": dist.get_world_size()}
+    t0 = time.perf_counter()
+    for kind in DIST_KINDS:
+        calls, _ = dist_calls(Engine, models, g, kind, wrappers)
+        for c in calls:
+            arrays[f"{kind}/{c['name']}"] = c.pop("out")
+        records[kind] = calls
+    records["seconds"] = time.perf_counter() - t0
+    records["launches"] = {n: w.launches for n, w in wrappers.items()}
+    records["wire_bytes"] = WIRE.bytes
+    params = models.gnn_init(torch.Generator(device="cuda").manual_seed(0),
+                             "gcn", [g.feature_dim, DIMS_HIDDEN, DIMS_OUT])
+    try:
+        Engine((params, "gcn"), cluster=DIST_MISMATCH, executor="mesh-bsp",
+               device="cuda").compile(g).session()
+        records["mismatch"] = ""
+    except RuntimeError as e:
+        records["mismatch"] = str(e)
+    np.savez(f"{out_dir}/rank{rank}.npz", **arrays)
+    Path(f"{out_dir}/rank{rank}.json").write_text(json.dumps(records))
+
+
+def dist_expected(bsp, pg, kind: str, name: str, k: int) -> tuple:
+    """(launches, sync bytes) one rank's call ``name`` must show."""
+    daq = [bsp.exchange_bytes(pg, f, "halo", 1, 8)
+           for f in (pg.feats.shape[-1], DIMS_HIDDEN)]
+    f32 = [bsp.exchange_bytes(pg, f, "halo")
+           for f in (pg.feats.shape[-1], DIMS_HIDDEN)]
+    if name.startswith(("query", "execute")):
+        return {"block_spmm": k, "dequant_spmm": k}, daq
+    if name == "batch":
+        return ({"block_spmm_batched": k, "dequant_spmm_batched": k},
+                [BATCH * b for b in daq])
+    if name == "f32_query":
+        return {"block_spmm": 2 * k}, f32
+    return {"segment_sum": k * SEGMENT_SUMS[kind]}, f32
+
+
+def dist_path(Engine, models, g, bsp, wrappers: dict) -> tuple:
+    """Phase 3l: the kernels are built; spawn DIST_RANKS gloo ranks on the
+    card (``runtime.dist.spawn``), each ``dist_rank``; run the same calls
+    folded in this process; then gate. Every rank's outputs must be
+    bitwise the folded ones, its launches and the bytes of each BSP sync
+    exactly ``dist_expected``'s (a query's first sync is its
+    ``exchange_bytes``), and the plan of DIST_MISMATCH must have been
+    refused naming both counts. Returns the phase's record and the
+    launches summed over ranks."""
+    import tempfile
+    from repro_torch.runtime import dist as fog_dist
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        fog_dist.spawn(dist_rank, DIST_RANKS, tmp, tmp)
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(DIST_RANKS):
+            with np.load(f"{tmp}/rank{r}.npz") as f:
+                arrays = dict(f)
+            ranks.append((arrays, json.loads(
+                Path(f"{tmp}/rank{r}.json").read_text())))
+    rec = {"ranks": DIST_RANKS, "spawn_s": spawn_s, "kinds": {}}
+    summed = dict.fromkeys(REPLACES, 0)
+    for r, (arrays, records) in enumerate(ranks):
+        if (records["rank"], records["world"]) != (r, DIST_RANKS):
+            raise AssertionError(f"rank file {r} holds rank "
+                                 f"{records['rank']} of {records['world']}")
+        msg = records["mismatch"]
+        if "needs 4 ranks" not in msg or f"has {DIST_RANKS}" not in msg:
+            raise AssertionError(f"rank {r}: the {DIST_MISMATCH} plan was "
+                                 f"not refused by world size: {msg!r}")
+        for name, n in records["launches"].items():
+            summed[name] += n
+    for kind in DIST_KINDS:
+        t1 = time.perf_counter()
+        folded, pg = dist_calls(Engine, models, g, kind, wrappers)
+        folded_s = time.perf_counter() - t1
+        k = 2
+        per_rank = []
+        for r, (arrays, records) in enumerate(ranks):
+            for c, want in zip(records[kind], folded):
+                name = want["name"]
+                if not np.array_equal(arrays[f"{kind}/{name}"], want["out"]):
+                    raise AssertionError(f"{kind} rank {r} {name}: not "
+                                         f"bitwise the folded run")
+                launches, syncs = dist_expected(bsp, pg, kind, name, k)
+                if c["launches"] != launches:
+                    raise AssertionError(f"{kind} rank {r} {name}: launched "
+                                         f"{c['launches']}, expected "
+                                         f"{launches}")
+                if c["sync_bytes"] != syncs:
+                    raise AssertionError(f"{kind} rank {r} {name}: synced "
+                                         f"{c['sync_bytes']} bytes, expected "
+                                         f"{syncs}")
+                if "exchange_bytes" in c and \
+                        c["exchange_bytes"] != c["sync_bytes"][0]:
+                    raise AssertionError(f"{kind} rank {r} {name}: "
+                                         f"exchange_bytes "
+                                         f"{c['exchange_bytes']} != the "
+                                         f"first sync's {c['sync_bytes'][0]}")
+            by = {c["name"]: c for c in records[kind]}
+            if kind == "gat":
+                per_rank.append({"segment_query_ms":
+                                 by["segment_query"]["ms"]})
+                continue
+            queries = [by[f"query{i}"] for i in range(QUERIES)]
+            executes = [by[f"execute{i}"] for i in range(QUERIES)]
+            per_rank.append({
+                "query_ms": statistics.median(c["ms"] for c in queries),
+                "execute_ms": statistics.median(c["ms"] for c in executes),
+                "all_gather_ms_per_layer": [
+                    statistics.median(c["sync_ms"][l] for c in executes)
+                    for l in range(k)],
+                "batch_ms": by["batch"]["ms"],
+                "f32_query_ms": by["f32_query"]["ms"],
+                "segment_query_ms": by["segment_query"]["ms"]})
+        by = {c["name"]: c for c in folded}
+        rec["kinds"][kind] = {
+            "per_rank": per_rank,
+            "folded": {"segment_query_ms": by["segment_query"]["ms"],
+                       "seconds": folded_s},
+            "sync_bytes": {c["name"]: c["sync_bytes"]
+                           for c in ranks[0][1][kind]
+                           if c["name"] in ("query0", "batch", "f32_query",
+                                            "segment_query")}}
+        if kind == "gat":
+            log(f"  gat segment query: ranks " + ", ".join(
+                f"{pr['segment_query_ms']:.1f}" for pr in per_rank)
+                + f" ms, folded {by['segment_query']['ms']:.1f} ms")
+            continue
+        rec["kinds"][kind]["folded"].update(
+            query_ms=statistics.median(
+                by[f"query{i}"]["ms"] for i in range(QUERIES)),
+            execute_ms=statistics.median(
+                by[f"execute{i}"]["ms"] for i in range(QUERIES)),
+            batch_ms=by["batch"]["ms"])
+        for r, pr in enumerate(per_rank):
+            log(f"  {kind} rank {r}: query {pr['query_ms']:.1f} ms, execute "
+                f"{pr['execute_ms']:.1f} ms (all_gather "
+                + " / ".join(f"{x:.2f}" for x in
+                             pr["all_gather_ms_per_layer"])
+                + f" ms a layer), batch of {BATCH} {pr['batch_ms']:.1f} ms, "
+                f"f32 query {pr['f32_query_ms']:.1f} ms, segment query "
+                f"{pr['segment_query_ms']:.1f} ms")
+        f = rec["kinds"][kind]["folded"]
+        log(f"  {kind} folded: query {f['query_ms']:.1f} ms, execute "
+            f"{f['execute_ms']:.1f} ms, batch of {BATCH} "
+            f"{f['batch_ms']:.1f} ms")
+    rec["wire_bytes_per_rank"] = [records["wire_bytes"]
+                                  for _, records in ranks]
+    rec["rank_seconds"] = [records["seconds"] for _, records in ranks]
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec, summed
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5196,6 +5466,14 @@ def main() -> int:
     small_reference(Engine, models, datasets)
     log("  small graph: card == CPU within tolerance, both executors")
 
+    log(f"phase 3l: mesh-bsp over torch.distributed ({DIST_RANKS} gloo "
+        f"ranks on the card, one a fog; the times are gloo's host-staged "
+        f"wire on one card)")
+    dist_rec, dist_counts = dist_path(Engine, models, g, bsp, wrappers)
+    record("mesh-dist", dist_counts, 0)
+    log(f"  phase 3l: {dist_rec['phase_s']:.1f} s (spawn and ranks "
+        f"{dist_rec['spawn_s']:.1f} s)")
+
     log("phase 3c: dequantize path (ops.dequantize_features)")
     dequantized = drive("dequantize",
                         lambda: dequantize_path(ops, ref, tables))
@@ -5308,6 +5586,7 @@ def main() -> int:
     print(json.dumps({"fault_path": fault_rec}), flush=True)
     print(json.dumps({"compaction": compaction,
                       "main_path": served, "mesh_path": meshed,
+                      "mesh_dist_path": dist_rec,
                       "segment_sum_path": {"sim": seg_sim,
                                            "mesh": seg_mesh},
                       "dequantize_path": dequantized,

@@ -2,9 +2,9 @@
 """Phase 2 of ``chip_smoke.py`` for one group of kernels, for a given tree,
 so that two trees can be timed in turns on one card.
 
-    python3 scripts/phase2_kernels.py [TREE] [--flash | --segment | --dequant
-                                              | --serve | --activations
-                                              | --scan-bwd]
+    python3 scripts/phase2_kernels.py [TREE] [--flash | --segment | --mesh
+                                              | --dequant | --serve
+                                              | --activations | --scan-bwd]
 
 TREE (default: this repository) is the root of a checkout that holds
 ``chip_smoke.py`` and ``src/repro_torch`` (for example the parent commit
@@ -22,6 +22,11 @@ errors:
   GCN, SAGE and GAT on the ``sim`` and ``mesh-bsp`` executors on full-scale
   SIoT (host clock ending in the copy back; median of 20 after a warm-up),
   through the public API only, so any tree of the port can run it;
+* ``--mesh``: ``Session.execute`` of the folded ``mesh-bsp`` executor
+  (no process group) for GCN and SAGE on full-scale SIoT: the DAQ and the
+  f32 halo wire of ``aggregation="pallas"`` and ``aggregation=
+  "segment_sum"``, timed as ``--segment``, through the public API only, so
+  any tree of the port can run it;
 * ``--dequant``: ``daq_dequant.dequant`` on the three tables of the
   ``dequantize`` drive, each unpadded and padded to the reference's
   256 x 128 tiling, and on a streaming 131,072 x 128 uint8 table (device
@@ -63,6 +68,7 @@ ap.add_argument("tree", nargs="?",
 group = ap.add_mutually_exclusive_group()
 group.add_argument("--flash", action="store_true")
 group.add_argument("--segment", action="store_true")
+group.add_argument("--mesh", action="store_true")
 group.add_argument("--dequant", action="store_true")
 group.add_argument("--serve", action="store_true")
 group.add_argument("--activations", action="store_true")
@@ -79,35 +85,58 @@ KEYS = ("case", "F", "B", "codes", "dtype", "S", "dh", "window", "q_offset",
         "tol_ratio", "bitwise")
 
 
+def execute_times(sess, **rec) -> dict:
+    """``rec`` with the session's median execute ms of 20 (after a
+    warm-up; host clock ending in the copy back) and one batch of 8."""
+    feats = sess.collect()
+    sess.execute(feats)
+    times = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        sess.execute(feats)
+        times.append((time.perf_counter() - t0) * 1e3)
+    stack = np.stack([feats] * 8)
+    sess.execute_many(stack)
+    t0 = time.perf_counter()
+    sess.execute_many(stack)
+    rec.update(execute_ms=statistics.median(times),
+               batch8_ms=(time.perf_counter() - t0) * 1e3)
+    print(f"  {' '.join(str(v) for v in rec.values() if isinstance(v, str))}"
+          f": execute {rec['execute_ms']:.3f} ms, batch of 8 "
+          f"{rec['batch8_ms']:.2f} ms", flush=True)
+    return rec
+
+
+def gnn_params(models, g, kind: str):
+    return models.gnn_init(torch.Generator(device="cuda").manual_seed(0),
+                           kind, [g.feature_dim, 64, 2])
+
+
 def segment_times(Engine, models, g) -> list:
     """Execute times of the segment-sum path, every kind and executor."""
     out = []
     for executor in ("sim", "mesh-bsp"):
         for kind in ("gcn", "sage", "gat"):
-            params = models.gnn_init(torch.Generator(device="cuda")
-                                     .manual_seed(0), kind,
-                                     [g.feature_dim, 64, 2])
             knobs = {"compressor": "daq"} if executor == "mesh-bsp" else {}
-            sess = Engine((params, kind), executor=executor,
-                          aggregation="segment_sum", device="cuda",
-                          **knobs).compile(g).session()
-            feats = sess.collect()
-            sess.execute(feats)
-            times = []
-            for _ in range(20):
-                t0 = time.perf_counter()
-                sess.execute(feats)
-                times.append((time.perf_counter() - t0) * 1e3)
-            stack = np.stack([feats] * 8)
-            sess.execute_many(stack)
-            t0 = time.perf_counter()
-            sess.execute_many(stack)
-            out.append({"executor": executor, "kind": kind,
-                        "execute_ms": statistics.median(times),
-                        "batch8_ms": (time.perf_counter() - t0) * 1e3})
-            print(f"  {executor} {kind}: execute {out[-1]['execute_ms']:.3f}"
-                  f" ms, batch of 8 {out[-1]['batch8_ms']:.2f} ms",
-                  flush=True)
+            sess = Engine((gnn_params(models, g, kind), kind),
+                          executor=executor, aggregation="segment_sum",
+                          device="cuda", **knobs).compile(g).session()
+            out.append(execute_times(sess, executor=executor, kind=kind))
+    return out
+
+
+def mesh_times(Engine, models, g) -> list:
+    """Execute times of the folded mesh: GCN and SAGE, each on the DAQ
+    wire, the f32 wire and the segment sum."""
+    out = []
+    for kind in ("gcn", "sage"):
+        plan = Engine((gnn_params(models, g, kind), kind),
+                      executor="mesh-bsp", aggregation="pallas",
+                      compressor="daq", device="cuda").compile(g)
+        for wire, knobs in (("daq", {}), ("f32", {"compressor": "none"}),
+                            ("segment", {"aggregation": "segment_sum"})):
+            out.append(execute_times(plan.session(**knobs), kind=kind,
+                                     wire=wire))
     return out
 
 
@@ -286,6 +315,9 @@ def main() -> int:
     elif args.segment:
         g = datasets.load("siot", 1.0, seed=0)
         res = {"segment_sum_path": segment_times(Engine, models, g)}
+    elif args.mesh:
+        g = datasets.load("siot", 1.0, seed=0)
+        res = {"mesh_path": mesh_times(Engine, models, g)}
     elif args.dequant:
         from repro_torch.core import compression
         g = datasets.load("siot", 1.0, seed=0)
@@ -302,8 +334,8 @@ def main() -> int:
                                     pg.n * pg.boundary_slots))
     print(json.dumps({
         "tree": str(root), "device": torch.cuda.get_device_name(0),
-        "cases": {name: rec if args.segment or args.dequant or args.serve
-                  or args.activations
+        "cases": {name: rec if args.segment or args.mesh or args.dequant
+                  or args.serve or args.activations
                   else [{k: c[k] for k in KEYS if k in c}
                         for c in rec["cases"]]
                   for name, rec in res.items()}}), flush=True)

@@ -7,9 +7,13 @@ they differ in which simulated pipeline prices the query's latency:
   "single"    single-program numerics, single-most-powerful-fog accounting
               (the paper's single-fog baseline).
   "mesh-bsp"  the paper's distributed BSP runtime (§III-E): one shard per
-              fog partition, a halo/allgather exchange per layer, the
-              shards folded onto the plan's one device
-              (``runtime.bsp``); multi-fog accounting.
+              fog partition, a halo/allgather exchange per layer
+              (``runtime.bsp``); multi-fog accounting. In a process whose
+              default ``torch.distributed`` group is initialized, rank
+              ``r`` runs fog ``r`` on the plan's device and the exchange
+              crosses the group (the group's size must be the plan's fog
+              count); otherwise the shards fold onto the plan's one
+              device.
   "cloud"     single-program numerics, de-facto cloud accounting (full
               WAN upload to a datacenter GPU) — the paper's Fig. 3
               cloud-vs-fog baseline.
@@ -47,6 +51,7 @@ from typing import List, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.api.registry import EXECUTORS
 from repro_torch.gnn.layers import EdgeList, LAYER_FNS, apply_layer_with_sum
@@ -302,8 +307,18 @@ class _MeshBsp(ExecutorBackend):
     #: when the kernel path is active (Engine/Session build them lazily).
     needs_block_shards = True
 
+    @staticmethod
+    def group():
+        """The default process group when one is initialized (one rank a
+        fog, the counterpart of the reference's ``jax.devices()``), else
+        None (the shards fold onto the plan's device)."""
+        if dist.is_available() and dist.is_initialized():
+            return dist.group.WORLD
+        return None
+
     def check(self, plan) -> None:
-        """The shards share the plan's one device, which must exist."""
+        """The plan's device must exist; with a process group, one rank
+        a fog."""
         dev = plan.device
         if dev.type not in ("cuda", "cpu"):
             raise RuntimeError(f"executor 'mesh-bsp' runs on a cuda or cpu "
@@ -312,6 +327,15 @@ class _MeshBsp(ExecutorBackend):
             raise RuntimeError(f"executor 'mesh-bsp' needs the plan's device "
                                f"{dev}, but torch.cuda.is_available() is "
                                f"False")
+        group = self.group()
+        if group is not None:
+            n, have = plan.num_fogs, dist.get_world_size(group)
+            if have != n:
+                raise RuntimeError(
+                    f"executor 'mesh-bsp' needs {n} ranks (one per fog "
+                    f"partition), the process group has {have} — start "
+                    f"{n} ranks, or serve without a process group to fold "
+                    f"the shards onto one device")
 
     @staticmethod
     def _halo_quant(plan, exchange: str, aggregation: str) -> bool:
@@ -336,7 +360,7 @@ class _MeshBsp(ExecutorBackend):
                 device=plan.device, exchange=exchange,
                 aggregation=aggregation,
                 halo_quant=self._halo_quant(plan, exchange, aggregation),
-                pg=pg)
+                pg=pg, group=self.group())
 
     def run_many(self, plan, feats, assignment, pg, exchange,
                  aggregation="segment_sum"):
@@ -355,7 +379,8 @@ class _MeshBsp(ExecutorBackend):
                 list(plan.model.params), plan.model.kind, stacked, pg,
                 device=plan.device, exchange=exchange,
                 aggregation=aggregation,
-                halo_quant=self._halo_quant(plan, exchange, aggregation))
+                halo_quant=self._halo_quant(plan, exchange, aggregation),
+                group=self.group())
         return list(out)
 
     #: mesh numerics (per-shard layouts, halo accumulation order) differ
@@ -371,7 +396,7 @@ class _MeshBsp(ExecutorBackend):
         feats = np.asarray(feats, np.float32)
         hq = self._halo_quant(plan, exchange, aggregation)
         kw = dict(device=plan.device, exchange=exchange,
-                  aggregation=aggregation, halo_quant=hq)
+                  aggregation=aggregation, halo_quant=hq, group=self.group())
         with torch.no_grad():
             if feats.ndim == 3:
                 return bsp.bsp_infer_capture_many(
@@ -387,7 +412,7 @@ class _MeshBsp(ExecutorBackend):
         feats = np.asarray(feats, np.float32)
         hq = self._halo_quant(plan, exchange, aggregation)
         kw = dict(device=plan.device, exchange=exchange,
-                  aggregation=aggregation, halo_quant=hq)
+                  aggregation=aggregation, halo_quant=hq, group=self.group())
         with torch.no_grad():
             if feats.ndim == 3:
                 merged = bsp.bsp_infer_frontier_many(
@@ -410,14 +435,16 @@ class _MeshBsp(ExecutorBackend):
             return bsp.bsp_infer_stale(
                 list(plan.model.params), plan.model.kind,
                 np.asarray(feats, np.float32), pg, halo_tables,
-                device=plan.device, aggregation=aggregation)
+                device=plan.device, aggregation=aggregation,
+                group=self.group())
 
     def run_stale_many(self, plan, feats, assignment, pg, halo_tables,
                        aggregation="segment_sum"):
         with torch.no_grad():
             out = bsp.bsp_infer_stale_many(
                 list(plan.model.params), plan.model.kind, _as_stack(feats),
-                pg, halo_tables, device=plan.device, aggregation=aggregation)
+                pg, halo_tables, device=plan.device, aggregation=aggregation,
+                group=self.group())
         return list(out)
 
 

@@ -17,12 +17,24 @@ The host part lays the graph out per partition with static padded shapes
 (``build_partitioned``, with the pre-blocked per-shard block-CSR operands
 of the kernel path) and prices the exchange (``exchange_bytes``,
 ``ExchangeSpec``). The device part (``bsp_apply`` / ``bsp_apply_many``,
-``bsp_infer`` / ``bsp_infer_many``) runs the n shards on ONE torch device:
-the shard axis is folded into the row axis, so shard ``p``'s slot ``i`` is
-row ``p*P + i`` of one [n*P, F] table, and the all_gather of the boundary
-rows is a gather of those rows into one [n*B, F] halo table that every
-shard reads. A layer is one program over all shards instead of n
-programs.
+``bsp_infer`` / ``bsp_infer_many`` and the capture, stale and frontier
+entry points) runs the shards one of two ways:
+
+  * ``group=None`` folds the n shards onto ONE torch device: the shard
+    axis is folded into the row axis, so shard ``p``'s slot ``i`` is row
+    ``p*P + i`` of one [n*P, F] table, and the all_gather of the boundary
+    rows is a gather of those rows into one [n*B, F] halo table that every
+    shard reads. A layer is one program over all shards.
+  * a ``torch.distributed`` process group of n ranks (the reference's
+    ``mesh``) runs shard ``r`` alone on rank ``r``, on the ``device`` it
+    was given: the same program over one shard, [P, F] rows. Its exchange
+    is an ``all_gather`` of its boundary rows (or their DAQ codes, scales
+    and mins) into the same [n*B, F] halo table (``runtime.dist``); every
+    rank returns the whole result, in original vertex order. Per row, the
+    sums run in the folded path's order, and the dense tail runs on the
+    rank's rows placed in a zero [n*P, F] table (``_Fogs.spread``), so its
+    products have the folded shapes: a rank's rows are bitwise the folded
+    ones for every kind.
 
 Shard-local aggregation runs on one of two numerically equivalent paths,
 selected by the ``aggregation`` knob:
@@ -56,6 +68,7 @@ from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.api.registry import EXCHANGES
@@ -69,6 +82,7 @@ from repro_torch.kernels.gather_aggregate import (BLOCK, RowSubset, TileRows,
                                                   build_block_csr,
                                                   compact_block_csr,
                                                   row_subset)
+from repro_torch.runtime import dist as fog_dist
 
 #: legal values of the Engine/Session ``aggregation`` knob.
 AGGREGATIONS = ("segment_sum", "pallas", "auto")
@@ -400,31 +414,100 @@ def build_partitioned(g: Graph, assignment: np.ndarray,
 
 
 # ----------------------------------------------------------------------------
-# Device programs: the n shards folded into the row axis of one device
+# Device programs: the shards a process holds, folded into the row axis of
+# its device (all n with no process group, its rank's one with a group)
 # ----------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _Fogs:
+    """The shards this process runs: all ``n`` folded onto its device
+    (``group`` None), or shard ``rank`` of the ``n`` ranks of ``group``."""
+    n: int
+    group: object = None
+    rank: int = 0
+
+    @property
+    def m(self) -> int:
+        """Shards held, folded into the row axis of the local tables."""
+        return self.n if self.group is None else 1
+
+    def key(self, what):
+        """``what``'s device-cache key: the folded path keeps its plain
+        names; a rank's operands carry its rank."""
+        return what if self.group is None else (what, self.rank)
+
+    def pick(self, a: np.ndarray) -> np.ndarray:
+        """The held shards' entries of a per-shard [n, ...] host array."""
+        return a if self.group is None else a[self.rank:self.rank + 1]
+
+    def spread(self, x: torch.Tensor, slots: int,
+               dim: int = -2) -> torch.Tensor:
+        """The held shards' rows of ``x`` (along ``dim``) at their place in
+        the folded [.., n*P, ..] table, zeros elsewhere. A rank's dense
+        tail runs on this table: its products then have the folded shapes
+        (a product's reduction order may depend on its shape), so its rows
+        come out bitwise the folded ones."""
+        if self.group is None:
+            return x
+        shape = list(x.shape)
+        shape[dim] = self.n * slots
+        out = x.new_zeros(shape)
+        out.narrow(dim, self.rank * slots, slots).copy_(x)
+        return out
+
+    def own(self, x: torch.Tensor, slots: int) -> torch.Tensor:
+        """The held shards' rows of a [.., n*P, F] table from ``spread``."""
+        if self.group is None:
+            return x
+        return x.narrow(-2, self.rank * slots, slots)
+
+
+def _fogs(pg: PartitionedGraph, group, device: torch.device) -> _Fogs:
+    """The shards of this process for ``group``; with a group, its size
+    must be ``pg.n`` (one rank a fog), and before the first run on this
+    layout every rank checks that all ranks hold the same assignment."""
+    if group is None:
+        return _Fogs(pg.n)
+    world = dist.get_world_size(group)
+    if world != pg.n:
+        raise ValueError(f"need {pg.n} ranks for {pg.n} partitions, the "
+                         f"process group has {world}")
+    fogs = _Fogs(pg.n, group, dist.get_rank(group))
+
+    def agree():
+        fog_dist.check_same(fog_dist.digest(
+            pg.part_of, np.array([pg.n, pg.slots, pg.boundary_slots])),
+            group, device, "the partition assignment")
+        return True
+    _on_device(pg, device, fogs.key("agreed"), agree)
+    return fogs
+
 
 def _layer_edges(slots: int, senders: torch.Tensor, kind: str,
                  self_senders: torch.Tensor, receivers: torch.Tensor,
-                 emask: torch.Tensor, vmask: torch.Tensor) -> EdgeList:
-    """One layer's EdgeList over the folded [n*P] receiver rows.
+                 emask: torch.Tensor, vmask: torch.Tensor,
+                 fogs: _Fogs) -> EdgeList:
+    """One layer's EdgeList of the held shards over the folded [n*P]
+    receiver rows.
 
-    ``senders`` [n, E] already index the folded source table;
-    ``receivers`` [n, E] are shard-local slots, moved here to shard p's
+    ``senders`` [m, E] already index the folded source table;
+    ``receivers`` [m, E] are shard-local slots, moved here to shard p's
     rows ``p*P ..``. GAT gets explicit self-edges (``self_senders``
-    [n, P], masked by ``vmask``) after each shard's own edges, as the
+    [m, P], masked by ``vmask``) after each shard's own edges, as the
     reference appends them per shard.
     """
-    n = receivers.shape[0]
+    m = receivers.shape[0]
     if kind == "gat":
-        own = torch.arange(slots, dtype=receivers.dtype,
-                           device=receivers.device).expand(n, slots)
+        slot = torch.arange(slots, dtype=receivers.dtype,
+                            device=receivers.device).expand(m, slots)
         senders = torch.cat([senders, self_senders], 1)
-        receivers = torch.cat([receivers, own], 1)
+        receivers = torch.cat([receivers, slot], 1)
         emask = torch.cat([emask, vmask], 1)
-    offset = torch.arange(n, dtype=receivers.dtype,
-                          device=receivers.device)[:, None] * slots
-    return EdgeList(senders.reshape(-1), (receivers + offset).reshape(-1),
-                    emask.reshape(-1), n * slots)
+    offset = (fogs.rank + torch.arange(m, dtype=receivers.dtype,
+                                       device=receivers.device))[:, None]
+    return EdgeList(senders.reshape(-1),
+                    (receivers + offset * slots).reshape(-1),
+                    emask.reshape(-1), fogs.n * slots)
 
 
 def _wire_quantize(h: torch.Tensor, levels: float = 255.0):
@@ -435,7 +518,8 @@ def _wire_quantize(h: torch.Tensor, levels: float = 255.0):
     (masked padding) rows get code 0 / scale ~0 / min 0 and dequantize to
     exactly 0. ``h`` may carry leading batch axes: the reductions run over
     the feature (last) axis, so batched quantization is bitwise the
-    single-query call per row.
+    single-query call per row (and a rank's rows are bitwise the same rows
+    quantized in the folded table).
     """
     mins = h.amin(dim=-1)
     scales = torch.clamp_min(h.amax(dim=-1) - mins, 1e-12) / levels
@@ -470,61 +554,74 @@ def _on_device(pg: PartitionedGraph, device: torch.device, what, build):
 
 @dataclasses.dataclass(frozen=True)
 class _Layout:
-    """The layout's row bookkeeping on one device, folded over shards."""
-    vertex_mask: torch.Tensor     # f32[n*P, 1]
-    boundary_index: torch.Tensor  # i64[n*B]: folded row of each halo row
-    boundary_mask: torch.Tensor   # f32[n*B, 1]
-    result_index: torch.Tensor    # i64[V]: folded row of each vertex
+    """The layout's row bookkeeping on one device, folded over the held
+    shards."""
+    vertex_mask: torch.Tensor     # f32[m*P, 1]
+    boundary_index: torch.Tensor  # i64[m*B]: folded row of each halo row
+    boundary_mask: torch.Tensor   # f32[m*B, 1]
+    result_index: torch.Tensor    # i64[V]: row of each vertex in [n*P]
 
 
-def _layout(pg: PartitionedGraph, device: torch.device) -> _Layout:
+def _layout(pg: PartitionedGraph, device: torch.device,
+            fogs: Optional[_Fogs] = None) -> _Layout:
+    fogs = fogs or _Fogs(pg.n)
+
     def build():
-        shard_rows = np.arange(pg.n)[:, None] * pg.slots
+        shard_rows = np.arange(fogs.m)[:, None] * pg.slots
         return _Layout(
-            vertex_mask=torch.as_tensor(pg.vertex_mask.reshape(-1, 1),
-                                        device=device),
+            vertex_mask=torch.as_tensor(
+                fogs.pick(pg.vertex_mask).reshape(-1, 1), device=device),
             boundary_index=torch.as_tensor(
-                (shard_rows + pg.boundary_rows).reshape(-1), device=device),
-            boundary_mask=torch.as_tensor(pg.boundary_mask.reshape(-1, 1),
-                                          device=device),
+                (shard_rows + fogs.pick(pg.boundary_rows)).reshape(-1),
+                device=device),
+            boundary_mask=torch.as_tensor(
+                fogs.pick(pg.boundary_mask).reshape(-1, 1), device=device),
             result_index=torch.as_tensor(pg.part_of * pg.slots + pg.slot_of,
                                          device=device))
-    return _on_device(pg, device, "layout", build)
+    return _on_device(pg, device, fogs.key("layout"), build)
 
 
 def _edges(pg: PartitionedGraph, device: torch.device, exchange: str,
-           kind: str) -> EdgeList:
-    """The folded EdgeList of ``exchange``: over the [n*P | n*B] table
-    (local rows, then the halo table) for ``halo``, over the [n*P] table
-    for ``allgather``."""
+           kind: str, fogs: Optional[_Fogs] = None) -> EdgeList:
+    """The EdgeList of ``exchange`` of the held shards' edges, in the
+    folded coordinates (on a rank, its rows of the ``_Fogs.spread``
+    table): over the [n*P | n*B] table (every shard's rows, then the halo
+    table) for ``halo``, over the [n*P] table of every shard for
+    ``allgather`` (``h`` itself when folded, the gathered rows on a
+    rank)."""
+    fogs = fogs or _Fogs(pg.n)
+
     def build():
         put = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
         if exchange == "allgather":
-            senders = put(pg.senders_global)
-            self_senders = put(pg.self_senders_global)
+            senders = put(fogs.pick(pg.senders_global))
+            self_senders = put(fogs.pick(pg.self_senders_global))
         else:
             # Shard p's combined table is [its P rows | the n*B halo
             # rows]: local slot s is folded row p*P + s, halo row s - P
             # is row n*P + s - P.
-            n, slots = pg.n, pg.slots
-            shard = np.arange(n, dtype=np.int32)[:, None] * slots
-            halo = pg.senders_halo
+            slots = pg.slots
+            shard = (fogs.rank + np.arange(fogs.m, dtype=np.int32)
+                     )[:, None] * slots
+            halo = fogs.pick(pg.senders_halo)
             senders = put(halo + np.where(halo < slots, shard,
-                                          np.int32((n - 1) * slots)))
-            self_senders = put(pg.self_senders_halo + shard)
+                                          np.int32((pg.n - 1) * slots)))
+            self_senders = put(fogs.pick(pg.self_senders_halo) + shard)
         return _layer_edges(pg.slots, senders, kind, self_senders,
-                            put(pg.receivers_local), put(pg.edge_mask),
-                            put(pg.vertex_mask))
-    return _on_device(pg, device, ("edges", exchange, kind == "gat"), build)
+                            put(fogs.pick(pg.receivers_local)),
+                            put(fogs.pick(pg.edge_mask)),
+                            put(fogs.pick(pg.vertex_mask)), fogs)
+    return _on_device(pg, device,
+                      fogs.key(("edges", exchange, kind == "gat")), build)
 
 
 @dataclasses.dataclass(frozen=True)
 class _FoldedCsr:
     """A BlockShardCsr on one device with its shard axis folded into the
-    row-block axis: one launch aggregates every shard."""
-    blocks: torch.Tensor   # f32[n*VB, M, B, B]
-    cols: torch.Tensor     # i32[n*VB, M]
-    mask: torch.Tensor     # f32[n*VB, M]
+    row-block axis: one launch aggregates every held shard."""
+    blocks: torch.Tensor   # f32[m*VB, M, B, B]
+    cols: torch.Tensor     # i32[m*VB, M]
+    mask: torch.Tensor     # f32[m*VB, M]
     rows: TileRows         # the tiles' nonzeros per row (CUDA kernels)
     max_col: int           # largest entry of cols (host bounds check)
     src_rows: int          # rows of the source table the launch reads
@@ -553,36 +650,64 @@ def _fold(csr: BlockShardCsr, device: torch.device,
                       int(cols.max()), src_rows, csr.out_rows)
 
 
-def _folded_csrs(pg: PartitionedGraph, device: torch.device):
-    return _on_device(pg, device, "csr", lambda: (
-        _fold(pg.local_csr, device, True), _fold(pg.halo_csr, device, False)))
+def _folded_csrs(pg: PartitionedGraph, device: torch.device,
+                 fogs: Optional[_Fogs] = None):
+    """The local and halo operands of the held shards on ``device``."""
+    fogs = fogs or _Fogs(pg.n)
+
+    def held(csr: BlockShardCsr) -> BlockShardCsr:
+        return dataclasses.replace(csr, blocks=fogs.pick(csr.blocks),
+                                   cols=fogs.pick(csr.cols),
+                                   mask=fogs.pick(csr.mask))
+    return _on_device(pg, device, fogs.key("csr"), lambda: (
+        _fold(held(pg.local_csr), device, True),
+        _fold(held(pg.halo_csr), device, False)))
+
+
+def _exchange(h: torch.Tensor, lay: _Layout, fogs: _Fogs,
+              quant: bool) -> Tuple[torch.Tensor, ...]:
+    """One layer's BSP sync: every shard's boundary rows (times their
+    mask) as the [.., n*B, F] halo table, or with ``quant`` its uint8
+    codes and its [.., n*B] scales and mins. Folded, a gather of rows of
+    ``h``; on a rank, its own [.., B, F] rows (or their codes, scales and
+    mins) cross the wire in one ``all_gather`` each."""
+    hb = h[..., lay.boundary_index, :] * lay.boundary_mask   # [.., m*B, F]
+    if fogs.group is None:
+        return _wire_quantize(hb) if quant else (hb,)
+    if quant:   # codes [.., B, F]; scales and mins [.., B]
+        return tuple(fog_dist.gather_rows(_wire_quantize(hb), (-2, -1, -1),
+                                          fogs.group))
+    return tuple(fog_dist.gather_rows((hb,), (-2,), fogs.group))
 
 
 def _kernel_sum(pg: PartitionedGraph, h: torch.Tensor, lay: _Layout,
                 local: _FoldedCsr, halo: _FoldedCsr, halo_quant: bool,
                 subsets: Optional[Tuple[RowSubset, RowSubset]] = None,
-                stale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Every shard's neighbor SUM = local SpMM + halo SpMM, one launch
-    each for all shards. ``h`` is the folded [n*P, F] table or a
-    [B, n*P, F] stack (then the batched kernels run). ``subsets`` (the
+                stale: Optional[torch.Tensor] = None,
+                fogs: Optional[_Fogs] = None) -> torch.Tensor:
+    """Every held shard's neighbor SUM = local SpMM + halo SpMM, one
+    launch each for all held shards. ``h`` is the folded [m*P, F] table or
+    a [B, m*P, F] stack (then the batched kernels run). ``subsets`` (the
     local and halo operands' row subsets of a frontier layer) restricts
     both launches to their rows; ``stale`` is a recorded [n*B, F] halo
-    table read instead of gathering ``h``'s boundary rows (no wire)."""
-    n, slots = pg.n, pg.slots
+    table read instead of the exchange (no wire)."""
+    fogs = fogs or _Fogs(pg.n)
+    m, slots = fogs.m, pg.slots
     lead, f = h.shape[:-2], h.shape[-1]
     batched = h.ndim == 3
     spmm = block_spmm_batched if batched else block_spmm
     l_rows, h_rows = (local.rows, halo.rows) if subsets is None else subsets
-    loc = _kernel_pad(h.reshape(lead + (n, slots, f)), local.src_rows // n)
+    loc = _kernel_pad(h.reshape(lead + (m, slots, f)), local.src_rows // m)
     out = spmm(local.blocks, local.cols, local.mask,
                loc.reshape(lead + (local.src_rows, f)), rows=l_rows,
                max_col=local.max_col)
     if stale is not None:
         hb = stale.expand(lead + stale.shape)
+        wire = _wire_quantize(hb) if halo_quant else (hb,)
     else:
-        hb = h[..., lay.boundary_index, :] * lay.boundary_mask  # [.., n*B, F]
+        wire = _exchange(h, lay, fogs, halo_quant)
     if halo_quant:
-        codes, sc, mn = _wire_quantize(hb)
+        codes, sc, mn = wire
         pad = (0, halo.src_rows - sc.shape[-1])
         dq = dequant_spmm_batched if batched else dequant_spmm
         out_h = dq(halo.blocks, halo.cols, halo.mask,
@@ -590,12 +715,12 @@ def _kernel_sum(pg: PartitionedGraph, h: torch.Tensor, lay: _Layout,
                    F.pad(mn, pad), rows=h_rows, max_col=halo.max_col)
     else:
         out_h = spmm(halo.blocks, halo.cols, halo.mask,
-                     _kernel_pad(hb, halo.src_rows).contiguous(),
+                     _kernel_pad(wire[0], halo.src_rows).contiguous(),
                      rows=h_rows, max_col=halo.max_col)
 
     def shard_rows(o):
-        o = o.reshape(lead + (n, local.out_rows, f))[..., :slots, :]
-        return o.reshape(lead + (n * slots, f))
+        o = o.reshape(lead + (m, local.out_rows, f))[..., :slots, :]
+        return o.reshape(lead + (m * slots, f))
     return shard_rows(out) + shard_rows(out_h)
 
 
@@ -619,17 +744,19 @@ def _run_layers(params, kind: str, pg: PartitionedGraph, h: torch.Tensor,
                 exchange: str, aggregation: str, halo_quant: bool,
                 dirty: Optional[List[np.ndarray]] = None,
                 cached: Optional[List[torch.Tensor]] = None,
-                stale: Optional[List[torch.Tensor]] = None
-                ) -> List[torch.Tensor]:
-    """K-layer BSP forward on the folded table ``h`` ([n*P, F], or a
-    [B, n*P, F] stack) -> every layer's folded output, on ``h``'s device.
+                stale: Optional[List[torch.Tensor]] = None,
+                fogs: Optional[_Fogs] = None) -> List[torch.Tensor]:
+    """K-layer BSP forward on the folded table ``h`` of the held shards
+    ([m*P, F], or a [B, m*P, F] stack) -> every layer's folded output
+    over the same rows, on ``h``'s device.
 
     The kernel path runs one local and one halo launch per layer for the
     whole stack, then the dense tail example by example; the segment-sum
     path runs a stack example by example. Either way every example is
-    bitwise its serial run.
+    bitwise its serial run. On a rank the dense tail (all of a GAT layer
+    past the exchange) runs on ``fogs.spread`` tables of the folded shape.
 
-    Frontier pass (``dirty``: per layer a host bool [n*P] mask of the
+    Frontier pass (``dirty``: per layer a host bool [m*P] mask of the
     folded rows to recompute; ``cached``: the last full pass's K folded
     tables): the kernel path launches both operands over the row subset of the
     dirty rows' 128-row blocks (the edge mask stays full: degrees must be
@@ -645,6 +772,7 @@ def _run_layers(params, kind: str, pg: PartitionedGraph, h: torch.Tensor,
     local rows read the current ``h``. Nothing crosses a wire, so
     ``halo_quant`` does not apply.
     """
+    fogs = fogs or _Fogs(pg.n)
     device = h.device
     exchange, use_kernels = _resolve(kind, pg, exchange, aggregation,
                                      halo_quant, device)
@@ -661,13 +789,15 @@ def _run_layers(params, kind: str, pg: PartitionedGraph, h: torch.Tensor,
             f"{len(stale)} tables for {len(params)} layers")
     if h.ndim == 3 and not use_kernels:
         per = [_run_layers(params, kind, pg, hh, exchange, aggregation,
-                           halo_quant, dirty, cached, stale) for hh in h]
+                           halo_quant, dirty, cached, stale, fogs)
+               for hh in h]
         return [torch.stack(layer) for layer in zip(*per)]
-    lay = _layout(pg, device)
-    edges = _edges(pg, device, exchange, kind)
+    lay = _layout(pg, device, fogs)
+    edges = _edges(pg, device, exchange, kind, fogs)
     if use_kernels:
-        local, halo = _folded_csrs(pg, device)
+        local, halo = _folded_csrs(pg, device, fogs)
     _, layer_fn = LAYER_FNS[kind]
+    slots = pg.slots
     outs = []
     for li, p in enumerate(params):
         last = li == len(params) - 1
@@ -678,77 +808,103 @@ def _run_layers(params, kind: str, pg: PartitionedGraph, h: torch.Tensor,
                 blocks = _dirty_blocks(pg, local, dirty[li])
                 subsets = (row_subset(local.rows, blocks),
                            row_subset(halo.rows, blocks))
-                merge = _block_rows(pg, local, subsets[0])
+                merge = _block_rows(pg, fogs, local, subsets[0])
             a_sum = _kernel_sum(pg, h, lay, local, halo, halo_quant,
-                                subsets, halo_l)
-            h_new = apply_layer_with_sum(kind, p, h, edges, a_sum,
-                                         last=last)
+                                subsets, halo_l, fogs)
+            h_new = apply_layer_with_sum(
+                kind, p, fogs.spread(h, slots), edges,
+                fogs.spread(a_sum, slots), last=last)
         else:
             edges_l, merge = edges, None
             if frontier:
                 merge = torch.as_tensor(dirty[li], device=device)
-                edges_l = edges.into(merge)
+                edges_l = edges.into(fogs.spread(merge, slots, -1))
             if exchange == "allgather":
-                h_src = h
+                h_src = (h if fogs.group is None else fog_dist.gather_rows(
+                    (h,), (-2,), fogs.group)[0])
             else:
-                hb = (h[lay.boundary_index] * lay.boundary_mask
+                hb = (_exchange(h, lay, fogs, False)[0]
                       if halo_l is None else halo_l)
-                h_src = torch.cat([h, hb])
+                h_src = torch.cat([fogs.spread(h, slots), hb])
             kwargs = {"activation": None} if last else {}
-            h_new = layer_fn(p, h, edges_l, h_src=h_src, **kwargs)
-        h_new = h_new * lay.vertex_mask   # keep padded rows at zero
+            h_new = layer_fn(p, fogs.spread(h, slots), edges_l, h_src=h_src,
+                             **kwargs)
+        # keep padded rows at zero
+        h_new = fogs.own(h_new, slots) * lay.vertex_mask
         h = (h_new if merge is None
              else torch.where(merge[:, None], h_new, cached[li]))
         outs.append(h)
     return outs
 
 
-def _run(params, kind: str, pg: PartitionedGraph, h: torch.Tensor,
-         exchange: str, aggregation: str, halo_quant: bool) -> torch.Tensor:
-    """The K-layer BSP forward's folded output (``_run_layers``' last)."""
-    return _run_layers(params, kind, pg, h, exchange, aggregation,
-                       halo_quant)[-1]
-
-
 def _dirty_blocks(pg: PartitionedGraph, local: _FoldedCsr,
                   dirty: np.ndarray) -> np.ndarray:
-    """The folded kernel-output row blocks holding a dirty row: shard p's
-    slot s is output row p*out_rows + s of the local and halo launches."""
+    """The folded kernel-output row blocks holding a dirty row: held shard
+    p's slot s is output row p*out_rows + s of the local and halo
+    launches."""
     rows = np.flatnonzero(dirty)
     p, s = rows // pg.slots, rows % pg.slots
     return np.unique((p * local.out_rows + s) // BLOCK)
 
 
-def _block_rows(pg: PartitionedGraph, local: _FoldedCsr,
+def _block_rows(pg: PartitionedGraph, fogs: _Fogs, local: _FoldedCsr,
                 subset: RowSubset) -> torch.Tensor:
-    """bool[n*P]: the folded rows whose kernel-output block is in
+    """bool[m*P]: the folded rows whose kernel-output block is in
     ``subset`` (every row a frontier launch recomputed)."""
-    mask = subset.row_mask().reshape(pg.n, local.out_rows)[:, :pg.slots]
+    mask = subset.row_mask().reshape(fogs.m, local.out_rows)[:, :pg.slots]
     return mask.reshape(-1)
+
+
+def _local_feats(pg: PartitionedGraph, fogs: _Fogs,
+                 device: torch.device) -> torch.Tensor:
+    """The held shards' features as one folded [m*P, F] table."""
+    h = torch.as_tensor(fogs.pick(pg.feats), device=device)
+    return h.reshape(fogs.m * pg.slots, -1)
+
+
+def _local_stack(pg: PartitionedGraph, feats: np.ndarray, fogs: _Fogs,
+                 device: torch.device) -> torch.Tensor:
+    """A [B, V, F] micro-batch as the held shards' [B, m*P, F] stack."""
+    stack = pg.feature_stack(np.asarray(feats, np.float32))
+    return _gathered_stack(torch.as_tensor(fogs.pick(stack), device=device))
+
+
+def _all_rows(fogs: _Fogs, outs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Held-shard tables [.., m*P, F_l] -> every shard's [.., n*P, F_l]:
+    on a rank, the gather of the results (not a BSP sync)."""
+    if fogs.group is None:
+        return outs
+    return fog_dist.gather_rows(outs, [-2] * len(outs), fogs.group,
+                                sync=False)
 
 
 def bsp_apply(params, kind: str, pg: PartitionedGraph,
               exchange: str = "halo", aggregation: str = "segment_sum",
               halo_quant: bool = False,
-              device: Union[str, torch.device] = "cuda") -> torch.Tensor:
+              device: Union[str, torch.device] = "cuda",
+              group=None) -> torch.Tensor:
     """Distributed K-layer GNN inference; returns [n, P, D] on ``device``.
 
     ``aggregation`` selects the shard-local aggregation path (see module
     docstring); ``halo_quant=True`` (kernel path only) quantizes the halo
     rows to uint8 before the exchange and dequantizes them inside the
     fused ``dequant_spmm`` kernel — the wire carries 1 byte/feature plus
-    8 bytes/row instead of 4 bytes/feature.
+    8 bytes/row instead of 4 bytes/feature. ``group`` (a process group of
+    ``pg.n`` ranks) runs this rank's shard only; every rank returns the
+    whole [n, P, D].
     """
-    h = torch.as_tensor(pg.feats, device=torch.device(device))
-    out = _run(params, kind, pg, h.reshape(pg.n * pg.slots, -1), exchange,
-               aggregation, halo_quant)
-    return out.reshape(pg.n, pg.slots, -1)
+    device = torch.device(device)
+    fogs = _fogs(pg, group, device)
+    out = _run_layers(params, kind, pg, _local_feats(pg, fogs, device),
+                      exchange, aggregation, halo_quant, fogs=fogs)[-1]
+    return _all_rows(fogs, [out])[0].reshape(pg.n, pg.slots, -1)
 
 
 def bsp_apply_many(params, kind: str, pg: PartitionedGraph,
                    feat_stack: np.ndarray, exchange: str = "halo",
                    aggregation: str = "segment_sum", halo_quant: bool = False,
-                   device: Union[str, torch.device] = "cuda") -> torch.Tensor:
+                   device: Union[str, torch.device] = "cuda",
+                   group=None) -> torch.Tensor:
     """Distributed inference over a whole micro-batch.
 
     ``feat_stack`` is the [n, B, P, F] table from
@@ -758,42 +914,54 @@ def bsp_apply_many(params, kind: str, pg: PartitionedGraph,
     and one halo launch. Every example is bitwise the serial
     ``bsp_apply``.
     """
-    h = _gathered_stack(torch.as_tensor(feat_stack,
-                                        device=torch.device(device)))
-    out = _run(params, kind, pg, h, exchange, aggregation, halo_quant)
+    device = torch.device(device)
+    fogs = _fogs(pg, group, device)
+    h = _gathered_stack(torch.as_tensor(fogs.pick(np.asarray(feat_stack)),
+                                        device=device))
+    out = _run_layers(params, kind, pg, h, exchange, aggregation,
+                      halo_quant, fogs=fogs)[-1]
+    out = _all_rows(fogs, [out])[0]
     return out.reshape(h.shape[0], pg.n, pg.slots, -1).movedim(0, 1)
+
+
+def _partitioned(g: Graph, assignment: np.ndarray, kind: str, exchange: str,
+                 aggregation: str, device: torch.device,
+                 pg: Optional[PartitionedGraph]) -> PartitionedGraph:
+    """``pg`` with ``g``'s features, or a layout built from
+    ``assignment``."""
+    if pg is not None:
+        return pg.with_features(g.features)
+    mode = resolve_aggregation(aggregation, kind, exchange=exchange,
+                               device=device)
+    return build_partitioned(g, assignment, build_blocks=mode == "pallas")
 
 
 def bsp_infer(params, kind: str, g: Graph, assignment: np.ndarray,
               device: Union[str, torch.device] = "cuda",
               exchange: str = "halo", aggregation: str = "segment_sum",
               halo_quant: bool = False,
-              pg: Optional[PartitionedGraph] = None) -> np.ndarray:
+              pg: Optional[PartitionedGraph] = None,
+              group=None) -> np.ndarray:
     """End-to-end distributed inference -> [V, D] numpy in original
     vertex order.
 
     ``pg`` reuses prebuilt partition buffers (the features are refreshed
     from ``g``, the device copies of the layout are kept), which is what
-    the serving path does per query.
+    the serving path does per query. ``group``: see ``bsp_apply``.
     """
     device = torch.device(device)
-    if pg is None:
-        mode = resolve_aggregation(aggregation, kind, exchange=exchange,
-                                   device=device)
-        pg = build_partitioned(g, assignment, build_blocks=mode == "pallas")
-    else:
-        pg = pg.with_features(g.features)
-    out = bsp_apply(params, kind, pg, exchange, aggregation, halo_quant,
-                    device)
-    rows = out.reshape(pg.n * pg.slots, -1)
-    return rows[_layout(pg, device).result_index].cpu().numpy()
+    pg = _partitioned(g, assignment, kind, exchange, aggregation, device, pg)
+    fogs = _fogs(pg, group, device)
+    return _unfold(pg, fogs, _run_layers(
+        params, kind, pg, _local_feats(pg, fogs, device), exchange,
+        aggregation, halo_quant, fogs=fogs)[-1:])[0]
 
 
 def bsp_infer_many(params, kind: str, feats: np.ndarray,
                    pg: PartitionedGraph,
                    device: Union[str, torch.device] = "cuda",
                    exchange: str = "halo", aggregation: str = "segment_sum",
-                   halo_quant: bool = False) -> np.ndarray:
+                   halo_quant: bool = False, group=None) -> np.ndarray:
     """Batched end-to-end distributed inference -> [B, V, D] numpy.
 
     ``feats`` is a [B, V, F] stacked micro-batch; the prebuilt ``pg``
@@ -804,16 +972,18 @@ def bsp_infer_many(params, kind: str, feats: np.ndarray,
         raise ValueError(f"bsp_infer_many takes a [B, V, F] stack, got "
                          f"shape {feats.shape}")
     device = torch.device(device)
-    h = _gathered_stack(torch.as_tensor(pg.feature_stack(feats),
-                                        device=device))
-    out = _run(params, kind, pg, h, exchange, aggregation, halo_quant)
-    return out[:, _layout(pg, device).result_index].cpu().numpy()
+    fogs = _fogs(pg, group, device)
+    return _unfold(pg, fogs, _run_layers(
+        params, kind, pg, _local_stack(pg, feats, fogs, device), exchange,
+        aggregation, halo_quant, fogs=fogs)[-1:])[0]
 
 
-def _unfold(pg: PartitionedGraph, outs: List[torch.Tensor]
+def _unfold(pg: PartitionedGraph, fogs: _Fogs, outs: List[torch.Tensor]
             ) -> List[np.ndarray]:
-    """Folded [.., n*P, F_l] tables -> numpy in original vertex order."""
-    idx = _layout(pg, outs[0].device).result_index
+    """Held-shard tables [.., m*P, F_l] -> numpy in original vertex order
+    (on a rank, gathered from every rank first)."""
+    outs = _all_rows(fogs, outs)
+    idx = _layout(pg, outs[0].device, fogs).result_index
     return [o[..., idx, :].cpu().numpy() for o in outs]
 
 
@@ -822,21 +992,17 @@ def bsp_infer_capture(params, kind: str, g: Graph, assignment: np.ndarray,
                       exchange: str = "halo",
                       aggregation: str = "segment_sum",
                       halo_quant: bool = False,
-                      pg: Optional[PartitionedGraph] = None
-                      ) -> List[np.ndarray]:
+                      pg: Optional[PartitionedGraph] = None,
+                      group=None) -> List[np.ndarray]:
     """``bsp_infer`` returning every layer: K arrays [V, F_l] in original
     vertex order (the last is the plain ``bsp_infer`` output, bit for
     bit). Feeds the Session's activation cache."""
     device = torch.device(device)
-    if pg is None:
-        mode = resolve_aggregation(aggregation, kind, exchange=exchange,
-                                   device=device)
-        pg = build_partitioned(g, assignment, build_blocks=mode == "pallas")
-    else:
-        pg = pg.with_features(g.features)
-    h = torch.as_tensor(pg.feats, device=device).reshape(pg.n * pg.slots, -1)
-    return _unfold(pg, _run_layers(params, kind, pg, h, exchange,
-                                   aggregation, halo_quant))
+    pg = _partitioned(g, assignment, kind, exchange, aggregation, device, pg)
+    fogs = _fogs(pg, group, device)
+    return _unfold(pg, fogs, _run_layers(
+        params, kind, pg, _local_feats(pg, fogs, device), exchange,
+        aggregation, halo_quant, fogs=fogs))
 
 
 def bsp_infer_capture_many(params, kind: str, feats: np.ndarray,
@@ -844,13 +1010,14 @@ def bsp_infer_capture_many(params, kind: str, feats: np.ndarray,
                            device: Union[str, torch.device] = "cuda",
                            exchange: str = "halo",
                            aggregation: str = "segment_sum",
-                           halo_quant: bool = False) -> List[np.ndarray]:
+                           halo_quant: bool = False,
+                           group=None) -> List[np.ndarray]:
     """Batched capture: [B, V, F] micro-batch -> K arrays [B, V, F_l]."""
-    h = _gathered_stack(torch.as_tensor(
-        pg.feature_stack(np.asarray(feats, np.float32)),
-        device=torch.device(device)))
-    return _unfold(pg, _run_layers(params, kind, pg, h, exchange,
-                                   aggregation, halo_quant))
+    device = torch.device(device)
+    fogs = _fogs(pg, group, device)
+    return _unfold(pg, fogs, _run_layers(
+        params, kind, pg, _local_stack(pg, feats, fogs, device), exchange,
+        aggregation, halo_quant, fogs=fogs))
 
 
 def build_halo_tables(pg: PartitionedGraph, layer_inputs) -> List[np.ndarray]:
@@ -882,66 +1049,75 @@ def build_halo_tables(pg: PartitionedGraph, layer_inputs) -> List[np.ndarray]:
 
 
 def _stale_run(params, kind: str, pg: PartitionedGraph, h: torch.Tensor,
-               halo_tables, aggregation: str) -> torch.Tensor:
+               halo_tables, aggregation: str, fogs: _Fogs) -> torch.Tensor:
     """The ``halo_async`` stale serve on the folded ``h``: cross-partition
     reads come from the recorded per-layer ``halo_tables`` instead of an
     exchange (``_run_layers``' ``stale``)."""
     tables = [torch.as_tensor(np.asarray(t, np.float32), device=h.device)
               for t in halo_tables]
     return _run_layers(params, kind, pg, h, "halo_async", aggregation,
-                       False, stale=tables)[-1]
+                       False, stale=tables, fogs=fogs)[-1]
 
 
 def bsp_infer_stale(params, kind: str, feats: np.ndarray,
                     pg: PartitionedGraph, halo_tables,
                     device: Union[str, torch.device] = "cuda",
-                    aggregation: str = "segment_sum") -> np.ndarray:
+                    aggregation: str = "segment_sum",
+                    group=None) -> np.ndarray:
     """Stale-halo distributed inference -> [V, D] in original vertex order.
 
     ``feats`` are the CURRENT [V, F] features (local reads stay fresh);
     ``halo_tables`` the recorded per-layer exchange payloads
-    (``build_halo_tables``) a bounded-staleness serve may replay.
+    (``build_halo_tables``) a bounded-staleness serve may replay. On a
+    rank the tables are read whole and nothing crosses the wire but the
+    gather of the results.
     """
+    device = torch.device(device)
     pg = pg.with_features(np.asarray(feats, np.float32))
-    h = torch.as_tensor(pg.feats, device=torch.device(device))
-    out = _stale_run(params, kind, pg, h.reshape(pg.n * pg.slots, -1),
-                     halo_tables, aggregation)
-    return _unfold(pg, [out])[0]
+    fogs = _fogs(pg, group, device)
+    out = _stale_run(params, kind, pg, _local_feats(pg, fogs, device),
+                     halo_tables, aggregation, fogs)
+    return _unfold(pg, fogs, [out])[0]
 
 
 def bsp_infer_stale_many(params, kind: str, feats: np.ndarray,
                          pg: PartitionedGraph, halo_tables,
                          device: Union[str, torch.device] = "cuda",
-                         aggregation: str = "segment_sum") -> np.ndarray:
+                         aggregation: str = "segment_sum",
+                         group=None) -> np.ndarray:
     """Batched stale-halo inference: [B, V, F] micro-batch -> [B, V, D];
     every example shares the same recorded halo tables (graph state, not
     per-request state)."""
-    h = _gathered_stack(torch.as_tensor(
-        pg.feature_stack(np.asarray(feats, np.float32)),
-        device=torch.device(device)))
-    return _unfold(pg, [_stale_run(params, kind, pg, h, halo_tables,
-                                   aggregation)])[0]
+    device = torch.device(device)
+    fogs = _fogs(pg, group, device)
+    h = _local_stack(pg, feats, fogs, device)
+    return _unfold(pg, fogs, [_stale_run(params, kind, pg, h, halo_tables,
+                                         aggregation, fogs)])[0]
 
 
 def _scatter_frontier(pg: PartitionedGraph, rows_per_layer, cached_layers,
-                      device: torch.device):
-    """Global frontier/cache state -> folded operands: per layer a host
-    bool [n*P] dirty mask, and the cached [V, F_l] tables as folded
-    [n*P, F_l] tables on ``device``. Pure data movement through
+                      device: torch.device, fogs: _Fogs):
+    """Global frontier/cache state -> the held shards' folded operands:
+    per layer a host bool [m*P] dirty mask, and the cached [V, F_l] tables
+    as folded [m*P, F_l] tables on ``device``. Pure data movement through
     part_of/slot_of, so the folded tables carry exactly the cached bits."""
     dirty = []
     for rows in rows_per_layer:
         rows = np.asarray(rows, np.int64)
-        d = np.zeros(pg.n * pg.slots, bool)
-        d[pg.part_of[rows] * pg.slots + pg.slot_of[rows]] = True
-        dirty.append(d)
-    idx = _layout(pg, device).result_index
+        d = np.zeros((pg.n, pg.slots), bool)
+        d[pg.part_of[rows], pg.slot_of[rows]] = True
+        dirty.append(fogs.pick(d).reshape(-1))
+    idx = _layout(pg, device, fogs).result_index
     cached = []
     for cl in cached_layers:
         cl = torch.as_tensor(np.asarray(cl, np.float32), device=device)
-        t = cl.new_zeros((pg.n * pg.slots, cl.shape[-1]))
-        t[idx] = cl
-        cached.append(t)
+        t = cl.new_zeros(cl.shape[:-2] + (pg.n * pg.slots, cl.shape[-1]))
+        t[..., idx, :] = cl
+        t = t.reshape(cl.shape[:-2] + (pg.n, pg.slots, cl.shape[-1]))
+        if fogs.group is not None:
+            t = t[..., fogs.rank:fogs.rank + 1, :, :]
+        cached.append(t.reshape(cl.shape[:-2] + (fogs.m * pg.slots,
+                                                 cl.shape[-1])))
     return dirty, cached
 
 
@@ -950,22 +1126,25 @@ def bsp_infer_frontier(params, kind: str, feats: np.ndarray,
                        device: Union[str, torch.device] = "cuda",
                        exchange: str = "halo",
                        aggregation: str = "segment_sum",
-                       halo_quant: bool = False) -> List[np.ndarray]:
+                       halo_quant: bool = False,
+                       group=None) -> List[np.ndarray]:
     """Frontier-restricted distributed inference.
 
     ``rows_per_layer[l]`` are the global vertex ids layer ``l`` must
     recompute (a sound closure from ``core.frontier``), ``cached_layers``
     the last full pass's K [V, F_l] tables for THIS graph revision.
     Returns the K merged tables in original vertex order; the last one is
-    bitwise a full ``bsp_infer`` pass.
+    bitwise a full ``bsp_infer`` pass. On a rank the host dirty masks and
+    cached tables are cut to its rows.
     """
     device = torch.device(device)
     pg = pg.with_features(np.asarray(feats, np.float32))
+    fogs = _fogs(pg, group, device)
     dirty, cached = _scatter_frontier(pg, rows_per_layer, cached_layers,
-                                      device)
-    h = torch.as_tensor(pg.feats, device=device).reshape(pg.n * pg.slots, -1)
-    return _unfold(pg, _run_layers(params, kind, pg, h, exchange,
-                                   aggregation, halo_quant, dirty, cached))
+                                      device, fogs)
+    return _unfold(pg, fogs, _run_layers(
+        params, kind, pg, _local_feats(pg, fogs, device), exchange,
+        aggregation, halo_quant, dirty, cached, fogs=fogs))
 
 
 def bsp_infer_frontier_many(params, kind: str, feats: np.ndarray,
@@ -974,16 +1153,17 @@ def bsp_infer_frontier_many(params, kind: str, feats: np.ndarray,
                             device: Union[str, torch.device] = "cuda",
                             exchange: str = "halo",
                             aggregation: str = "segment_sum",
-                            halo_quant: bool = False) -> List[np.ndarray]:
+                            halo_quant: bool = False,
+                            group=None) -> List[np.ndarray]:
     """Batched frontier pass over a stacked [B, V, F] micro-batch sharing
     one (unioned) dirty frontier; returns K merged [B, V, F_l] stacks."""
     device = torch.device(device)
+    fogs = _fogs(pg, group, device)
     dirty, cached = _scatter_frontier(pg, rows_per_layer, cached_layers,
-                                      device)
-    h = _gathered_stack(torch.as_tensor(
-        pg.feature_stack(np.asarray(feats, np.float32)), device=device))
-    return _unfold(pg, _run_layers(params, kind, pg, h, exchange,
-                                   aggregation, halo_quant, dirty, cached))
+                                      device, fogs)
+    return _unfold(pg, fogs, _run_layers(
+        params, kind, pg, _local_stack(pg, feats, fogs, device), exchange,
+        aggregation, halo_quant, dirty, cached, fogs=fogs))
 
 
 def exchange_bytes(pg: PartitionedGraph, feature_dim: int,

@@ -70,11 +70,14 @@ def test_port_has_the_slice_modules():
               "models.layers", "models.attention", "models.transformer",
               "configs.registry", "configs.qwen1_5_0_5b", "launch.serve",
               "runtime.serving", "api.demo", "data.pipeline",
-              "optim.adamw", "checkpoint.io", "launch.train"):
+              "optim.adamw", "checkpoint.io", "launch.train",
+              "runtime.dist", "launch.mesh", "launch.dryrun",
+              "models.sharding"):
         assert f"repro_torch.{m}" in mods, m
     assert (PORT / "analysis" / "__main__.py").is_file()
     # the reference's hlo family reads XLA's compiled text: no counterpart
     assert "repro_torch.analysis.hlo" not in mods
+    assert "repro_torch.launch.hlo_analysis" not in mods
     for src in ("block_spmm.cu", "flash_attention.cu", "segment_sum.cu",
                 "recurrence.cu"):
         assert (PORT / "kernels" / "csrc" / src).is_file()

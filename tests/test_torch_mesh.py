@@ -29,6 +29,7 @@ import textwrap
 
 import numpy as np
 import pytest
+from filelock import FileLock
 
 from repro_torch.api import Engine
 from repro_torch.api.registry import EXECUTORS
@@ -102,9 +103,24 @@ REFERENCE = textwrap.dedent("""
 """)
 
 
-@pytest.fixture(scope="module")
-def reference(tmp_path_factory):
-    path = tmp_path_factory.mktemp("mesh") / "reference.npz"
+def shared_npz(tmp_path_factory, name: str, build) -> dict:
+    """``build(dir)`` -> the path of an npz, run once for this session:
+    under xdist the first worker to take the lock builds it and the others
+    read it (``tests/test_torch_dist.py`` reads this module's reference
+    the same way)."""
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent           # the session's directory, shared
+    path = base / f"{name}.npz"
+    with FileLock(str(path) + ".lock"):
+        if not path.exists():
+            os.replace(build(tmp_path_factory.mktemp(name)), path)
+    with np.load(path) as f:
+        return dict(f)
+
+
+def build_reference(tmp):
+    path = tmp / "reference.npz"
     env = dict(os.environ,
                XLA_FLAGS="--xla_force_host_platform_device_count=4",
                JAX_PLATFORMS="cpu", PYTHONPATH=os.path.join(REPO, "src"))
@@ -113,8 +129,12 @@ def reference(tmp_path_factory):
         env=env, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "OK" in proc.stdout
-    with np.load(path) as ref:
-        return dict(ref)
+    return path
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    return shared_npz(tmp_path_factory, "mesh_reference", build_reference)
 
 
 @functools.lru_cache(maxsize=None)
