@@ -165,7 +165,28 @@ Phases, in order; any failed check raises and the script exits non-zero:
               WIRE``) the layer's ``exchange_bytes``, the first a query's
               ``exchange_bytes``; a four-fog plan on the six-rank group
               refused by world size. Printed per rank and kind: median
-              query and execute ms, the ``all_gather`` ms a layer.
+              query and execute ms, the ``all_gather`` ms a layer. Then,
+              on the same ranks, the faults part (path
+              ``mesh-dist-faults``, counts set to 0 just before and read
+              just after on every rank): GCN on the DAQ wire and SAGE in
+              f32 fail ``fog2(B)`` over through ``Session.failover`` in
+              either mode (its rank then holds no shard) and serve a
+              first execute, a query, an execute and an ``execute_many``
+              of 8 on the five survivors, GAT on the segment sum a query
+              after a repair, then each is rebound to the whole plan for a
+              query; one structural ``Session.update``; the seeded chaos
+              ``Server`` replay of a ``halo_async`` GCN plan
+              (``tests/test_torch_faults.py``'s schedule, over six
+              nodes). Gates: every rank's outputs,
+              rank 2's too, bitwise the folded run's, latencies and tags
+              included; per member K ``block_spmm`` + K ``dequant_spmm`` a
+              DAQ call, K + K batched a batch, 2K ``block_spmm`` an f32
+              call, 2K segment sums a GAT query, rank 2 none on the
+              survivors' calls; each sync's bytes
+              the survivor plan's ``exchange_bytes``. Printed per rank:
+              ``fail_nodes`` ms in both modes, the first execute after it,
+              the ``all_gather`` ms a sync, the chaos replay's seconds,
+              and the least host memory available while the ranks ran.
   3c. dequantize  ``ops.dequantize_features(..., device="cuda")`` on the
               same three code tables (one ``dequant`` launch each), held
               bitwise to the plain version.
@@ -369,6 +390,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -499,6 +521,9 @@ PATH_KERNELS = {"sim": ("block_spmm", "block_spmm_batched"),
                 # Phase 3l: every rank's kernel and segment-sum queries,
                 # summed over the ranks.
                 "mesh-dist": MESH_KERNELS + ("segment_sum",),
+                # Phase 3l's faults part: the survivors' ranks (a crashed
+                # fog's rank launches nothing), summed over the ranks.
+                "mesh-dist-faults": MESH_KERNELS + ("segment_sum",),
                 "server-slo": ("segment_sum",),
                 "server-update": ("block_spmm", "dequant_spmm"),
                 "serve": ("flash_attention",),
@@ -542,6 +567,43 @@ SUBSET_KERNELS = MESH_KERNELS
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class host_memory_low:
+    """The least memory the host had available (GiB, ``MemAvailable`` of
+    ``/proc/meminfo``) from creation to ``stop()``, sampled by a thread."""
+
+    def __init__(self, every_s: float = 0.2):
+        self.low = self.read()
+        self.done = threading.Event()
+        self.thread = threading.Thread(target=self.sample, args=(every_s,),
+                                       daemon=True)
+        self.thread.start()
+
+    @staticmethod
+    def read() -> float:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) / 2 ** 20
+        raise RuntimeError("/proc/meminfo has no MemAvailable")
+
+    def sample(self, every_s: float) -> None:
+        while not self.done.wait(every_s):
+            self.low = min(self.low, self.read())
+
+    def stop(self) -> float:
+        self.done.set()
+        self.thread.join()
+        return min(self.low, self.read())
+
+
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
 
 
 #: Cycles of the spin kernel queued before each timed call (about 0.5 ms):
@@ -5020,18 +5082,7 @@ def dist_calls(Engine, models, g, kind: str, wrappers: dict) -> tuple:
     calls = []
 
     def call(name, fn):
-        before = {n: w.launches for n, w in wrappers.items()}
-        syncs, secs = len(WIRE.sync_bytes), len(WIRE.seconds)
-        t0 = time.perf_counter()
-        out = fn()
-        ms = (time.perf_counter() - t0) * 1e3
-        calls.append({
-            "name": name, "out": out, "ms": ms,
-            "launches": {n: w.launches - before[n]
-                         for n, w in wrappers.items()
-                         if w.launches != before[n]},
-            "sync_bytes": WIRE.sync_bytes[syncs:],
-            "sync_ms": [s * 1e3 for s in WIRE.seconds[secs:]]})
+        dist_call(calls, wrappers, name, fn)
 
     if kind != "gat":
         for i in range(QUERIES):
@@ -5045,18 +5096,175 @@ def dist_calls(Engine, models, g, kind: str, wrappers: dict) -> tuple:
         call("batch", lambda: np.stack(sess.execute_many(stack)))
         call("f32_query", plan.session(compressor="none").query)
     call("segment_query", plan.session(aggregation="segment_sum").query)
+    dist_results(calls)
+    return calls, plan
+
+
+def dist_call(calls: list, wrappers: dict, name: str, fn) -> None:
+    """Run ``fn`` and append its output, host ms, launch deltas, and the
+    bytes and seconds of its BSP syncs (``runtime.dist.WIRE``) to
+    ``calls``."""
+    from repro_torch.runtime.dist import WIRE
+    before = {n: w.launches for n, w in wrappers.items()}
+    syncs, secs = len(WIRE.sync_bytes), len(WIRE.seconds)
+    t0 = time.perf_counter()
+    out = fn()
+    ms = (time.perf_counter() - t0) * 1e3
+    calls.append({
+        "name": name, "out": out, "ms": ms,
+        "launches": {n: w.launches - before[n]
+                     for n, w in wrappers.items()
+                     if w.launches != before[n]},
+        "sync_bytes": WIRE.sync_bytes[syncs:],
+        "sync_ms": [s * 1e3 for s in WIRE.seconds[secs:]]})
+
+
+def dist_results(calls: list) -> None:
+    """A query's output becomes its embeddings, beside its
+    ``exchange_bytes``."""
     for c in calls:
         if hasattr(c["out"], "embeddings"):
             c["exchange_bytes"] = c["out"].exchange_bytes
             c["out"] = c["out"].embeddings
-    return calls, sess.partitioned()
+
+
+#: Phase 3l's faults part (path ``mesh-dist-faults``): a B node crashes,
+#: and its rank then holds no shard; the kinds and wires failed over.
+DIST_CRASHED = "fog2(B)"
+DIST_OUTSIDE = 2
+#: kind -> (compressor, failover modes): GCN on the DAQ wire, SAGE in f32,
+#: GAT on the segment sum (f32 on the wire; one query a mode).
+DIST_FAULT_KINDS = {"gcn": ("daq", ("repair", "recompile")),
+                    "sage": ("none", ("repair", "recompile")),
+                    "gat": ("daq", ("repair",))}
+#: tests/test_torch_faults.py's seeded chaos schedule, over the six nodes,
+#: and its replay's shape.
+DIST_CHAOS = dict(horizon=0.5, crash_rate=1.5, loss_rate=2.0,
+                  straggler_rate=1.0, mean_outage=0.3, seed=16)
+DIST_REPLAY = dict(requests=16, max_batch=4, gap=0.03)
+
+
+def dist_delta(GraphDelta, g):
+    """A seeded structural delta of full SIoT: 64 new sensors wired in,
+    32 removed, 64 edges removed."""
+    rng = np.random.default_rng(27)
+    v, k = g.num_vertices, 64
+    fanout = rng.integers(1, 4, size=k)
+    eidx = rng.integers(0, g.num_edges, size=k)
+    return GraphDelta(
+        add_features=rng.normal(size=(k, g.feature_dim)).astype(np.float32),
+        add_edges=np.stack([np.repeat(v + np.arange(k), fanout),
+                            rng.integers(0, v, int(fanout.sum()))], axis=1),
+        remove_vertices=rng.choice(v, size=k // 2, replace=False),
+        remove_edges=np.stack([g.senders[eidx], g.receivers[eidx]], axis=1))
+
+
+def dist_replay(srv, Request) -> dict:
+    """A replay's responses: embeddings, latencies and tags as arrays."""
+    resp = srv.serve([Request(arrival_time=i * DIST_REPLAY["gap"])
+                      for i in range(DIST_REPLAY["requests"])])
+    resp.sort(key=lambda r: r.request_id)
+    return {"embeddings": np.stack([r.embeddings for r in resp]),
+            "latency": np.array([r.latency for r in resp]),
+            "tags": np.array([[str(r.recovered), str(r.retries), r.capacity,
+                               str(r.staleness)] for r in resp])}
+
+
+def layer_bytes(bsp, pg) -> dict:
+    """The bytes a sync of layout ``pg`` moves at each layer's input
+    width, on the DAQ wire and in f32."""
+    widths = (pg.feats.shape[-1], DIMS_HIDDEN)
+    return {"daq": [bsp.exchange_bytes(pg, f, "halo", 1, 8) for f in widths],
+            "f32": [bsp.exchange_bytes(pg, f, "halo") for f in widths]}
+
+
+def dist_faults(Engine, models, g, wrappers: dict, plans: dict) -> tuple:
+    """Phase 3l's faults part, in the order every rank and the folded run
+    make its calls, on the plans ``dist_calls`` compiled (``plans`` by
+    kind): per kind of DIST_FAULT_KINDS a query of the whole plan, then
+    per mode a session failed over DIST_CRASHED serves its first execute,
+    one query, one execute and one ``execute_many`` of BATCH (GAT: one
+    query), and is rebound to the whole plan (``Server._recover``'s
+    restore) for one query; one structural ``Session.update`` and a
+    query; the seeded chaos replay of a ``halo_async`` GCN plan
+    (``staleness_bound`` 2). Returns the calls (as ``dist_calls``) and, by
+    call name, the ``layer_bytes`` of the layout each failover and update
+    query ran on (the layouts themselves go, to keep the host's memory)."""
+    from repro_torch.api import GraphDelta
+    from repro_torch.api.faults import FaultSchedule
+    from repro_torch.api.server import Request
+    from repro_torch.runtime import bsp
+    calls, wire = [], {}
+
+    def call(name, fn):
+        dist_call(calls, wrappers, name, fn)
+
+    rng = np.random.default_rng(7)
+    for kind, (comp, modes) in DIST_FAULT_KINDS.items():
+        full = plans[kind].session(compressor=comp).plan
+        stack = None
+        call(f"{kind}/before", full.session().query)
+        for mode in modes:
+            sess = full.session()
+            call(f"{kind}/{mode}/fail_nodes", lambda: np.asarray(
+                sess.failover(DIST_CRASHED, mode=mode).fog_ranks))
+            if kind == "gat":
+                call(f"{kind}/{mode}/query", sess.query)
+            else:
+                feats = sess.collect()
+                if stack is None:
+                    stack = np.stack([sess.collect(g.features + rng.normal(
+                        scale=0.1, size=g.features.shape))
+                        for _ in range(BATCH)])
+                call(f"{kind}/{mode}/first_execute",
+                     lambda: sess.execute(feats))
+                call(f"{kind}/{mode}/query", sess.query)
+                call(f"{kind}/{mode}/execute", lambda: sess.execute(feats))
+                call(f"{kind}/{mode}/batch",
+                     lambda: np.stack(sess.execute_many(stack)))
+            wire[f"{kind}/{mode}"] = layer_bytes(bsp, sess.partitioned())
+            sess.rebind(full)
+            call(f"{kind}/{mode}/restored", sess.query)
+        del full, sess
+    sess = plans["gcn"].session()
+    call("update", lambda: np.asarray(
+        sess.update(dist_delta(GraphDelta, g)).mode))
+    call("update/query", sess.query)
+    wire["update"] = layer_bytes(bsp, sess.partitioned())
+    del sess
+    chaos = Engine(plans["gcn"].model, executor="mesh-bsp",
+                   aggregation="pallas", compressor="daq",
+                   exchange="halo_async", staleness_bound=STALE_BOUND,
+                   device="cuda").compile(g)
+    srv = chaos.server(max_batch=DIST_REPLAY["max_batch"],
+                       faults=FaultSchedule.random(
+                           [nd.name for nd in chaos.cluster.nodes],
+                           **DIST_CHAOS))
+    call("replay/chaos", loads_kept(chaos, lambda: dist_replay(srv, Request)))
+    dist_results(calls)
+    return calls, wire
+
+
+def dist_arrays(prefix: str, calls: list) -> dict:
+    """Each call's output (popped) under ``prefix/name``, a replay's
+    arrays under ``prefix/name/key``."""
+    arrays = {}
+    for c in calls:
+        out = c.pop("out")
+        if isinstance(out, dict):
+            arrays.update({f"{prefix}/{c['name']}/{k}": v
+                           for k, v in out.items()})
+        else:
+            arrays[f"{prefix}/{c['name']}"] = out
+    return arrays
 
 
 def dist_rank(rank: int, out_dir: str) -> None:
     """One fog of phase 3l: ``dist_calls`` for every kind on its shard,
     with the wrappers' counts set to 0 just before and read just after,
-    then a plan of another fog count, which the executor must refuse.
-    Saves its outputs and records under ``out_dir``."""
+    then a plan of another fog count, which the executor must refuse, then
+    ``dist_faults`` (its own counts, set to 0 just before and read just
+    after). Saves its outputs and records under ``out_dir``."""
     import torch.distributed as dist
     from repro_torch.api import Engine
     from repro_torch.gnn import datasets, models
@@ -5078,11 +5286,11 @@ def dist_rank(rank: int, out_dir: str) -> None:
     for w in wrappers.values():
         w.launches = 0
     arrays, records = {}, {"rank": rank, "world": dist.get_world_size()}
+    plans = {}
     t0 = time.perf_counter()
     for kind in DIST_KINDS:
-        calls, _ = dist_calls(Engine, models, g, kind, wrappers)
-        for c in calls:
-            arrays[f"{kind}/{c['name']}"] = c.pop("out")
+        calls, plans[kind] = dist_calls(Engine, models, g, kind, wrappers)
+        arrays.update(dist_arrays(kind, calls))
         records[kind] = calls
     records["seconds"] = time.perf_counter() - t0
     records["launches"] = {n: w.launches for n, w in wrappers.items()}
@@ -5095,6 +5303,14 @@ def dist_rank(rank: int, out_dir: str) -> None:
         records["mismatch"] = ""
     except RuntimeError as e:
         records["mismatch"] = str(e)
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    calls, _ = dist_faults(Engine, models, g, wrappers, plans)
+    records["fault_seconds"] = time.perf_counter() - t0
+    records["fault_launches"] = {n: w.launches for n, w in wrappers.items()}
+    arrays.update(dist_arrays("faults", calls))
+    records["faults"] = calls
     np.savez(f"{out_dir}/rank{rank}.npz", **arrays)
     Path(f"{out_dir}/rank{rank}.json").write_text(json.dumps(records))
 
@@ -5122,11 +5338,15 @@ def dist_path(Engine, models, g, bsp, wrappers: dict) -> tuple:
     bitwise the folded ones, its launches and the bytes of each BSP sync
     exactly ``dist_expected``'s (a query's first sync is its
     ``exchange_bytes``), and the plan of DIST_MISMATCH must have been
-    refused naming both counts. Returns the phase's record and the
-    launches summed over ranks."""
+    refused naming both counts; then ``dist_faults``' gates
+    (``check_dist_faults``). The folded calls run after the ranks have
+    ended (seven processes holding full-SIoT layouts at once outgrow a
+    96 GiB host). Returns the phase's record and the launches summed over
+    ranks, of each part."""
     import tempfile
     from repro_torch.runtime import dist as fog_dist
     t0 = time.perf_counter()
+    low = host_memory_low()
     with tempfile.TemporaryDirectory() as tmp:
         fog_dist.spawn(dist_rank, DIST_RANKS, tmp, tmp)
         spawn_s = time.perf_counter() - t0
@@ -5136,8 +5356,20 @@ def dist_path(Engine, models, g, bsp, wrappers: dict) -> tuple:
                 arrays = dict(f)
             ranks.append((arrays, json.loads(
                 Path(f"{tmp}/rank{r}.json").read_text())))
-    rec = {"ranks": DIST_RANKS, "spawn_s": spawn_s, "kinds": {}}
+    ranks_gib = low.stop()
+    rec = {"ranks": DIST_RANKS, "spawn_s": spawn_s, "kinds": {},
+           "host_gib_available_low": ranks_gib}
+    folded, plans, folded_s = {}, {}, {}
+    for kind in DIST_KINDS:
+        t1 = time.perf_counter()
+        folded[kind], plans[kind] = dist_calls(Engine, models, g, kind,
+                                               wrappers)
+        folded_s[kind] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    fault_folded, wire = dist_faults(Engine, models, g, wrappers, plans)
+    fault_folded_s = time.perf_counter() - t1
     summed = dict.fromkeys(REPLACES, 0)
+    fault_summed = dict.fromkeys(REPLACES, 0)
     for r, (arrays, records) in enumerate(ranks):
         if (records["rank"], records["world"]) != (r, DIST_RANKS):
             raise AssertionError(f"rank file {r} holds rank "
@@ -5148,14 +5380,14 @@ def dist_path(Engine, models, g, bsp, wrappers: dict) -> tuple:
                                  f"not refused by world size: {msg!r}")
         for name, n in records["launches"].items():
             summed[name] += n
+        for name, n in records["fault_launches"].items():
+            fault_summed[name] += n
     for kind in DIST_KINDS:
-        t1 = time.perf_counter()
-        folded, pg = dist_calls(Engine, models, g, kind, wrappers)
-        folded_s = time.perf_counter() - t1
+        pg = plans[kind].partitioned
         k = 2
         per_rank = []
         for r, (arrays, records) in enumerate(ranks):
-            for c, want in zip(records[kind], folded):
+            for c, want in zip(records[kind], folded[kind]):
                 name = want["name"]
                 if not np.array_equal(arrays[f"{kind}/{name}"], want["out"]):
                     raise AssertionError(f"{kind} rank {r} {name}: not "
@@ -5191,11 +5423,11 @@ def dist_path(Engine, models, g, bsp, wrappers: dict) -> tuple:
                 "batch_ms": by["batch"]["ms"],
                 "f32_query_ms": by["f32_query"]["ms"],
                 "segment_query_ms": by["segment_query"]["ms"]})
-        by = {c["name"]: c for c in folded}
+        by = {c["name"]: c for c in folded[kind]}
         rec["kinds"][kind] = {
             "per_rank": per_rank,
             "folded": {"segment_query_ms": by["segment_query"]["ms"],
-                       "seconds": folded_s},
+                       "seconds": folded_s[kind]},
             "sync_bytes": {c["name"]: c["sync_bytes"]
                            for c in ranks[0][1][kind]
                            if c["name"] in ("query0", "batch", "f32_query",
@@ -5226,8 +5458,144 @@ def dist_path(Engine, models, g, bsp, wrappers: dict) -> tuple:
     rec["wire_bytes_per_rank"] = [records["wire_bytes"]
                                   for _, records in ranks]
     rec["rank_seconds"] = [records["seconds"] for _, records in ranks]
+    rec["faults"] = check_dist_faults(bsp, ranks, fault_folded, wire,
+                                      plans)
+    rec["faults"]["folded_s"] = fault_folded_s
+    rec["faults"]["rank_seconds"] = [records["fault_seconds"]
+                                     for _, records in ranks]
     rec["phase_s"] = time.perf_counter() - t0
-    return rec, summed
+    return rec, summed, fault_summed
+
+
+def dist_fault_expected(name: str, wire: dict, plans: dict, bsp,
+                        member: bool):
+    """(launches, sync bytes) one rank's faults call ``name`` must show,
+    None for a replay (held by its outputs and tags): a member of the
+    survivors' group runs the survivors' layout (``wire``), the rank
+    outside it nothing; the whole plan runs on every rank."""
+    if name.startswith("replay/"):
+        return None
+    if name == "update" or name.endswith("/fail_nodes"):
+        return {}, []
+    parts = name.split("/")
+    if name == "update/query":
+        kind, comp, syncs = "gcn", "daq", wire["update"]
+    else:
+        kind, comp = parts[0], DIST_FAULT_KINDS[parts[0]][0]
+        if parts[-1] in ("before", "restored"):
+            syncs = layer_bytes(bsp, plans[kind].partitioned)
+        elif not member:
+            return {}, []
+        else:
+            syncs = wire[f"{kind}/{parts[1]}"]
+    k = 2
+    if kind == "gat":
+        return {"segment_sum": k * SEGMENT_SUMS[kind]}, syncs["f32"]
+    if comp == "daq":
+        one = {"block_spmm": k, "dequant_spmm": k}
+        many = {"block_spmm_batched": k, "dequant_spmm_batched": k}
+        syncs = syncs["daq"]
+    else:
+        one, many = {"block_spmm": 2 * k}, {"block_spmm_batched": 2 * k}
+        syncs = syncs["f32"]
+    if parts[-1] == "batch":
+        return many, [BATCH * b for b in syncs]
+    return one, syncs
+
+
+def check_dist_faults(bsp, ranks: list, folded: list, wire: dict,
+                      plans: dict) -> dict:
+    """Phase 3l's faults gates: every rank's outputs (the crashed fog's
+    rank's too) bitwise the folded calls', latencies and tags included;
+    each rank's launches and sync bytes ``dist_fault_expected``'s, a
+    query's ``exchange_bytes`` its layout's first sync; the failover plans
+    on the survivors' ranks. Returns the per-rank times."""
+    survivors = [r for r in range(DIST_RANKS) if r != DIST_OUTSIDE]
+    failovers = [f"{kind}/{mode}" for kind, (_, modes)
+                 in DIST_FAULT_KINDS.items() for mode in modes]
+    out = {"survivor_ranks": survivors, "per_rank": []}
+    for r, (arrays, records) in enumerate(ranks):
+        calls = records["faults"]
+        if [c["name"] for c in calls] != [c["name"] for c in folded]:
+            raise AssertionError(f"faults rank {r}: calls "
+                                 f"{[c['name'] for c in calls]}")
+        for c, want in zip(calls, folded):
+            name = c["name"]
+            outs = (want["out"] if isinstance(want["out"], dict)
+                    else {None: want["out"]})
+            for key, w in outs.items():
+                at = f"faults/{name}" + ("" if key is None else f"/{key}")
+                if not np.array_equal(arrays[at], w):
+                    raise AssertionError(f"faults rank {r} {at}: not "
+                                         f"bitwise the folded run")
+            exp = dist_fault_expected(name, wire, plans, bsp,
+                                      r != DIST_OUTSIDE)
+            if exp is None:
+                continue
+            launches, syncs = exp
+            if c["launches"] != launches or c["sync_bytes"] != syncs:
+                raise AssertionError(
+                    f"faults rank {r} {name}: launched {c['launches']} and "
+                    f"synced {c['sync_bytes']}, expected {launches} and "
+                    f"{syncs}")
+            if "exchange_bytes" in c:
+                first = dist_fault_expected(name, wire, plans, bsp,
+                                            True)[1][0]
+                if c["exchange_bytes"] != first:
+                    raise AssertionError(
+                        f"faults rank {r} {name}: exchange_bytes "
+                        f"{c['exchange_bytes']} != {first}")
+        by = {c["name"]: c for c in calls}
+        per = {"replay_s": by["replay/chaos"]["ms"] / 1e3}
+        for key in failovers:
+            # GAT serves one query after its failover: first and later.
+            first = by.get(key + "/first_execute", by[key + "/query"])
+            serve = by.get(key + "/execute", by[key + "/query"])
+            per[key] = {"fail_nodes_ms": by[key + "/fail_nodes"]["ms"],
+                        "first_serve_ms": first["ms"],
+                        "serve_ms": serve["ms"],
+                        "all_gather_ms_a_sync": serve["sync_ms"]}
+        out["per_rank"].append(per)
+    by = {c["name"]: c for c in folded}
+    for key in failovers:
+        got = by[key + "/fail_nodes"]["out"].tolist()
+        if got != survivors:
+            raise AssertionError(f"{key}: fogs on ranks {got}, expected "
+                                 f"{survivors}")
+    out["folded"] = {"fail_nodes_ms": {
+        key: by[key + "/fail_nodes"]["ms"] for key in failovers},
+        "replay_s": by["replay/chaos"]["ms"] / 1e3}
+    out["chaos_tags"] = sorted({t[0] for t in
+                                by["replay/chaos"]["out"]["tags"]})
+    out["sync_bytes"] = {c["name"]: c["sync_bytes"]
+                         for c in ranks[0][1]["faults"]
+                         if c["name"].endswith(("/before", "/query",
+                                                "/batch"))}
+    out["wire_bytes_outside"] = sum(
+        sum(c["sync_bytes"]) for c in ranks[DIST_OUTSIDE][1]["faults"]
+        if not c["name"].startswith(("replay/", "update"))
+        and not c["name"].endswith(("/before", "/restored")))
+    log("  faults bytes a sync (rank 0): " + "; ".join(
+        f"{k} {v}" for k, v in out["sync_bytes"].items()
+        if "batch" not in k and not k.startswith("update"))
+        + f"; rank {DIST_OUTSIDE} on the survivors' calls "
+        f"{out['wire_bytes_outside']}")
+    for r, per in enumerate(out["per_rank"]):
+        log(f"  faults rank {r}" + (" (outside the survivors)"
+                                    if r == DIST_OUTSIDE else "") + ": "
+            + "; ".join(
+                f"{key} fail_nodes {v['fail_nodes_ms']:.1f} ms, first "
+                f"serve {v['first_serve_ms']:.1f}, then "
+                f"{v['serve_ms']:.1f} (all_gather "
+                + (" / ".join(f"{x:.2f}" for x in v["all_gather_ms_a_sync"])
+                   or "none") + " ms a sync)"
+                for key, v in per.items() if key != "replay_s")
+            + f"; chaos replay {per['replay_s']:.2f} s")
+    f = out["folded"]
+    log("  faults folded: fail_nodes " + ", ".join(
+        f"{k} {v:.1f} ms" for k, v in f["fail_nodes_ms"].items())
+        + f"; chaos replay {f['replay_s']:.2f} s")
+    return out
 
 
 def main() -> int:
@@ -5469,10 +5837,15 @@ def main() -> int:
     log(f"phase 3l: mesh-bsp over torch.distributed ({DIST_RANKS} gloo "
         f"ranks on the card, one a fog; the times are gloo's host-staged "
         f"wire on one card)")
-    dist_rec, dist_counts = dist_path(Engine, models, g, bsp, wrappers)
+    dist_rec, dist_counts, fault_counts = dist_path(Engine, models, g, bsp,
+                                                    wrappers)
     record("mesh-dist", dist_counts, 0)
+    record("mesh-dist-faults", fault_counts, 0)
     log(f"  phase 3l: {dist_rec['phase_s']:.1f} s (spawn and ranks "
-        f"{dist_rec['spawn_s']:.1f} s)")
+        f"{dist_rec['spawn_s']:.1f} s, the faults part's folded run "
+        f"{dist_rec['faults']['folded_s']:.1f} s; the host's available "
+        f"memory fell to {dist_rec['host_gib_available_low']:.1f} GiB "
+        f"while the ranks ran) on {card()}")
 
     log("phase 3c: dequantize path (ops.dequantize_features)")
     dequantized = drive("dequantize",
@@ -5599,10 +5972,7 @@ def main() -> int:
     print(json.dumps({"nondense_path": nondense}), flush=True)
     print(json.dumps({"lm_train_path": lm_trained}), flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device,
         "count": torch.cuda.device_count()}}), flush=True)

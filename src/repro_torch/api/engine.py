@@ -147,6 +147,10 @@ class Engine:
             update_max_imbalance=update_max_imbalance,
             update_max_cut_growth=update_max_cut_growth,
             validate=validate)
+        # The world ranks of the fogs of the plans this engine compiles
+        # (``Plan.fog_ranks``; an engine rebuilt from a failover plan
+        # compiles on its survivors, on their ranks).
+        self._fog_ranks = None
 
     def _validated(self, plan: Plan) -> Plan:
         """Run the static plan invariant checks per ``config.validate``."""
@@ -187,14 +191,15 @@ class Engine:
         return self._validated(
             Plan(model=self.model, graph=graph, cluster=cluster, fogs=fogs,
                  placement=placement, partitioned=partitioned, config=cfg,
-                 edges=EdgeList.from_graph(graph, device=self.device)))
+                 edges=EdgeList.from_graph(graph, device=self.device),
+                 fog_ranks=self._fog_ranks))
 
     @classmethod
     def from_plan(cls, plan: Plan) -> "Engine":
         """Reconstruct the Engine a plan was compiled with (same knobs,
-        same device)."""
+        same device, and the plan's fogs on the same world ranks)."""
         cfg = plan.config
-        return cls(plan.model,
+        eng = cls(plan.model,
                    cfg.cluster_spec if cfg.cluster_spec else plan.cluster,
                    network=cfg.network, partitioner=cfg.partitioner,
                    placement=cfg.placement, compressor=cfg.compressor,
@@ -207,6 +212,8 @@ class Engine:
                    update_max_imbalance=cfg.update_max_imbalance,
                    update_max_cut_growth=cfg.update_max_cut_growth,
                    validate=cfg.validate)
+        eng._fog_ranks = plan.fog_ranks
+        return eng
 
     def compile_fleet(self, graph: Graph, sites) -> "Fleet":
         """Compile a geo-distributed fleet: one Plan per named fog site
@@ -294,7 +301,10 @@ class Engine:
         that no longer exists. Its layout is new, so its ``device_cache``
         starts empty: the first execute folds and compacts the survivors'
         shards on the device. The graph is unchanged, so a repair plan
-        shares ``plan.edges``.
+        shares ``plan.edges``. Its ``fog_ranks`` are the survivors' ranks in
+        ``plan`` (in both modes): with one fog per ``torch.distributed``
+        rank, each survivor keeps its process and a crashed fog's rank
+        holds no shard.
         """
         if mode not in (None, "repair", "recompile"):
             raise ValueError(f"mode must be None, 'repair' or 'recompile', "
@@ -326,6 +336,9 @@ class Engine:
         cfg = plan.config
         survivors = dataclasses.replace(
             plan.cluster, nodes=[nodes[j] for j in keep])
+        ranks = (range(len(nodes)) if plan.fog_ranks is None
+                 else plan.fog_ranks)
+        fog_ranks = tuple(ranks[j] for j in keep)
         if mode != "recompile":
             base = (plan.placement.assignment if assignment is None
                     else np.asarray(assignment, np.int64))
@@ -358,7 +371,8 @@ class Engine:
                     model=self.model, graph=plan.graph, cluster=survivors,
                     fogs=fogs, placement=placement, partitioned=partitioned,
                     config=cfg.with_overrides(cluster_spec=None),
-                    edges=plan.edges, provenance="failover"))
+                    edges=plan.edges, provenance="failover",
+                    fog_ranks=fog_ranks))
         # Recompile: the full setup phase on the surviving cluster (fresh
         # per-node profiling seeds at the survivors' new indices) — the
         # result IS a fresh Engine.compile of that cluster, re-tagged.
@@ -373,6 +387,7 @@ class Engine:
                      update_max_imbalance=cfg.update_max_imbalance,
                      update_max_cut_growth=cfg.update_max_cut_growth,
                      validate=cfg.validate)
+        eng._fog_ranks = fog_ranks
         return dataclasses.replace(eng.compile(plan.graph),
                                    provenance="failover")
 
@@ -545,7 +560,8 @@ class Engine:
             Plan(model=self.model, graph=dp.graph, cluster=cluster,
                  fogs=plan.fogs, placement=placement,
                  partitioned=partitioned, config=cfg, edges=edges,
-                 provenance="incremental", update_report=report))
+                 provenance="incremental", update_report=report,
+                 fog_ranks=plan.fog_ranks))
 
     def __repr__(self) -> str:
         c = self.config

@@ -9,11 +9,13 @@ they differ in which simulated pipeline prices the query's latency:
   "mesh-bsp"  the paper's distributed BSP runtime (§III-E): one shard per
               fog partition, a halo/allgather exchange per layer
               (``runtime.bsp``); multi-fog accounting. In a process whose
-              default ``torch.distributed`` group is initialized, rank
-              ``r`` runs fog ``r`` on the plan's device and the exchange
-              crosses the group (the group's size must be the plan's fog
-              count); otherwise the shards fold onto the plan's one
-              device.
+              default ``torch.distributed`` group is initialized, fog
+              ``p`` runs on world rank ``plan.fog_ranks[p]`` (rank ``p``
+              for a compile, whose fog count must be the world's; a
+              failover plan's survivors keep their ranks) on the plan's
+              device and the exchange crosses the group of those ranks;
+              a rank outside it receives the result. Otherwise the shards
+              fold onto the plan's one device.
   "cloud"     single-program numerics, de-facto cloud accounting (full
               WAN upload to a datacenter GPU) — the paper's Fig. 3
               cloud-vs-fog baseline.
@@ -59,6 +61,7 @@ from repro_torch.gnn.models import gnn_apply_layers
 from repro_torch.kernels import ops
 from repro_torch.kernels.gather_aggregate import BLOCK, row_subset
 from repro_torch.runtime import bsp
+from repro_torch.runtime import dist as fog_dist
 
 #: model kinds the incremental frontier path supports: their per-layer
 #: aggregation is a static SUM over fixed adjacency, so a row subset can
@@ -308,17 +311,37 @@ class _MeshBsp(ExecutorBackend):
     needs_block_shards = True
 
     @staticmethod
-    def group():
-        """The default process group when one is initialized (one rank a
-        fog, the counterpart of the reference's ``jax.devices()``), else
-        None (the shards fold onto the plan's device)."""
-        if dist.is_available() and dist.is_initialized():
-            return dist.group.WORLD
-        return None
+    def _ranks(plan):
+        """The world rank of each of the plan's fogs: its ``fog_ranks``, or
+        one rank a fog of a world of the plan's fog count."""
+        if plan.fog_ranks is not None:
+            return plan.fog_ranks
+        n, have = plan.num_fogs, dist.get_world_size()
+        if have != n:
+            raise RuntimeError(
+                f"executor 'mesh-bsp' needs {n} ranks (one per fog "
+                f"partition), the process group has {have} — start "
+                f"{n} ranks, or serve without a process group to fold "
+                f"the shards onto one device")
+        return range(n)
+
+    def group(self, plan=None):
+        """With the default process group initialized, the group of the
+        plan's fogs (``runtime.dist.FogGroup``; the whole world without a
+        plan), the counterpart of the reference's ``jax.devices()[:n]``;
+        else None (the shards fold onto the plan's device). Making a group
+        is collective over the world: ``check`` makes the plan's where
+        every rank binds it."""
+        if not (dist.is_available() and dist.is_initialized()):
+            return None
+        if plan is None:
+            return fog_dist.group_of(range(dist.get_world_size()))
+        return fog_dist.group_of(self._ranks(plan))
 
     def check(self, plan) -> None:
         """The plan's device must exist; with a process group, one rank
-        a fog."""
+        a fog (the plan's ``fog_ranks``), whose group every rank makes
+        here."""
         dev = plan.device
         if dev.type not in ("cuda", "cpu"):
             raise RuntimeError(f"executor 'mesh-bsp' runs on a cuda or cpu "
@@ -327,15 +350,7 @@ class _MeshBsp(ExecutorBackend):
             raise RuntimeError(f"executor 'mesh-bsp' needs the plan's device "
                                f"{dev}, but torch.cuda.is_available() is "
                                f"False")
-        group = self.group()
-        if group is not None:
-            n, have = plan.num_fogs, dist.get_world_size(group)
-            if have != n:
-                raise RuntimeError(
-                    f"executor 'mesh-bsp' needs {n} ranks (one per fog "
-                    f"partition), the process group has {have} — start "
-                    f"{n} ranks, or serve without a process group to fold "
-                    f"the shards onto one device")
+        self.group(plan)
 
     @staticmethod
     def _halo_quant(plan, exchange: str, aggregation: str) -> bool:
@@ -360,7 +375,7 @@ class _MeshBsp(ExecutorBackend):
                 device=plan.device, exchange=exchange,
                 aggregation=aggregation,
                 halo_quant=self._halo_quant(plan, exchange, aggregation),
-                pg=pg, group=self.group())
+                pg=pg, group=self.group(plan))
 
     def run_many(self, plan, feats, assignment, pg, exchange,
                  aggregation="segment_sum"):
@@ -380,7 +395,7 @@ class _MeshBsp(ExecutorBackend):
                 device=plan.device, exchange=exchange,
                 aggregation=aggregation,
                 halo_quant=self._halo_quant(plan, exchange, aggregation),
-                group=self.group())
+                group=self.group(plan))
         return list(out)
 
     #: mesh numerics (per-shard layouts, halo accumulation order) differ
@@ -396,7 +411,8 @@ class _MeshBsp(ExecutorBackend):
         feats = np.asarray(feats, np.float32)
         hq = self._halo_quant(plan, exchange, aggregation)
         kw = dict(device=plan.device, exchange=exchange,
-                  aggregation=aggregation, halo_quant=hq, group=self.group())
+                  aggregation=aggregation, halo_quant=hq,
+                  group=self.group(plan))
         with torch.no_grad():
             if feats.ndim == 3:
                 return bsp.bsp_infer_capture_many(
@@ -412,7 +428,8 @@ class _MeshBsp(ExecutorBackend):
         feats = np.asarray(feats, np.float32)
         hq = self._halo_quant(plan, exchange, aggregation)
         kw = dict(device=plan.device, exchange=exchange,
-                  aggregation=aggregation, halo_quant=hq, group=self.group())
+                  aggregation=aggregation, halo_quant=hq,
+                  group=self.group(plan))
         with torch.no_grad():
             if feats.ndim == 3:
                 merged = bsp.bsp_infer_frontier_many(
@@ -436,7 +453,7 @@ class _MeshBsp(ExecutorBackend):
                 list(plan.model.params), plan.model.kind,
                 np.asarray(feats, np.float32), pg, halo_tables,
                 device=plan.device, aggregation=aggregation,
-                group=self.group())
+                group=self.group(plan))
 
     def run_stale_many(self, plan, feats, assignment, pg, halo_tables,
                        aggregation="segment_sum"):
@@ -444,7 +461,7 @@ class _MeshBsp(ExecutorBackend):
             out = bsp.bsp_infer_stale_many(
                 list(plan.model.params), plan.model.kind, _as_stack(feats),
                 pg, halo_tables, device=plan.device, aggregation=aggregation,
-                group=self.group())
+                group=self.group(plan))
         return list(out)
 
 

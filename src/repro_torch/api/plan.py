@@ -137,6 +137,11 @@ class Plan:
     :class:`~repro_torch.api.updates.UpdateReport` of the delta that
     produced an updated plan (None for fresh compiles). ``edges`` is built
     from ``graph`` and is rebuilt whenever a delta changes the topology.
+    ``fog_ranks`` says which ``torch.distributed`` world rank holds each
+    fog when the ``mesh-bsp`` executor serves one fog per rank: None
+    means fog ``p`` on rank ``p`` (a compile, whose fogs are the world); a
+    failover plan keeps its survivors' ranks, increasing, and the crashed
+    fogs' ranks hold no shard. It is not compared.
     """
     model: ModelSpec
     graph: Graph
@@ -149,6 +154,8 @@ class Plan:
     edges: EdgeList = dataclasses.field(compare=False, repr=False)
     provenance: str = "compile"
     update_report: Optional[object] = None
+    fog_ranks: Optional[Tuple[int, ...]] = dataclasses.field(
+        default=None, compare=False)
 
     @property
     def num_fogs(self) -> int:

@@ -597,6 +597,7 @@ class Session:
             plan2 = Engine.from_plan(self.plan).apply_delta(
                 self.plan, deltas,
                 assignment=self.state.placement.assignment)
+            self._executor.check(plan2)
         except BaseException:
             # Keep the buffer intact so a bad delta can be inspected or
             # dropped without losing its neighbours.
@@ -657,12 +658,15 @@ class Session:
         assignment-independent, so those survive) and the session's
         layout becomes ``plan2.partitioned`` (whose device cache the next
         mesh execute fills). Mirrors the ``flush_updates`` rebase, minus
-        the graph change.
+        the graph change. The executor checks ``plan2`` first: with one
+        fog per ``torch.distributed`` rank, every rank makes the group of
+        its fogs' ranks here, in step.
         """
         if plan2.graph.num_vertices != self.plan.graph.num_vertices:
             raise ValueError(
                 "rebind() is a same-graph rebase; use update()/"
                 "flush_updates() for graph mutations")
+        self._executor.check(plan2)
         if self._halo is not None:
             self._halo.invalidate()
         if self._acache is not None and self._acache.family == "mesh":

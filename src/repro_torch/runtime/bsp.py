@@ -34,7 +34,10 @@ entry points) runs the shards one of two ways:
     sums run in the folded path's order, and the dense tail runs on the
     rank's rows placed in a zero [n*P, F] table (``_Fogs.spread``), so its
     products have the folded shapes: a rank's rows are bitwise the folded
-    ones for every kind.
+    ones for every kind. A plan's group (``runtime.dist.FogGroup``) may be
+    a part of the world, as after a failover: shard ``r`` then runs on the
+    group's ``r``-th rank, and a rank outside it holds no shard, launches
+    nothing, enters no sync and receives the result from the group.
 
 Shard-local aggregation runs on one of two numerically equivalent paths,
 selected by the ``aggregation`` knob:
@@ -68,7 +71,6 @@ from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.api.registry import EXCHANGES
@@ -421,7 +423,8 @@ def build_partitioned(g: Graph, assignment: np.ndarray,
 @dataclasses.dataclass(frozen=True)
 class _Fogs:
     """The shards this process runs: all ``n`` folded onto its device
-    (``group`` None), or shard ``rank`` of the ``n`` ranks of ``group``."""
+    (``group`` None), or shard ``rank`` of the ``n`` fogs of ``group`` (a
+    ``runtime.dist.FogGroup``), none with ``rank`` -1 (outside it)."""
     n: int
     group: object = None
     rank: int = 0
@@ -429,16 +432,18 @@ class _Fogs:
     @property
     def m(self) -> int:
         """Shards held, folded into the row axis of the local tables."""
-        return self.n if self.group is None else 1
+        if self.group is None:
+            return self.n
+        return 1 if self.rank >= 0 else 0
 
     def key(self, what):
         """``what``'s device-cache key: the folded path keeps its plain
-        names; a rank's operands carry its rank."""
+        names; a rank's operands carry its shard."""
         return what if self.group is None else (what, self.rank)
 
     def pick(self, a: np.ndarray) -> np.ndarray:
         """The held shards' entries of a per-shard [n, ...] host array."""
-        return a if self.group is None else a[self.rank:self.rank + 1]
+        return a if self.group is None else a[self.rank:self.rank + self.m]
 
     def spread(self, x: torch.Tensor, slots: int,
                dim: int = -2) -> torch.Tensor:
@@ -463,21 +468,23 @@ class _Fogs:
 
 
 def _fogs(pg: PartitionedGraph, group, device: torch.device) -> _Fogs:
-    """The shards of this process for ``group``; with a group, its size
-    must be ``pg.n`` (one rank a fog), and before the first run on this
-    layout every rank checks that all ranks hold the same assignment."""
+    """The shards of this process for ``group`` (a ``runtime.dist.FogGroup``
+    or a process group, one fog a rank); with a group, its fogs must be
+    ``pg.n``, and before the first run on this layout every rank the
+    result reaches checks that all of them hold the same assignment."""
     if group is None:
         return _Fogs(pg.n)
-    world = dist.get_world_size(group)
-    if world != pg.n:
+    group = fog_dist.as_fog_group(group)
+    if len(group.ranks) != pg.n:
         raise ValueError(f"need {pg.n} ranks for {pg.n} partitions, the "
-                         f"process group has {world}")
-    fogs = _Fogs(pg.n, group, dist.get_rank(group))
+                         f"process group has {len(group.ranks)}")
+    fogs = _Fogs(pg.n, group, group.shard)
 
     def agree():
         fog_dist.check_same(fog_dist.digest(
-            pg.part_of, np.array([pg.n, pg.slots, pg.boundary_slots])),
-            group, device, "the partition assignment")
+            pg.part_of, np.array([pg.n, pg.slots, pg.boundary_slots]),
+            np.array(group.ranks)), group.over, device,
+            "the partition assignment")
         return True
     _on_device(pg, device, fogs.key("agreed"), agree)
     return fogs
@@ -676,8 +683,8 @@ def _exchange(h: torch.Tensor, lay: _Layout, fogs: _Fogs,
         return _wire_quantize(hb) if quant else (hb,)
     if quant:   # codes [.., B, F]; scales and mins [.., B]
         return tuple(fog_dist.gather_rows(_wire_quantize(hb), (-2, -1, -1),
-                                          fogs.group))
-    return tuple(fog_dist.gather_rows((hb,), (-2,), fogs.group))
+                                          fogs.group.group))
+    return tuple(fog_dist.gather_rows((hb,), (-2,), fogs.group.group))
 
 
 def _kernel_sum(pg: PartitionedGraph, h: torch.Tensor, lay: _Layout,
@@ -821,7 +828,7 @@ def _run_layers(params, kind: str, pg: PartitionedGraph, h: torch.Tensor,
                 edges_l = edges.into(fogs.spread(merge, slots, -1))
             if exchange == "allgather":
                 h_src = (h if fogs.group is None else fog_dist.gather_rows(
-                    (h,), (-2,), fogs.group)[0])
+                    (h,), (-2,), fogs.group.group)[0])
             else:
                 hb = (_exchange(h, lay, fogs, False)[0]
                       if halo_l is None else halo_l)
@@ -869,13 +876,21 @@ def _local_stack(pg: PartitionedGraph, feats: np.ndarray, fogs: _Fogs,
     return _gathered_stack(torch.as_tensor(fogs.pick(stack), device=device))
 
 
-def _all_rows(fogs: _Fogs, outs: List[torch.Tensor]) -> List[torch.Tensor]:
-    """Held-shard tables [.., m*P, F_l] -> every shard's [.., n*P, F_l]:
-    on a rank, the gather of the results (not a BSP sync)."""
+def _all_rows(fogs: _Fogs, device: torch.device, run
+              ) -> List[torch.Tensor]:
+    """``run()`` -> the held shards' tables [.., m*P, F_l] -> every shard's
+    [.., n*P, F_l] on every rank: on a rank, the gather of the results
+    over its group, and for a group that is not the whole world the
+    group's broadcast to it (neither is a BSP sync). A rank outside the
+    group never calls ``run``: it holds no shard and only receives."""
     if fogs.group is None:
-        return outs
-    return fog_dist.gather_rows(outs, [-2] * len(outs), fogs.group,
-                                sync=False)
+        return run()
+    outs = None
+    if fogs.m:
+        outs = run()
+        outs = fog_dist.gather_rows(outs, [-2] * len(outs),
+                                    fogs.group.group, sync=False)
+    return fog_dist.share(outs, fogs.group, device)
 
 
 def bsp_apply(params, kind: str, pg: PartitionedGraph,
@@ -890,14 +905,15 @@ def bsp_apply(params, kind: str, pg: PartitionedGraph,
     rows to uint8 before the exchange and dequantizes them inside the
     fused ``dequant_spmm`` kernel — the wire carries 1 byte/feature plus
     8 bytes/row instead of 4 bytes/feature. ``group`` (a process group of
-    ``pg.n`` ranks) runs this rank's shard only; every rank returns the
-    whole [n, P, D].
+    ``pg.n`` ranks, or the ``runtime.dist.FogGroup`` of ``pg.n`` fogs)
+    runs this rank's shard only; every rank returns the whole [n, P, D].
     """
     device = torch.device(device)
     fogs = _fogs(pg, group, device)
-    out = _run_layers(params, kind, pg, _local_feats(pg, fogs, device),
-                      exchange, aggregation, halo_quant, fogs=fogs)[-1]
-    return _all_rows(fogs, [out])[0].reshape(pg.n, pg.slots, -1)
+    out = _all_rows(fogs, device, lambda: _run_layers(
+        params, kind, pg, _local_feats(pg, fogs, device), exchange,
+        aggregation, halo_quant, fogs=fogs)[-1:])[0]
+    return out.reshape(pg.n, pg.slots, -1)
 
 
 def bsp_apply_many(params, kind: str, pg: PartitionedGraph,
@@ -916,12 +932,12 @@ def bsp_apply_many(params, kind: str, pg: PartitionedGraph,
     """
     device = torch.device(device)
     fogs = _fogs(pg, group, device)
-    h = _gathered_stack(torch.as_tensor(fogs.pick(np.asarray(feat_stack)),
-                                        device=device))
-    out = _run_layers(params, kind, pg, h, exchange, aggregation,
-                      halo_quant, fogs=fogs)[-1]
-    out = _all_rows(fogs, [out])[0]
-    return out.reshape(h.shape[0], pg.n, pg.slots, -1).movedim(0, 1)
+    feat_stack = np.asarray(feat_stack)
+    out = _all_rows(fogs, device, lambda: _run_layers(
+        params, kind, pg, _gathered_stack(torch.as_tensor(
+            fogs.pick(feat_stack), device=device)), exchange, aggregation,
+        halo_quant, fogs=fogs)[-1:])[0]
+    return out.reshape(feat_stack.shape[1], pg.n, pg.slots, -1).movedim(0, 1)
 
 
 def _partitioned(g: Graph, assignment: np.ndarray, kind: str, exchange: str,
@@ -952,7 +968,7 @@ def bsp_infer(params, kind: str, g: Graph, assignment: np.ndarray,
     device = torch.device(device)
     pg = _partitioned(g, assignment, kind, exchange, aggregation, device, pg)
     fogs = _fogs(pg, group, device)
-    return _unfold(pg, fogs, _run_layers(
+    return _unfold(pg, fogs, device, lambda: _run_layers(
         params, kind, pg, _local_feats(pg, fogs, device), exchange,
         aggregation, halo_quant, fogs=fogs)[-1:])[0]
 
@@ -973,17 +989,17 @@ def bsp_infer_many(params, kind: str, feats: np.ndarray,
                          f"shape {feats.shape}")
     device = torch.device(device)
     fogs = _fogs(pg, group, device)
-    return _unfold(pg, fogs, _run_layers(
+    return _unfold(pg, fogs, device, lambda: _run_layers(
         params, kind, pg, _local_stack(pg, feats, fogs, device), exchange,
         aggregation, halo_quant, fogs=fogs)[-1:])[0]
 
 
-def _unfold(pg: PartitionedGraph, fogs: _Fogs, outs: List[torch.Tensor]
+def _unfold(pg: PartitionedGraph, fogs: _Fogs, device: torch.device, run
             ) -> List[np.ndarray]:
-    """Held-shard tables [.., m*P, F_l] -> numpy in original vertex order
-    (on a rank, gathered from every rank first)."""
-    outs = _all_rows(fogs, outs)
-    idx = _layout(pg, outs[0].device, fogs).result_index
+    """``run()``'s held-shard tables [.., m*P, F_l] -> numpy in original
+    vertex order (on a rank, the whole result; see ``_all_rows``)."""
+    outs = _all_rows(fogs, device, run)
+    idx = _layout(pg, device, fogs).result_index
     return [o[..., idx, :].cpu().numpy() for o in outs]
 
 
@@ -1000,7 +1016,7 @@ def bsp_infer_capture(params, kind: str, g: Graph, assignment: np.ndarray,
     device = torch.device(device)
     pg = _partitioned(g, assignment, kind, exchange, aggregation, device, pg)
     fogs = _fogs(pg, group, device)
-    return _unfold(pg, fogs, _run_layers(
+    return _unfold(pg, fogs, device, lambda: _run_layers(
         params, kind, pg, _local_feats(pg, fogs, device), exchange,
         aggregation, halo_quant, fogs=fogs))
 
@@ -1015,7 +1031,7 @@ def bsp_infer_capture_many(params, kind: str, feats: np.ndarray,
     """Batched capture: [B, V, F] micro-batch -> K arrays [B, V, F_l]."""
     device = torch.device(device)
     fogs = _fogs(pg, group, device)
-    return _unfold(pg, fogs, _run_layers(
+    return _unfold(pg, fogs, device, lambda: _run_layers(
         params, kind, pg, _local_stack(pg, feats, fogs, device), exchange,
         aggregation, halo_quant, fogs=fogs))
 
@@ -1075,9 +1091,9 @@ def bsp_infer_stale(params, kind: str, feats: np.ndarray,
     device = torch.device(device)
     pg = pg.with_features(np.asarray(feats, np.float32))
     fogs = _fogs(pg, group, device)
-    out = _stale_run(params, kind, pg, _local_feats(pg, fogs, device),
-                     halo_tables, aggregation, fogs)
-    return _unfold(pg, fogs, [out])[0]
+    return _unfold(pg, fogs, device, lambda: [_stale_run(
+        params, kind, pg, _local_feats(pg, fogs, device), halo_tables,
+        aggregation, fogs)])[0]
 
 
 def bsp_infer_stale_many(params, kind: str, feats: np.ndarray,
@@ -1090,9 +1106,9 @@ def bsp_infer_stale_many(params, kind: str, feats: np.ndarray,
     per-request state)."""
     device = torch.device(device)
     fogs = _fogs(pg, group, device)
-    h = _local_stack(pg, feats, fogs, device)
-    return _unfold(pg, fogs, [_stale_run(params, kind, pg, h, halo_tables,
-                                         aggregation, fogs)])[0]
+    return _unfold(pg, fogs, device, lambda: [_stale_run(
+        params, kind, pg, _local_stack(pg, feats, fogs, device),
+        halo_tables, aggregation, fogs)])[0]
 
 
 def _scatter_frontier(pg: PartitionedGraph, rows_per_layer, cached_layers,
@@ -1140,11 +1156,14 @@ def bsp_infer_frontier(params, kind: str, feats: np.ndarray,
     device = torch.device(device)
     pg = pg.with_features(np.asarray(feats, np.float32))
     fogs = _fogs(pg, group, device)
-    dirty, cached = _scatter_frontier(pg, rows_per_layer, cached_layers,
-                                      device, fogs)
-    return _unfold(pg, fogs, _run_layers(
-        params, kind, pg, _local_feats(pg, fogs, device), exchange,
-        aggregation, halo_quant, dirty, cached, fogs=fogs))
+
+    def run():
+        dirty, cached = _scatter_frontier(pg, rows_per_layer, cached_layers,
+                                          device, fogs)
+        return _run_layers(params, kind, pg, _local_feats(pg, fogs, device),
+                           exchange, aggregation, halo_quant, dirty, cached,
+                           fogs=fogs)
+    return _unfold(pg, fogs, device, run)
 
 
 def bsp_infer_frontier_many(params, kind: str, feats: np.ndarray,
@@ -1159,11 +1178,14 @@ def bsp_infer_frontier_many(params, kind: str, feats: np.ndarray,
     one (unioned) dirty frontier; returns K merged [B, V, F_l] stacks."""
     device = torch.device(device)
     fogs = _fogs(pg, group, device)
-    dirty, cached = _scatter_frontier(pg, rows_per_layer, cached_layers,
-                                      device, fogs)
-    return _unfold(pg, fogs, _run_layers(
-        params, kind, pg, _local_stack(pg, feats, fogs, device), exchange,
-        aggregation, halo_quant, dirty, cached, fogs=fogs))
+
+    def run():
+        dirty, cached = _scatter_frontier(pg, rows_per_layer, cached_layers,
+                                          device, fogs)
+        return _run_layers(params, kind, pg,
+                           _local_stack(pg, feats, fogs, device), exchange,
+                           aggregation, halo_quant, dirty, cached, fogs=fogs)
+    return _unfold(pg, fogs, device, run)
 
 
 def exchange_bytes(pg: PartitionedGraph, feature_dim: int,

@@ -10,6 +10,17 @@ land in ``WIRE``, a plain counter beside the kernel wrappers' ``launches``.
 The gather of the last layer's rows (every rank returns the whole result)
 is not a BSP sync and is not counted.
 
+A plan's fogs need not be the whole world: after ``Engine.fail_nodes`` the
+survivors' fogs keep their processes, and the plan records which world
+rank holds each fog (``Plan.fog_ranks``). ``group_of`` gives the process
+group of those ranks (``FogGroup``), made once per set of ranks and cached
+(the world's own set is the default group). Making a group is collective
+over the whole world: every rank calls ``group_of`` for the same sets in
+the same order, members or not, which the executor does where every rank
+binds a plan. A rank outside the group holds no shard, enters no BSP sync
+and receives the result from the group's first member (``share``, one
+broadcast over the world, not a sync either).
+
 The collectives take whatever backend the group has; ``spawn``'s groups
 are gloo. On one card several ranks share the device and NCCL refuses
 that, so they run on gloo, which
@@ -25,11 +36,12 @@ ended.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import os
 import time
 from datetime import timedelta
-from typing import Callable, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -93,6 +105,111 @@ def gather_rows(tensors: Sequence[torch.Tensor], dims: Sequence[int], group,
             _synchronize(out)
             WIRE.seconds.append(time.perf_counter() - t0)
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class FogGroup:
+    """The processes of a plan's fogs: fog ``p`` runs on world rank
+    ``ranks[p]`` (increasing), all of them in ``group``; the result
+    reaches every rank of ``over`` (a superset of ``group``)."""
+    ranks: Tuple[int, ...]
+    group: object     # GroupMember.NON_GROUP_MEMBER on a rank outside it
+    over: object
+
+    @property
+    def shard(self) -> int:
+        """This process's fog (its rank in ``group``), -1 outside it."""
+        return dist.get_rank(self.group)
+
+    @property
+    def whole(self) -> bool:
+        """Whether every rank of ``over`` holds a fog."""
+        return len(self.ranks) == dist.get_world_size(self.over)
+
+
+#: The groups this process made, by their world ranks, in the order made,
+#: under the default group ``_made_under``.
+_made: Dict[Tuple[int, ...], object] = {}
+_made_under = None
+
+
+def _groups() -> Dict[Tuple[int, ...], object]:
+    global _made, _made_under
+    if _made_under is not dist.group.WORLD:
+        _made, _made_under = {}, dist.group.WORLD
+    return _made
+
+
+def group_of(ranks: Sequence[int]) -> FogGroup:
+    """The fogs on world ranks ``ranks`` (increasing, distinct). The first
+    call for a set makes its group (``dist.new_group``), which is
+    collective over the world: every rank must make the same calls in the
+    same order. The whole world's set is the default group."""
+    ranks = tuple(int(r) for r in ranks)
+    world = dist.get_world_size()
+    if (not ranks or list(ranks) != sorted(set(ranks)) or ranks[0] < 0
+            or ranks[-1] >= world):
+        raise ValueError(f"fog ranks must be distinct increasing ranks of "
+                         f"the world of {world}, got {ranks}")
+    made = _groups()
+    if ranks not in made:
+        made[ranks] = (dist.group.WORLD if len(ranks) == world else
+                       dist.new_group(list(ranks),
+                                      timeout=timedelta(seconds=TIMEOUT_S)))
+    return FogGroup(ranks, made[ranks], dist.group.WORLD)
+
+
+def groups_made() -> List[Tuple[int, ...]]:
+    """The rank sets whose groups this process made, in order."""
+    return list(_groups())
+
+
+def as_fog_group(group) -> FogGroup:
+    """``group`` itself if a ``FogGroup``; a process group of this rank
+    holds one fog on each of its ranks, and the result stays in it."""
+    if isinstance(group, FogGroup):
+        return group
+    return FogGroup(tuple(dist.get_process_group_ranks(group)), group, group)
+
+
+#: int64 slots of ``share``'s header: the table count, then per table
+#: its rank and its sizes.
+_HEADER = 32
+
+
+def share(tensors: Optional[Sequence[torch.Tensor]], fogs: FogGroup,
+          device) -> List[torch.Tensor]:
+    """The fogs' f32 result tables on every rank of ``fogs.over``: the
+    group's first member broadcasts a header of their shapes, then each
+    table. A rank outside the group passes None and gets tables on
+    ``device``; a member passes its tables (all members hold the same).
+    Not a BSP sync: ``WIRE`` does not count it."""
+    if fogs.whole:
+        return list(tensors)
+    src = fogs.ranks[0]
+    header = torch.zeros(_HEADER, dtype=torch.int64)
+    if tensors is not None:
+        dims = [len(tensors)]
+        for t in tensors:
+            if t.dtype != torch.float32:
+                raise TypeError(f"share sends f32 tables, got {t.dtype}")
+            dims += [t.ndim, *t.shape]
+        if len(dims) > _HEADER:
+            raise ValueError(f"share's header holds {_HEADER} sizes, the "
+                             f"tables need {len(dims)}")
+        header[:len(dims)] = torch.tensor(dims)
+    dist.broadcast(header, src, group=fogs.over)
+    if tensors is None:
+        dims, tensors, i = header.tolist(), [], 1
+        for _ in range(dims[0]):
+            nd = dims[i]
+            tensors.append(torch.empty(dims[i + 1:i + 1 + nd],
+                                       dtype=torch.float32, device=device))
+            i += 1 + nd
+    tensors = [t.contiguous() for t in tensors]
+    for t in tensors:
+        dist.broadcast(t, src, group=fogs.over)
+    return tensors
 
 
 def check_same(digest: bytes, group, device, what: str) -> None:

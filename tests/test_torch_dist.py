@@ -14,9 +14,24 @@ layer's width. Frontier (activation cache) and stale (``halo_async``)
 serves on ranks are bitwise their folded runs, a plan of six fogs on the
 four-rank group is refused, and a rank that raises ends the group at once.
 
+Failover on ranks: a session fails ``fog1(B)`` over in either mode and
+its three survivors serve on a group of their own ranks (0, 2 and 3);
+rank 1 holds no shard, enters no sync and still returns the survivors'
+answer. Queries, executes and batches on every rank, rank 1 included, are
+bitwise the folded failover, each sync moves the survivor plan's
+``exchange_bytes``, and a rebind to the whole plan serves the pre-crash
+answer. Two failovers and a restore make the same groups in the same
+order on every rank; ``Session.update`` (on the whole and on a failover
+plan) and ``Session.adapt`` on ranks are their folded runs bitwise; and
+``tests/test_torch_faults.py``'s "1A+3B" repair failover and seeded chaos
+``Server`` replay on the four ranks are bitwise the folded replay and
+match that file's JAX ``mesh-bsp`` reference (assignment, latencies and
+tags ``==``, embeddings within the DAQ wire's bar).
+
 The ranks start once a session (the first xdist worker to need them runs
 them, the others wait on a file lock and read the results), and the JAX
-reference is ``tests/test_torch_mesh.py``'s, run once for both files.
+references are ``tests/test_torch_mesh.py``'s and
+``tests/test_torch_faults.py``'s, each run once for both files.
 """
 import os
 import subprocess
@@ -29,6 +44,7 @@ import pytest
 import torch.distributed as dist
 
 import _torch_dist_ranks as ranks
+import test_torch_faults as faults_tests
 import test_torch_mesh as mesh_tests
 from repro_torch.runtime import bsp as tbsp
 from repro_torch.runtime import dist as fog_dist
@@ -51,12 +67,21 @@ def reference(tmp_path_factory):
                                  mesh_tests.build_reference)
 
 
-def _inputs(reference) -> dict:
-    """What both runs read: the reference's weights and batches, and the
+@pytest.fixture(scope="module")
+def chaos_reference(tmp_path_factory):
+    return mesh_tests.shared_npz(tmp_path_factory, "faults_reference",
+                                 faults_tests.build_mesh_reference)
+
+
+def _inputs(reference, chaos_reference=None) -> dict:
+    """What both runs read: the references' weights and batches, the
     frontier sequence (the graph's features, then CHANGED perturbed, then
-    a batch of two more perturbations)."""
+    a batch of two more perturbations) and a seeded structural delta."""
     inputs = {k: v for k, v in reference.items()
               if "/param/" in k or k.endswith("/stack")}
+    if chaos_reference is not None:
+        inputs.update({"chaos/" + k: v for k, v in chaos_reference.items()
+                       if k.startswith("param/")})
     for kind in ("gcn", "sage", "gat"):
         inputs[f"{kind}/layers"] = np.asarray(
             len({k.split("/")[2] for k in inputs
@@ -68,12 +93,35 @@ def _inputs(reference) -> dict:
         f[list(CHANGED)] += np.float32(0.25 * step)
         seq.append(f)
     inputs["frontier/feats"] = np.stack(seq)
+    inputs.update(_delta(ranks.graph()))
     return inputs
 
 
-def _runs(reference):
+def _delta(g) -> dict:
+    """A structural delta's arrays under ``delta/``: new vertices wired
+    into the graph, removed vertices and edges, feature upserts."""
+    rng = np.random.default_rng(5)
+    v, k = g.num_vertices, 16
+    fanout = rng.integers(1, 4, size=k)
+    removed = rng.choice(v, size=k // 2, replace=False)
+    eidx = rng.integers(0, g.num_edges, size=k)
+    upd = np.setdiff1d(rng.choice(v, size=k, replace=False), removed)
+    return {"delta/add_features": rng.normal(
+                size=(k, g.feature_dim)).astype(np.float32),
+            "delta/add_edges": np.stack(
+                [np.repeat(v + np.arange(k), fanout),
+                 rng.integers(0, v, int(fanout.sum()))], axis=1),
+            "delta/remove_vertices": removed,
+            "delta/remove_edges": np.stack(
+                [g.senders[eidx], g.receivers[eidx]], axis=1),
+            "delta/feature_ids": upd,
+            "delta/feature_values": rng.normal(size=(len(upd),
+                                                     g.feature_dim))}
+
+
+def _runs(reference, chaos_reference):
     def build(tmp):
-        inputs = _inputs(reference)
+        inputs = _inputs(reference, chaos_reference)
         path = tmp / "inputs.npz"
         np.savez(path, **inputs)
         fog_dist.spawn(ranks.serve_rank, WORLD, str(tmp), str(path),
@@ -84,6 +132,7 @@ def _runs(reference):
                 out.update({f"rank{r}/{k}": v for k, v in f.items()})
         folded = {}
         ranks.serve(inputs, CONFIGS, CLUSTER, ranks.graph(), folded)
+        ranks.faults(inputs, CLUSTER, ranks.graph(), folded)
         out.update({f"folded/{k}": v for k, v in folded.items()})
         np.savez(tmp / "runs.npz", **out)
         return tmp / "runs.npz"
@@ -91,9 +140,9 @@ def _runs(reference):
 
 
 @pytest.fixture(scope="module")
-def runs(reference, tmp_path_factory):
+def runs(reference, chaos_reference, tmp_path_factory):
     return mesh_tests.shared_npz(tmp_path_factory, "dist_runs",
-                                 _runs(reference))
+                                 _runs(reference, chaos_reference))
 
 
 def test_each_rank_holds_its_shard_of_the_group(runs):
@@ -205,6 +254,175 @@ def test_bsp_refuses_a_group_of_another_size(reference, tmp_path):
         dist.destroy_process_group()
 
 
+# ----------------------------------------------------------------------------
+# failover, restore, updates and chaos replays on ranks
+# ----------------------------------------------------------------------------
+
+MODES = ("repair", "recompile")
+#: The survivors' ranks after CRASHED; the rank outside their group.
+SURVIVORS = [0, 2, 3]
+OUTSIDE = 1
+
+
+def _failover_plan(reference, config, mode):
+    """The folded failover's plan, as the ranks derive it."""
+    plan = ranks.engine(_inputs(reference), *config, CLUSTER).compile(
+        ranks.graph())
+    return plan.session().failover(ranks.CRASHED, mode=mode)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("config", ranks.FAILOVER, ids="-".join)
+def test_failover_on_ranks_is_the_folded_failover_bitwise(runs, config, mode):
+    """Every rank, the one outside the survivors' group included, serves
+    the folded failover's query, execute and batch bitwise."""
+    key = "/".join(config) + "/" + mode
+    assert runs[f"folded/{key}/fog_ranks"].tolist() == SURVIVORS
+    for r in range(WORLD):
+        assert runs[f"rank{r}/{key}/fog_ranks"].tolist() == SURVIVORS
+        for what in ("query", "execute", "many"):
+            assert np.array_equal(runs[f"rank{r}/{key}/{what}"],
+                                  runs[f"folded/{key}/{what}"]), (r, what)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("config", ranks.FAILOVER, ids="-".join)
+def test_survivor_syncs_move_the_survivor_plans_exchange_bytes(
+        runs, reference, config, mode):
+    """Each survivor's sync moves the three-fog plan's ``exchange_bytes``
+    at the layer's width (the query's figure at layer 0); a batch of two
+    twice that, as on the whole plan; rank 1 enters no sync."""
+    kind, comp, agg, exchange = config
+    key = "/".join(config) + "/" + mode
+    sess = _failover_plan(reference, config, mode).session()
+    pg = sess.partitioned()
+    assert pg.n == len(SURVIVORS)
+    dtype_bytes, overhead = sess.resolve_executor().wire_format(
+        sess.plan, exchange, agg)
+    per_layer = [tbsp.exchange_bytes(pg, f, exchange, dtype_bytes, overhead)
+                 for f in (pg.feats.shape[-1],) + WIDTHS]
+    batched = ([2 * b for b in per_layer] if agg == "pallas"
+               else per_layer + per_layer)
+    for r in range(WORLD):
+        assert int(runs[f"rank{r}/{key}/exchange_bytes"]) == per_layer[0]
+        inside = r != OUTSIDE
+        assert runs[f"rank{r}/{key}/query_syncs"].tolist() == (
+            per_layer if inside else []), r
+        assert runs[f"rank{r}/{key}/many_syncs"].tolist() == (
+            batched if inside else []), r
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("config", ranks.FAILOVER, ids="-".join)
+def test_a_restore_on_ranks_serves_the_pre_crash_answer(runs, config, mode):
+    tag = "/".join(config)
+    want = runs[f"folded/{tag}/before"]
+    assert np.array_equal(runs[f"folded/{tag}/{mode}/restored"], want)
+    for r in range(WORLD):
+        assert np.array_equal(runs[f"rank{r}/{tag}/before"], want), r
+        assert np.array_equal(runs[f"rank{r}/{tag}/{mode}/restored"],
+                              want), r
+
+
+def test_every_rank_makes_the_same_groups_in_the_same_order(runs):
+    """Two failovers and a restore on one session: the world, then the
+    survivors of fog 1, then of fogs 1 and 3, then the world again (its
+    own group, made first); the chaos replay's crashes add theirs after.
+    Every rank made the same groups in the same order and served each
+    step bitwise the folded run."""
+    groups = runs["rank0/groups"].tolist()
+    assert groups[:3] == ["0-1-2-3", "0-2-3", "0-2"], groups
+    assert len(set(groups)) == len(groups)
+    steps = ([0, 2, 3], [0, 2], [0, 1, 2, 3])
+    for r in range(WORLD):
+        assert runs[f"rank{r}/groups"].tolist() == groups, r
+        for i, fog_ranks in enumerate(steps):
+            assert runs[f"rank{r}/sequence/{i}/fog_ranks"].tolist() == \
+                fog_ranks
+            assert np.array_equal(runs[f"rank{r}/sequence/{i}/query"],
+                                  runs[f"folded/sequence/{i}/query"]), (r, i)
+
+
+@pytest.mark.parametrize("name", ("update", "update_failover", "adapt"))
+def test_updates_and_adapt_on_ranks_are_folded_bitwise(runs, name):
+    """A structural ``Session.update`` on the whole plan and on a failover
+    plan (which keeps its survivors' ranks), and an ``adapt`` that
+    migrates vertices off an overloaded fog: each rank's query after it is
+    the folded one, and only the survivors sync."""
+    folded = f"folded/{name}/"
+    if name == "adapt":
+        assert str(runs[folded + "action"]).startswith("diffusion")
+    else:
+        assert str(runs[folded + "mode"]) == "incremental"
+        want = SURVIVORS if name == "update_failover" else list(range(WORLD))
+        assert runs[folded + "fog_ranks"].tolist() == want
+    for r in range(WORLD):
+        mine = f"rank{r}/{name}/"
+        for key in ("action", "assignment", "mode", "fog_ranks"):
+            if folded + key in runs:
+                assert np.array_equal(runs[mine + key], runs[folded + key])
+        assert np.array_equal(runs[mine + "query"], runs[folded + "query"])
+        syncs = runs[mine + "query_syncs"].tolist()
+        outside = name == "update_failover" and r == OUTSIDE
+        assert (syncs == []) == outside, (r, syncs)
+        if not outside:
+            assert syncs[0] == int(runs[mine + "exchange_bytes"])
+
+
+def _responses(runs, name):
+    """The request ids of the folded replay ``name``."""
+    return sorted({k.split("/")[3] for k in runs
+                   if k.startswith(f"folded/replay/{name}/")
+                   and k.endswith("/latency")}, key=int)
+
+
+#: Each replay's recovery tags, as the folded replay shows them.
+REPLAY_TAGS = {"chaos": {"retry", "None"},
+               "crash-restore": {"failover", "restored"},
+               "loss-failover": {"failover", "restored"}}
+
+
+@pytest.mark.parametrize("name", sorted(REPLAY_TAGS))
+def test_server_replays_on_ranks_are_the_folded_replays(runs, name):
+    """The "1A+3B" Server replays (the seeded chaos schedule, a crash and a
+    halo loss that fail a node over, each restored): every rank's
+    responses bitwise the folded replay's, the same latencies and tags."""
+    ids = _responses(runs, name)
+    assert len(ids) == (ranks.CHAOS_REQUESTS if name == "chaos"
+                        else ranks.SCHEDULE_REQUESTS)
+    tags = {str(runs[f"folded/replay/{name}/{i}/tags"][0]) for i in ids}
+    assert REPLAY_TAGS[name] <= tags, tags
+    keys = [f"replay/{name}/crashed"] + [
+        f"replay/{name}/{i}/{what}" for i in ids
+        for what in ("embeddings", "latency", "tags")]
+    if name == "chaos":
+        keys += ["chaos/failover/assignment", "chaos/failover/embeddings"]
+    for r in range(WORLD):
+        for key in keys:
+            assert np.array_equal(runs[f"rank{r}/{key}"],
+                                  runs[f"folded/{key}"]), (r, key)
+
+
+def test_chaos_replay_on_ranks_matches_the_jax_mesh(runs, chaos_reference):
+    """Against tests/test_torch_faults.py's JAX ``mesh-bsp`` reference:
+    the failover's assignment ``==``, every response's latency and tags
+    ``==``, embeddings within the DAQ wire's bar."""
+    ref = chaos_reference
+    for r in range(WORLD):
+        assert np.array_equal(runs[f"rank{r}/chaos/failover/assignment"],
+                              ref["failover/assignment"])
+        mesh_tests._assert_embeddings(
+            runs[f"rank{r}/chaos/failover/embeddings"],
+            ref["failover/embeddings"], True)
+        for i in _responses(runs, "chaos"):
+            mine, key = f"rank{r}/replay/chaos/{i}/", f"chaos/{i}/"
+            assert float(runs[mine + "latency"]) == float(
+                ref[key + "latency"])
+            assert runs[mine + "tags"].tolist() == ref[key + "tags"].tolist()
+            mesh_tests._assert_embeddings(runs[mine + "embeddings"],
+                                          ref[key + "embeddings"], True)
+
+
 FAILING = textwrap.dedent("""
     import sys, tempfile, time
     sys.path.insert(0, sys.argv[1])
@@ -223,7 +441,8 @@ def test_a_rank_that_raises_ends_the_group_within_seconds():
     in theirs. ``spawn`` must raise in the parent and end them well before
     the group's 60 s timeout; the subprocess's own limit turns a hang into
     a failure. The error the parent reports is the first rank's to end:
-    the raising one, or one whose ``all_gather`` lost that peer."""
+    the raising one, or one whose ``all_gather`` lost that peer (gloo says
+    the connection was closed or reset by it, by the timing)."""
     env = dict(os.environ, PYTHONPATH=os.path.join(mesh_tests.REPO, "src"))
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", FAILING, TESTS], env=env,
@@ -233,7 +452,7 @@ def test_a_rank_that_raises_ends_the_group_within_seconds():
     line = proc.stdout[proc.stdout.index("RAISED"):]
     assert "ProcessRaisedException" in line, line
     assert ("rank 1 failed on purpose" in line
-            or "closed by peer" in line), line
+            or "closed by peer" in line or "reset by peer" in line), line
     assert float(line.split()[1]) < 20, line
     assert wall < 30, wall
     assert fog_dist.TIMEOUT_S == 60

@@ -46,6 +46,7 @@ from repro_torch.core import simulation
 from repro_torch.gnn import datasets as tdata
 from repro_torch.gnn import models as tmodels
 
+import test_torch_mesh as mesh_tests
 from _torch_threads import one_cpu_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -656,9 +657,8 @@ REFERENCE = textwrap.dedent("""
 """)
 
 
-@pytest.fixture(scope="module")
-def mesh_reference(tmp_path_factory):
-    path = tmp_path_factory.mktemp("faults") / "reference.npz"
+def build_mesh_reference(tmp):
+    path = tmp / "reference.npz"
     env = dict(os.environ,
                XLA_FLAGS="--xla_force_host_platform_device_count=4",
                JAX_PLATFORMS="cpu", PYTHONPATH=os.path.join(REPO, "src"))
@@ -667,8 +667,15 @@ def mesh_reference(tmp_path_factory):
                           timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "OK" in proc.stdout
-    with np.load(path) as ref:
-        return dict(ref)
+    return path
+
+
+@pytest.fixture(scope="module")
+def mesh_reference(tmp_path_factory):
+    """Run once a session (``tests/test_torch_dist.py`` holds its ranks'
+    replay against it too)."""
+    return mesh_tests.shared_npz(tmp_path_factory, "faults_reference",
+                                 build_mesh_reference)
 
 
 def test_mesh_failover_and_chaos_match_jax(mesh_reference):
