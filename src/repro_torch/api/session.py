@@ -41,6 +41,7 @@ from repro_torch.core.scheduler import SchedulerState, schedule_step
 from repro_torch.gnn.graph import Graph
 from repro_torch.kernels import ops
 from repro_torch.runtime import bsp
+from repro_torch.runtime.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -277,17 +278,20 @@ class Session:
         capturing pass when the cache cannot serve (bitwise either way).
         With a staleness bound the serve may replay recorded halo tables.
         """
-        backend = self.resolve_executor(executor)
-        if self._acache is not None:
-            return self._cached_execute(np.asarray(feats, np.float32),
-                                        backend)
-        if self._halo is not None:
-            return self._stale_execute(np.asarray(feats, np.float32),
-                                       backend, many=False)
-        self.last_staleness = 0
-        return backend.run(self.plan, feats, self.state.placement.assignment,
-                           self.partitioned(backend), self._exchange.name,
-                           aggregation=self._aggregation)
+        with span("execute"):
+            backend = self.resolve_executor(executor)
+            if self._acache is not None:
+                return self._cached_execute(np.asarray(feats, np.float32),
+                                            backend)
+            if self._halo is not None:
+                return self._stale_execute(np.asarray(feats, np.float32),
+                                           backend, many=False)
+            self.last_staleness = 0
+            return backend.run(self.plan, feats,
+                               self.state.placement.assignment,
+                               self.partitioned(backend),
+                               self._exchange.name,
+                               aggregation=self._aggregation)
 
     def execute_many(self, feats, *, executor=None) -> list:
         """Batched stage 2 over a micro-batch ([B, V, F] stack or a
@@ -297,21 +301,22 @@ class Session:
         The Server's micro-batcher calls this, so a cache-enabled session
         serves the whole batch through ONE stacked frontier pass (the
         per-example h^0 diffs union into one dirty set)."""
-        backend = self.resolve_executor(executor)
-        if not (isinstance(feats, np.ndarray) and feats.ndim == 3):
-            feats = np.stack([np.asarray(f, np.float32) for f in feats])
-        feats = np.asarray(feats, np.float32)
-        if self._acache is None:
-            if self._halo is not None:
-                return self._stale_execute(feats, backend, many=True)
-            self.last_staleness = 0
-            return backend.run_many(
-                self.plan, feats, self.state.placement.assignment,
-                self.partitioned(backend), self._exchange.name,
-                aggregation=self._aggregation)
-        if feats.shape[0] == 1:
-            return [self._cached_execute(feats[0], backend)]
-        return self._cached_execute(feats, backend)
+        with span("execute_many"):
+            backend = self.resolve_executor(executor)
+            if not (isinstance(feats, np.ndarray) and feats.ndim == 3):
+                feats = np.stack([np.asarray(f, np.float32) for f in feats])
+            feats = np.asarray(feats, np.float32)
+            if self._acache is None:
+                if self._halo is not None:
+                    return self._stale_execute(feats, backend, many=True)
+                self.last_staleness = 0
+                return backend.run_many(
+                    self.plan, feats, self.state.placement.assignment,
+                    self.partitioned(backend), self._exchange.name,
+                    aggregation=self._aggregation)
+            if feats.shape[0] == 1:
+                return [self._cached_execute(feats[0], backend)]
+            return self._cached_execute(feats, backend)
 
     def _stale_execute(self, feats: np.ndarray, backend: ExecutorBackend,
                        many: bool):

@@ -21,7 +21,8 @@ products need ``rows`` there; CPU tensors take the dense plain versions
 (``kernels.ref``). Each wrapper counts its launches in a plain integer
 attribute (``dequant_spmm.launches``), raised by one at every launch and
 nowhere else; the fused products also count their launches over a
-``RowSubset`` in ``subset_launches``.
+``RowSubset`` in ``subset_launches``. While a profiler records, each call
+is the span ``fog.kernel.<wrapper>`` (``runtime.trace``).
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ from repro_torch.kernels.gather_aggregate import (_NEEDS_ROWS, RowSubset,
                                                   _check_rows, _check_tensor,
                                                   _count, _kernel, _launch,
                                                   _out, _ptr, _raise_on)
+from repro_torch.runtime.trace import span
 
 #: code dtypes the kernels take -> bytes per code.
 CODE_BYTES = {torch.uint8: 1, torch.uint16: 2, torch.uint32: 4}
@@ -73,26 +75,27 @@ def dequant_spmm(blocks: torch.Tensor, block_cols: torch.Tensor,
     plain version. A ``RowSubset`` computes only its rows, as in
     ``block_spmm``.
     """
-    _check(blocks, block_cols, block_mask, codes, scales, mins, False,
-           max_col, rows)
-    if codes.device.type == "cpu":
-        if isinstance(rows, RowSubset):
-            return ref.dequant_spmm_subset_ref(blocks, block_cols,
-                                               block_mask, codes, scales,
-                                               mins, rows.blocks)
-        return ref.dequant_spmm_ref(blocks, block_cols, block_mask, codes,
-                                    scales, mins)
-    if codes.device.type != "cuda":
-        raise ValueError(f"dequant_spmm runs on cuda or cpu, not "
-                         f"{codes.device}")
-    if rows is None:
-        raise ValueError(_NEEDS_ROWS.format("dequant_spmm"))
-    out = _out(rows, (rows.n_rows, codes.shape[1]), codes.device)
-    err = _launch("dequant_spmm_launch", rows, (codes, scales, mins), out,
-                  last=(CODE_BYTES[codes.dtype],))
-    _count(dequant_spmm, rows)
-    _raise_on(err, "dequant_spmm")
-    return out
+    with span("kernel.dequant_spmm"):
+        _check(blocks, block_cols, block_mask, codes, scales, mins, False,
+               max_col, rows)
+        if codes.device.type == "cpu":
+            if isinstance(rows, RowSubset):
+                return ref.dequant_spmm_subset_ref(blocks, block_cols,
+                                                   block_mask, codes, scales,
+                                                   mins, rows.blocks)
+            return ref.dequant_spmm_ref(blocks, block_cols, block_mask, codes,
+                                        scales, mins)
+        if codes.device.type != "cuda":
+            raise ValueError(f"dequant_spmm runs on cuda or cpu, not "
+                             f"{codes.device}")
+        if rows is None:
+            raise ValueError(_NEEDS_ROWS.format("dequant_spmm"))
+        out = _out(rows, (rows.n_rows, codes.shape[1]), codes.device)
+        err = _launch("dequant_spmm_launch", rows, (codes, scales, mins), out,
+                      last=(CODE_BYTES[codes.dtype],))
+        _count(dequant_spmm, rows)
+        _raise_on(err, "dequant_spmm")
+        return out
 
 
 def dequant_spmm_batched(blocks: torch.Tensor, block_cols: torch.Tensor,
@@ -104,27 +107,29 @@ def dequant_spmm_batched(blocks: torch.Tensor, block_cols: torch.Tensor,
     row parameters, one launch. Each ``out[b]`` is bitwise
     ``dequant_spmm(..., codes[b], scales[b], mins[b])``. ``rows`` as for
     ``dequant_spmm`` (a row subset included)."""
-    _check(blocks, block_cols, block_mask, codes, scales, mins, True,
-           max_col, rows)
-    if codes.device.type == "cpu":
-        if isinstance(rows, RowSubset):
-            return ref.dequant_spmm_batched_subset_ref(
-                blocks, block_cols, block_mask, codes, scales, mins,
-                rows.blocks)
-        return ref.dequant_spmm_batched_ref(blocks, block_cols, block_mask,
-                                            codes, scales, mins)
-    if codes.device.type != "cuda":
-        raise ValueError(f"dequant_spmm_batched runs on cuda or cpu, not "
-                         f"{codes.device}")
-    if rows is None:
-        raise ValueError(_NEEDS_ROWS.format("dequant_spmm_batched"))
-    b, _, f = codes.shape
-    out = _out(rows, (b, rows.n_rows, f), codes.device)
-    err = _launch("dequant_spmm_batched_launch", rows, (codes, scales, mins),
-                  out, b, last=(CODE_BYTES[codes.dtype],))
-    _count(dequant_spmm_batched, rows)
-    _raise_on(err, "dequant_spmm_batched")
-    return out
+    with span("kernel.dequant_spmm_batched"):
+        _check(blocks, block_cols, block_mask, codes, scales, mins, True,
+               max_col, rows)
+        if codes.device.type == "cpu":
+            if isinstance(rows, RowSubset):
+                return ref.dequant_spmm_batched_subset_ref(
+                    blocks, block_cols, block_mask, codes, scales, mins,
+                    rows.blocks)
+            return ref.dequant_spmm_batched_ref(blocks, block_cols, block_mask,
+                                                codes, scales, mins)
+        if codes.device.type != "cuda":
+            raise ValueError(f"dequant_spmm_batched runs on cuda or cpu, not "
+                             f"{codes.device}")
+        if rows is None:
+            raise ValueError(_NEEDS_ROWS.format("dequant_spmm_batched"))
+        b, _, f = codes.shape
+        out = _out(rows, (b, rows.n_rows, f), codes.device)
+        err = _launch("dequant_spmm_batched_launch", rows,
+                      (codes, scales, mins), out, b,
+                      last=(CODE_BYTES[codes.dtype],))
+        _count(dequant_spmm_batched, rows)
+        _raise_on(err, "dequant_spmm_batched")
+        return out
 
 
 def dequant(codes: torch.Tensor, scales: torch.Tensor, mins: torch.Tensor, *,
@@ -138,35 +143,37 @@ def dequant(codes: torch.Tensor, scales: torch.Tensor, mins: torch.Tensor, *,
     kernel itself takes any shape of fewer than 2^31 elements (pass
     ``v_tile=V, f_tile=F`` to send a table untiled).
     """
-    _check_tensor("codes", codes, tuple(CODE_BYTES), codes.device)
-    if codes.ndim != 2:
-        raise ValueError(f"codes must be [V, F], got {tuple(codes.shape)}")
-    v, f = codes.shape
-    for name, t in (("scales", scales), ("mins", mins)):
-        _check_tensor(name, t, (torch.float32,), codes.device)
-        if tuple(t.shape) != (v,):
-            raise ValueError(f"{name} must be ({v},) (one per row), got "
-                             f"{tuple(t.shape)}")
-    v_tile, f_tile = min(v_tile, v), min(f_tile, f)
-    if v_tile < 1 or f_tile < 1 or v % v_tile or f % f_tile:
-        raise ValueError(f"codes {tuple(codes.shape)} must tile by "
-                         f"({v_tile}, {f_tile})")
-    if codes.device.type == "cpu":
-        return ref.dequant_ref(codes, scales, mins)
-    if codes.device.type != "cuda":
-        raise ValueError(f"dequant runs on cuda or cpu, not {codes.device}")
-    if v * f >= 2 ** 31:
-        raise ValueError(f"dequant on cuda takes fewer than 2^31 codes, got "
-                         f"{tuple(codes.shape)}")
-    out = torch.empty((v, f), dtype=torch.float32, device=codes.device)
-    with torch.cuda.device(codes.device):
-        stream = torch.cuda.current_stream(codes.device).cuda_stream
-        err = _kernel("dequant_launch")(
-            _ptr(codes), _ptr(scales), _ptr(mins), _ptr(out), v, f,
-            CODE_BYTES[codes.dtype], ctypes.c_void_p(stream))
-        dequant.launches += 1
-    _raise_on(err, "dequant")
-    return out
+    with span("kernel.dequant"):
+        _check_tensor("codes", codes, tuple(CODE_BYTES), codes.device)
+        if codes.ndim != 2:
+            raise ValueError(f"codes must be [V, F], got {tuple(codes.shape)}")
+        v, f = codes.shape
+        for name, t in (("scales", scales), ("mins", mins)):
+            _check_tensor(name, t, (torch.float32,), codes.device)
+            if tuple(t.shape) != (v,):
+                raise ValueError(f"{name} must be ({v},) (one per row), got "
+                                 f"{tuple(t.shape)}")
+        v_tile, f_tile = min(v_tile, v), min(f_tile, f)
+        if v_tile < 1 or f_tile < 1 or v % v_tile or f % f_tile:
+            raise ValueError(f"codes {tuple(codes.shape)} must tile by "
+                             f"({v_tile}, {f_tile})")
+        if codes.device.type == "cpu":
+            return ref.dequant_ref(codes, scales, mins)
+        if codes.device.type != "cuda":
+            raise ValueError(f"dequant runs on cuda or cpu, not "
+                             f"{codes.device}")
+        if v * f >= 2 ** 31:
+            raise ValueError(f"dequant on cuda takes fewer than 2^31 codes, "
+                             f"got {tuple(codes.shape)}")
+        out = torch.empty((v, f), dtype=torch.float32, device=codes.device)
+        with torch.cuda.device(codes.device):
+            stream = torch.cuda.current_stream(codes.device).cuda_stream
+            err = _kernel("dequant_launch")(
+                _ptr(codes), _ptr(scales), _ptr(mins), _ptr(out), v, f,
+                CODE_BYTES[codes.dtype], ctypes.c_void_p(stream))
+            dequant.launches += 1
+        _raise_on(err, "dequant")
+        return out
 
 
 dequant_spmm.launches = 0

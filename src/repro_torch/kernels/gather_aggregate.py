@@ -17,7 +17,8 @@ Each wrapper counts its kernel launches in a plain integer attribute
 so a caller can show that a run really went through the kernel. A launch
 over a :class:`RowSubset` (``row_subset``: the rows of some 128-row
 blocks, for a frontier query) counts there too, and also in
-``block_spmm.subset_launches``.
+``block_spmm.subset_launches``. While a profiler records, each call is
+the span ``fog.kernel.<wrapper>`` (``runtime.trace``).
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.runtime.trace import span
 
 BLOCK = 128  # adjacency tile edge
 
@@ -455,23 +457,24 @@ def block_spmm(blocks: torch.Tensor, block_cols: torch.Tensor,
     as ``rows`` computes only its rows (each bitwise the full product's)
     and returns the others as zeros, on either device.
     """
-    _check_operands(blocks, block_cols, block_mask, h, False, max_col)
-    if rows is not None:
-        _check_rows(rows, blocks, h)
-    if h.device.type == "cpu":
-        if isinstance(rows, RowSubset):
-            return ref.block_spmm_subset_ref(blocks, block_cols, block_mask,
-                                             h, rows.blocks)
-        return ref.block_spmm_ref(blocks, block_cols, block_mask, h)
-    if h.device.type != "cuda":
-        raise ValueError(f"block_spmm runs on cuda or cpu, not {h.device}")
-    if rows is None:
-        raise ValueError(_NEEDS_ROWS.format("block_spmm"))
-    out = _out(rows, (rows.n_rows, h.shape[1]), h.device)
-    err = _launch("block_spmm_launch", rows, (h,), out)
-    _count(block_spmm, rows)
-    _raise_on(err, "block_spmm")
-    return out
+    with span("kernel.block_spmm"):
+        _check_operands(blocks, block_cols, block_mask, h, False, max_col)
+        if rows is not None:
+            _check_rows(rows, blocks, h)
+        if h.device.type == "cpu":
+            if isinstance(rows, RowSubset):
+                return ref.block_spmm_subset_ref(blocks, block_cols,
+                                                 block_mask, h, rows.blocks)
+            return ref.block_spmm_ref(blocks, block_cols, block_mask, h)
+        if h.device.type != "cuda":
+            raise ValueError(f"block_spmm runs on cuda or cpu, not {h.device}")
+        if rows is None:
+            raise ValueError(_NEEDS_ROWS.format("block_spmm"))
+        out = _out(rows, (rows.n_rows, h.shape[1]), h.device)
+        err = _launch("block_spmm_launch", rows, (h,), out)
+        _count(block_spmm, rows)
+        _raise_on(err, "block_spmm")
+        return out
 
 
 def block_spmm_batched(blocks: torch.Tensor, block_cols: torch.Tensor,
@@ -484,25 +487,27 @@ def block_spmm_batched(blocks: torch.Tensor, block_cols: torch.Tensor,
     batched kernel runs the serial kernel's per-example code. ``rows`` as
     for ``block_spmm`` (a row subset included).
     """
-    _check_operands(blocks, block_cols, block_mask, h, True, max_col)
-    if rows is not None:
-        _check_rows(rows, blocks, h)
-    if h.device.type == "cpu":
-        if isinstance(rows, RowSubset):
-            return ref.block_spmm_batched_subset_ref(
-                blocks, block_cols, block_mask, h, rows.blocks)
-        return ref.block_spmm_batched_ref(blocks, block_cols, block_mask, h)
-    if h.device.type != "cuda":
-        raise ValueError(f"block_spmm_batched runs on cuda or cpu, not "
-                         f"{h.device}")
-    if rows is None:
-        raise ValueError(_NEEDS_ROWS.format("block_spmm_batched"))
-    b, _, f = h.shape
-    out = _out(rows, (b, rows.n_rows, f), h.device)
-    err = _launch("block_spmm_batched_launch", rows, (h,), out, b)
-    _count(block_spmm_batched, rows)
-    _raise_on(err, "block_spmm_batched")
-    return out
+    with span("kernel.block_spmm_batched"):
+        _check_operands(blocks, block_cols, block_mask, h, True, max_col)
+        if rows is not None:
+            _check_rows(rows, blocks, h)
+        if h.device.type == "cpu":
+            if isinstance(rows, RowSubset):
+                return ref.block_spmm_batched_subset_ref(
+                    blocks, block_cols, block_mask, h, rows.blocks)
+            return ref.block_spmm_batched_ref(blocks, block_cols, block_mask,
+                                              h)
+        if h.device.type != "cuda":
+            raise ValueError(f"block_spmm_batched runs on cuda or cpu, not "
+                             f"{h.device}")
+        if rows is None:
+            raise ValueError(_NEEDS_ROWS.format("block_spmm_batched"))
+        b, _, f = h.shape
+        out = _out(rows, (b, rows.n_rows, f), h.device)
+        err = _launch("block_spmm_batched_launch", rows, (h,), out, b)
+        _count(block_spmm_batched, rows)
+        _raise_on(err, "block_spmm_batched")
+        return out
 
 
 block_spmm.launches = 0

@@ -30,7 +30,9 @@ the CPU); the gradient for ``w`` is a per-entry dot in plain PyTorch.
 
 The kernel counts its launches in ``segment_sum.launches``, raised by one
 at every launch and nowhere else; a launch for a gradient also raises
-``segment_sum.backward_launches``.
+``segment_sum.backward_launches``. While a profiler records, each sum
+(launch or plain version) is the span ``fog.kernel.segment_sum``
+(``runtime.trace``).
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.runtime.trace import span
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: C signature of segment_sum_launch: x, idx, w, order, offsets,
@@ -168,34 +171,38 @@ class Transposed:
 def _sum(x, order, offsets, idx, w, long, backward: bool = False):
     """The checked sum on x's device: the plain version on the CPU, the
     kernel (counted) on CUDA."""
-    if x.device.type == "cpu":
-        return ref.gather_segment_sum_ref(x, idx, offsets, order=order, w=w)
-    if x.device.type != "cuda":
-        raise ValueError(f"segment_sum runs on cuda or cpu, not {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"segment_sum on cuda takes float32, got {x.dtype}")
-    long_ids = offsets.new_zeros(0) if long is None else long.ids
-    threshold = 0 if long is None else long.threshold
-    v = offsets.shape[0] - 1
-    feats = 1 if x.ndim == 1 else x.shape[1]
-    xc, ic, oc, fc, lc = (t.contiguous() for t in (x, idx, order, offsets,
-                                                   long_ids))
-    wc = None if w is None else w.contiguous()
-    out = torch.empty((v,) + tuple(x.shape[1:]), dtype=x.dtype,
-                      device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _kernel()(_P(xc.data_ptr()), _P(ic.data_ptr()),
-                        _P(None if wc is None else wc.data_ptr()),
-                        _P(oc.data_ptr()), _P(fc.data_ptr()),
-                        _P(lc.data_ptr()), lc.shape[0], threshold,
-                        _P(out.data_ptr()), v, feats, _P(stream))
-        segment_sum.launches += 1
-        if backward:
-            segment_sum.backward_launches += 1
-    if err != 0:
-        raise RuntimeError(f"segment_sum launch failed: cudaError {err}")
-    return out
+    with span("kernel.segment_sum"):
+        if x.device.type == "cpu":
+            return ref.gather_segment_sum_ref(x, idx, offsets, order=order,
+                                              w=w)
+        if x.device.type != "cuda":
+            raise ValueError(f"segment_sum runs on cuda or cpu, not "
+                             f"{x.device}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"segment_sum on cuda takes float32, got "
+                            f"{x.dtype}")
+        long_ids = offsets.new_zeros(0) if long is None else long.ids
+        threshold = 0 if long is None else long.threshold
+        v = offsets.shape[0] - 1
+        feats = 1 if x.ndim == 1 else x.shape[1]
+        xc, ic, oc, fc, lc = (t.contiguous() for t in (x, idx, order, offsets,
+                                                       long_ids))
+        wc = None if w is None else w.contiguous()
+        out = torch.empty((v,) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = _kernel()(_P(xc.data_ptr()), _P(ic.data_ptr()),
+                            _P(None if wc is None else wc.data_ptr()),
+                            _P(oc.data_ptr()), _P(fc.data_ptr()),
+                            _P(lc.data_ptr()), lc.shape[0], threshold,
+                            _P(out.data_ptr()), v, feats, _P(stream))
+            segment_sum.launches += 1
+            if backward:
+                segment_sum.backward_launches += 1
+        if err != 0:
+            raise RuntimeError(f"segment_sum launch failed: cudaError {err}")
+        return out
 
 
 class _SegmentSum(torch.autograd.Function):

@@ -85,6 +85,7 @@ from repro_torch.kernels.gather_aggregate import (BLOCK, RowSubset, TileRows,
                                                   compact_block_csr,
                                                   row_subset)
 from repro_torch.runtime import dist as fog_dist
+from repro_torch.runtime.trace import span
 
 #: legal values of the Engine/Session ``aggregation`` knob.
 AGGREGATIONS = ("segment_sum", "pallas", "auto")
@@ -678,13 +679,14 @@ def _exchange(h: torch.Tensor, lay: _Layout, fogs: _Fogs,
     codes and its [.., n*B] scales and mins. Folded, a gather of rows of
     ``h``; on a rank, its own [.., B, F] rows (or their codes, scales and
     mins) cross the wire in one ``all_gather`` each."""
-    hb = h[..., lay.boundary_index, :] * lay.boundary_mask   # [.., m*B, F]
-    if fogs.group is None:
-        return _wire_quantize(hb) if quant else (hb,)
-    if quant:   # codes [.., B, F]; scales and mins [.., B]
-        return tuple(fog_dist.gather_rows(_wire_quantize(hb), (-2, -1, -1),
-                                          fogs.group.group))
-    return tuple(fog_dist.gather_rows((hb,), (-2,), fogs.group.group))
+    with span("exchange"):
+        hb = h[..., lay.boundary_index, :] * lay.boundary_mask  # [.., m*B, F]
+        if fogs.group is None:
+            return _wire_quantize(hb) if quant else (hb,)
+        if quant:   # codes [.., B, F]; scales and mins [.., B]
+            return tuple(fog_dist.gather_rows(
+                _wire_quantize(hb), (-2, -1, -1), fogs.group.group))
+        return tuple(fog_dist.gather_rows((hb,), (-2,), fogs.group.group))
 
 
 def _kernel_sum(pg: PartitionedGraph, h: torch.Tensor, lay: _Layout,
@@ -709,8 +711,9 @@ def _kernel_sum(pg: PartitionedGraph, h: torch.Tensor, lay: _Layout,
                loc.reshape(lead + (local.src_rows, f)), rows=l_rows,
                max_col=local.max_col)
     if stale is not None:
-        hb = stale.expand(lead + stale.shape)
-        wire = _wire_quantize(hb) if halo_quant else (hb,)
+        with span("exchange"):
+            hb = stale.expand(lead + stale.shape)
+            wire = _wire_quantize(hb) if halo_quant else (hb,)
     else:
         wire = _exchange(h, lay, fogs, halo_quant)
     if halo_quant:
@@ -807,39 +810,45 @@ def _run_layers(params, kind: str, pg: PartitionedGraph, h: torch.Tensor,
     slots = pg.slots
     outs = []
     for li, p in enumerate(params):
-        last = li == len(params) - 1
-        halo_l = None if stale is None else stale[li]
-        if use_kernels:
-            subsets = merge = None
-            if frontier:
-                blocks = _dirty_blocks(pg, local, dirty[li])
-                subsets = (row_subset(local.rows, blocks),
-                           row_subset(halo.rows, blocks))
-                merge = _block_rows(pg, fogs, local, subsets[0])
-            a_sum = _kernel_sum(pg, h, lay, local, halo, halo_quant,
-                                subsets, halo_l, fogs)
-            h_new = apply_layer_with_sum(
-                kind, p, fogs.spread(h, slots), edges,
-                fogs.spread(a_sum, slots), last=last)
-        else:
-            edges_l, merge = edges, None
-            if frontier:
-                merge = torch.as_tensor(dirty[li], device=device)
-                edges_l = edges.into(fogs.spread(merge, slots, -1))
-            if exchange == "allgather":
-                h_src = (h if fogs.group is None else fog_dist.gather_rows(
-                    (h,), (-2,), fogs.group.group)[0])
+        with span("layer"):
+            last = li == len(params) - 1
+            halo_l = None if stale is None else stale[li]
+            if use_kernels:
+                subsets = merge = None
+                if frontier:
+                    blocks = _dirty_blocks(pg, local, dirty[li])
+                    subsets = (row_subset(local.rows, blocks),
+                               row_subset(halo.rows, blocks))
+                    merge = _block_rows(pg, fogs, local, subsets[0])
+                a_sum = _kernel_sum(pg, h, lay, local, halo, halo_quant,
+                                    subsets, halo_l, fogs)
+                h_new = apply_layer_with_sum(
+                    kind, p, fogs.spread(h, slots), edges,
+                    fogs.spread(a_sum, slots), last=last)
             else:
-                hb = (_exchange(h, lay, fogs, False)[0]
-                      if halo_l is None else halo_l)
-                h_src = torch.cat([fogs.spread(h, slots), hb])
-            kwargs = {"activation": None} if last else {}
-            h_new = layer_fn(p, fogs.spread(h, slots), edges_l, h_src=h_src,
-                             **kwargs)
-        # keep padded rows at zero
-        h_new = fogs.own(h_new, slots) * lay.vertex_mask
-        h = (h_new if merge is None
-             else torch.where(merge[:, None], h_new, cached[li]))
+                edges_l, merge = edges, None
+                if frontier:
+                    merge = torch.as_tensor(dirty[li], device=device)
+                    edges_l = edges.into(fogs.spread(merge, slots, -1))
+                if exchange == "allgather":
+                    with span("exchange"):
+                        h_src = (h if fogs.group is None
+                                 else fog_dist.gather_rows(
+                                     (h,), (-2,), fogs.group.group)[0])
+                else:
+                    if halo_l is None:
+                        hb = _exchange(h, lay, fogs, False)[0]
+                    else:
+                        with span("exchange"):   # the stale table's read
+                            hb = halo_l
+                    h_src = torch.cat([fogs.spread(h, slots), hb])
+                kwargs = {"activation": None} if last else {}
+                h_new = layer_fn(p, fogs.spread(h, slots), edges_l,
+                                 h_src=h_src, **kwargs)
+            # keep padded rows at zero
+            h_new = fogs.own(h_new, slots) * lay.vertex_mask
+            h = (h_new if merge is None
+                 else torch.where(merge[:, None], h_new, cached[li]))
         outs.append(h)
     return outs
 
@@ -862,18 +871,43 @@ def _block_rows(pg: PartitionedGraph, fogs: _Fogs, local: _FoldedCsr,
     return mask.reshape(-1)
 
 
+def _with_features(pg: PartitionedGraph, feats: np.ndarray
+                   ) -> PartitionedGraph:
+    """``pg`` with a query's [V, F] features scattered into its slots:
+    the host half of a query's staging (``_local_feats`` the device
+    half)."""
+    with span("stage"), span("scatter"):
+        return pg.with_features(feats)
+
+
 def _local_feats(pg: PartitionedGraph, fogs: _Fogs,
                  device: torch.device) -> torch.Tensor:
     """The held shards' features as one folded [m*P, F] table."""
-    h = torch.as_tensor(fogs.pick(pg.feats), device=device)
-    return h.reshape(fogs.m * pg.slots, -1)
+    with span("stage"), span("h2d"):
+        h = torch.as_tensor(fogs.pick(pg.feats), device=device)
+        return h.reshape(fogs.m * pg.slots, -1)
+
+
+def _device_stack(stack: np.ndarray, fogs: _Fogs,
+                  device: torch.device) -> torch.Tensor:
+    """A host [n, B, P, F] table as the held shards' [B, m*P, F] stack on
+    ``device``."""
+    with span("h2d"):
+        return _gathered_stack(torch.as_tensor(fogs.pick(stack),
+                                               device=device))
 
 
 def _local_stack(pg: PartitionedGraph, feats: np.ndarray, fogs: _Fogs,
                  device: torch.device) -> torch.Tensor:
     """A [B, V, F] micro-batch as the held shards' [B, m*P, F] stack."""
-    stack = pg.feature_stack(np.asarray(feats, np.float32))
-    return _gathered_stack(torch.as_tensor(fogs.pick(stack), device=device))
+    with span("stage"):
+        with span("scatter"):
+            stack = pg.feature_stack(np.asarray(feats, np.float32))
+        h = _device_stack(stack, fogs, device)
+        # freeing the fresh host table takes milliseconds at full scale,
+        # with the card idle: it is staging's cost, so inside the span
+        del stack
+        return h
 
 
 def _all_rows(fogs: _Fogs, device: torch.device, run
@@ -933,10 +967,13 @@ def bsp_apply_many(params, kind: str, pg: PartitionedGraph,
     device = torch.device(device)
     fogs = _fogs(pg, group, device)
     feat_stack = np.asarray(feat_stack)
-    out = _all_rows(fogs, device, lambda: _run_layers(
-        params, kind, pg, _gathered_stack(torch.as_tensor(
-            fogs.pick(feat_stack), device=device)), exchange, aggregation,
-        halo_quant, fogs=fogs)[-1:])[0]
+
+    def run():
+        with span("stage"):
+            h = _device_stack(feat_stack, fogs, device)
+        return _run_layers(params, kind, pg, h, exchange, aggregation,
+                           halo_quant, fogs=fogs)[-1:]
+    out = _all_rows(fogs, device, run)[0]
     return out.reshape(feat_stack.shape[1], pg.n, pg.slots, -1).movedim(0, 1)
 
 
@@ -946,7 +983,7 @@ def _partitioned(g: Graph, assignment: np.ndarray, kind: str, exchange: str,
     """``pg`` with ``g``'s features, or a layout built from
     ``assignment``."""
     if pg is not None:
-        return pg.with_features(g.features)
+        return _with_features(pg, g.features)
     mode = resolve_aggregation(aggregation, kind, exchange=exchange,
                                device=device)
     return build_partitioned(g, assignment, build_blocks=mode == "pallas")
@@ -999,8 +1036,9 @@ def _unfold(pg: PartitionedGraph, fogs: _Fogs, device: torch.device, run
     """``run()``'s held-shard tables [.., m*P, F_l] -> numpy in original
     vertex order (on a rank, the whole result; see ``_all_rows``)."""
     outs = _all_rows(fogs, device, run)
-    idx = _layout(pg, device, fogs).result_index
-    return [o[..., idx, :].cpu().numpy() for o in outs]
+    with span("unfold"):
+        idx = _layout(pg, device, fogs).result_index
+        return [o[..., idx, :].cpu().numpy() for o in outs]
 
 
 def bsp_infer_capture(params, kind: str, g: Graph, assignment: np.ndarray,
@@ -1089,7 +1127,7 @@ def bsp_infer_stale(params, kind: str, feats: np.ndarray,
     gather of the results.
     """
     device = torch.device(device)
-    pg = pg.with_features(np.asarray(feats, np.float32))
+    pg = _with_features(pg, np.asarray(feats, np.float32))
     fogs = _fogs(pg, group, device)
     return _unfold(pg, fogs, device, lambda: [_stale_run(
         params, kind, pg, _local_feats(pg, fogs, device), halo_tables,
@@ -1154,7 +1192,7 @@ def bsp_infer_frontier(params, kind: str, feats: np.ndarray,
     cached tables are cut to its rows.
     """
     device = torch.device(device)
-    pg = pg.with_features(np.asarray(feats, np.float32))
+    pg = _with_features(pg, np.asarray(feats, np.float32))
     fogs = _fogs(pg, group, device)
 
     def run():
