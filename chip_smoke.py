@@ -113,7 +113,19 @@ Phases, in order; any failed check raises and the script exits non-zero:
                 sensors, on SIoT and the mesh's local and halo operands, B
                 = 1 and 8: the listed rows bitwise the full launch's, the
                 others 0, held to the rows plain version in float64 and
-                timed beside the full launch.
+                timed beside the full launch;
+                stage_rows (the batched mesh path's staging gather) at the
+                benchmark's two folded shapes, B = 8: GAT's RMAT-40k (F =
+                32) on six fogs cut by capability-weighted ``bgp`` (no
+                plan compiled; a P near the cell's) and the mesh's SIoT
+                layout (F = 52), and F = 7 at B = 3 (the scalar path): bitwise the
+                plain version and the host scatter it replaced, one launch
+                a call; timed beside the plain version, a library
+                ``index_select`` and the replaced host scatter + H2D (host
+                clock). On every path of phases 3-3k its launches must
+                equal the path's batched mesh calls (``STAGED_CALLS``,
+                counted on ``bsp``), and the mesh and mesh-segment paths
+                must make some; not tallied on phase 3l's ranks.
   3. main     serves GCN and SAGE [52, 64, 2] through
               ``Engine(..., executor="sim", aggregation="pallas",
               device="cuda")`` on full-scale SIoT: a few ``query()`` calls
@@ -909,6 +921,99 @@ def wire_codes(bsp, gen, rng, batch: int, rows: int, real_rows: int,
     sc[:, :real_rows] = rng.uniform(0.5, 1.5, (batch, real_rows)) / 65535
     mn[:, :real_rows] = -rng.uniform(0.0, 1.0, (batch, real_rows))
     return tuple(torch.as_tensor(x).cuda() for x in (codes, sc, mn))
+
+
+def gat_mesh_layout(datasets, bsp):
+    """A folded layout of the benchmark's GAT cell's source shape, RMAT-40k
+    (F = 32) on the six fogs 1A+4B+1C, and the seconds it took: ``bgp``
+    cuts the graph in shares of the fogs' capabilities, which gives a slot
+    count P near the cell's placement's without that placement's
+    profiling of every fog (~19 s)."""
+    from repro_torch.core import partition, simulation
+    t0 = time.perf_counter()
+    g = datasets.load("rmat-40k", 1.0, seed=0)
+    caps = np.array([simulation.NODE_CAPABILITY[t] for t in
+                     simulation.parse_cluster_spec("1A+4B+1C")])
+    assignment = partition.bgp(g, len(caps), weights=caps / caps.sum())
+    pg = bsp.build_partitioned(g, assignment, build_blocks=False)
+    return pg, time.perf_counter() - t0
+
+
+def stage_bound(batch: int, src_rows: int, rows: int, f: int) -> tuple:
+    """Least time (ms) of one staging gather: the source stack read once,
+    the map read once and the output written once, at the HBM rate (no
+    arithmetic)."""
+    nbytes = 4 * (batch * (src_rows + rows) * f + rows)
+    return nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"
+
+
+def stage_rows_cases(sr, ref, bsp, layouts) -> dict:
+    """Phase 2, the staging gather (``kernels.stage_rows``) at the folded
+    layouts ``layouts`` ((name, PartitionedGraph, F) each: the shapes of
+    the benchmark's GAT cell at F = 32 and its GCN cell at F = 52, B = 8), plus F = 7 at B
+    = 3 (the scalar path) on the last: bitwise the plain version and the
+    host form it replaced (``feature_stack``'s scatter, the H2D and the
+    fold); one launch a call. Times: the kernel, the plain version (a
+    ``cat`` and an ``index_select``), the library's ``index_select`` alone
+    over a source with its zero row already appended, and the replaced
+    host form on the host clock (ending in a sync)."""
+    cases = []
+    shapes = [(name, pg, f, BATCH) for name, pg, f in layouts]
+    shapes.append((layouts[-1][0], layouts[-1][1], 7, 3))
+    dev = torch.device("cuda")
+    for name, pg, f, b in shapes:
+        row_src = bsp._layout(pg, dev).row_src
+        rng = np.random.default_rng(f * 100 + b)
+        feats = rng.normal(size=(b, len(pg.part_of), f)).astype(np.float32)
+        x = torch.as_tensor(feats, device=dev)
+        before = sr.stage_rows.launches
+        got = sr.stage_rows(x, row_src)
+        if sr.stage_rows.launches != before + 1:
+            raise AssertionError("stage_rows: not one launch a call")
+        want = ref.stage_rows_ref(x, row_src)
+        old = bsp._gathered_stack(torch.as_tensor(pg.feature_stack(feats),
+                                                  device=dev))
+        for what, other in (("plain version", want), ("host scatter", old)):
+            if not torch.equal(got.view(torch.int32),
+                               other.view(torch.int32)):
+                raise AssertionError(f"stage_rows {name} F={f} B={b}: not "
+                                     f"bitwise the {what}")
+        padded = torch.cat([x, x.new_zeros((b, 1, f))], 1)
+        idx = torch.where(row_src < 0, x.shape[1], row_src).long()
+        reps = 50
+
+        def host_form():
+            h = bsp._gathered_stack(torch.as_tensor(pg.feature_stack(feats),
+                                                    device=dev))
+            torch.cuda.synchronize()
+            return h
+        host_form()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            host_form()
+        host_ms = (time.perf_counter() - t0) / 5 * 1e3
+        bound_ms, bound_by = stage_bound(b, x.shape[1], row_src.shape[0], f)
+        rec = {"path": "mesh" if f != 7 else "scalar", "layout": name,
+               "B": b, "F": f, "src_rows": int(x.shape[1]),
+               "rows": int(row_src.shape[0]), "slots": pg.slots,
+               "ms": time_ms(lambda: sr.stage_rows(x, row_src), reps),
+               "plain_ms": time_ms(lambda: ref.stage_rows_ref(x, row_src),
+                                   reps),
+               "library_ms": time_ms(lambda: padded.index_select(1, idx),
+                                     reps),
+               "replaced_host_ms": host_ms,
+               "host_us": host_us(lambda: sr.stage_rows(x, row_src)),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "max_abs_err": 0.0}
+        rec["roofline_pct"] = 100.0 * bound_ms / rec["ms"]
+        cases.append(rec)
+        log(f"  stage_rows {name} B={b} F={f}: [{b}, {rec['src_rows']}, {f}]"
+            f" -> [{b}, {rec['rows']}, {f}] {rec['ms']:.4f} ms (bound "
+            f"{bound_ms:.4f}, {rec['roofline_pct']:.1f} %), plain "
+            f"{rec['plain_ms']:.4f}, index_select {rec['library_ms']:.4f}, "
+            f"the replaced host scatter + H2D {host_ms:.2f} ms; wrapper "
+            f"{rec['host_us']:.1f} us")
+    return {"stage_rows": {"cases": cases}}
 
 
 def dequant_cases(ga, dq, ref, bsp, halo, halo_real_rows: int):
@@ -4319,6 +4424,29 @@ class plain_calls:
         self.ref.gather_segment_sum_ref = self.saved
 
 
+#: The mesh executor's batched calls (``runtime.bsp``), each of which
+#: stages its micro-batch with one ``stage_rows`` launch (``_local_stack``).
+STAGED_CALLS = ("bsp_infer_many", "bsp_infer_capture_many",
+                "bsp_infer_stale_many", "bsp_infer_frontier_many")
+
+
+class StagedCalls:
+    """Counts the calls of ``STAGED_CALLS``, each replaced on ``bsp`` by a
+    counting wrapper for the rest of the script (the executors call them
+    through the module)."""
+
+    def __init__(self, bsp):
+        self.calls = 0
+        for name in STAGED_CALLS:
+            setattr(bsp, name, self._counted(getattr(bsp, name)))
+
+    def _counted(self, fn):
+        def counted(*a, **kw):
+            self.calls += 1
+            return fn(*a, **kw)
+        return counted
+
+
 def flat_params(params):
     """(per-layer dicts of fresh leaf tensors that want gradients, their
     flat list)."""
@@ -5614,6 +5742,7 @@ def main() -> int:
     from repro_torch.kernels import gather_aggregate as ga
     from repro_torch.kernels import recurrence as rc
     from repro_torch.kernels import segment_sum as sg
+    from repro_torch.kernels import stage_rows as sr
     from repro_torch.launch import serve as sv
     from repro_torch.models import transformer as tf
     from repro_torch.runtime import bsp
@@ -5692,6 +5821,12 @@ def main() -> int:
     results = kernel_cases(ga, ref, csr, g, local)
     results.update(dequant_cases(ga, dq, ref, bsp, halo,
                                  pg.n * pg.boundary_slots))
+    gat_pg, gat_layout_s = gat_mesh_layout(datasets, bsp)
+    log(f"  GAT-shaped mesh layout: RMAT-40k, P={gat_pg.slots} slots "
+        f"({gat_layout_s:.2f} s)")
+    staging = stage_rows_cases(sr, ref, bsp, [
+        ("gat-rmat40k", gat_pg, 32), ("gcn-siot", pg, g.feature_dim)])
+    del gat_pg
     n_rows, blocks_sim, blocks_mesh = subset_blocks(g, pg, local.out_rows,
                                                     frontier)
     log(f"  row subsets: the layer-1 frontier of {SUBSET_SENSORS} leaf "
@@ -5728,11 +5863,21 @@ def main() -> int:
     wrappers["rglru_scan_bwd"] = BackwardCount(rc.rglru_scan)
     kernels = [wrappers[n] for n in REPLACES]
     launches, backward = {}, {}
+    # The staging gather's launches by path: on every driven path, one a
+    # batched mesh call and none elsewhere.
+    batched, staged = StagedCalls(bsp), {}
 
     def zero():
         for kern in kernels:
             kern.launches = 0
         sg.segment_sum.backward_launches = 0
+        sr.stage_rows.launches = batched.calls = 0
+
+    def check_staged(path, n, calls):
+        if n != calls:
+            raise AssertionError(f"{path}: {n} stage_rows launches for "
+                                 f"{calls} batched mesh calls")
+        staged[path] = n
 
     def read():
         return ({n: kern.launches for n, kern in zip(REPLACES, kernels)},
@@ -5758,14 +5903,18 @@ def main() -> int:
         Returns each run's output and counts."""
         outs, per_run = [], []
         total, total_bwd = dict.fromkeys(REPLACES, 0), 0
+        n_staged = n_batched = 0
         for run in runs:
             zero()
             outs.append(run())
+            n_staged += sr.stage_rows.launches
+            n_batched += batched.calls
             counts, bwd = read()
             per_run.append(counts)
             total_bwd += bwd
             for name in total:
                 total[name] += counts[name]
+        check_staged(path, n_staged, n_batched)
         record(path, total, total_bwd)
         return outs, per_run
 
@@ -5774,6 +5923,7 @@ def main() -> int:
         just after; each kernel of the path must have launched."""
         zero()
         out = fn()
+        check_staged(path, sr.stage_rows.launches, batched.calls)
         record(path, *read())
         return out
 
@@ -5807,6 +5957,10 @@ def main() -> int:
         segment_gates(Engine, models, g, kind, "mesh-bsp", sg)
         for kind in SEGMENT_KINDS])
     del gcn_mesh, pg
+    for path in ("mesh", "mesh-segment"):
+        if not staged[path]:
+            raise AssertionError(f"stage_rows was never launched on the "
+                                 f"{path} path")
     for s in meshed:
         log(f"  {s['kind']} mesh: {s['fogs']} fogs, compile "
             f"{s['compile_s']:.2f} s, query {s['query_ms']:.1f} ms (first "
@@ -5956,6 +6110,20 @@ def main() -> int:
             else sum(c["library_ms"] for c in main_cases),
             **{k: v for k, v in rec.items() if k != "cases"},
             "cases": rec["cases"]})
+    stage_cases = staging["stage_rows"]["cases"]
+    kernel_rows.append({
+        "name": "stage_rows", "route": "cuda",
+        "source": CSRC + "stage_rows.cu",
+        "replaces": "not a TPU kernel: the host scatter of "
+                    "PartitionedGraph.feature_stack on the batched mesh "
+                    "path (src/repro/runtime/bsp.py)",
+        "launches": sum(staged.values()),
+        "launches_by_path": {p: n for p, n in staged.items() if n},
+        "max_abs_err": 0.0,
+        **{k: {c["layout"]: c[k] for c in stage_cases if c["path"] == "mesh"}
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                     "replaced_host_ms", "roofline_pct")},
+        "bound_by": "bytes", "cases": stage_cases})
     print(json.dumps({"fault_path": fault_rec}), flush=True)
     print(json.dumps({"compaction": compaction,
                       "main_path": served, "mesh_path": meshed,

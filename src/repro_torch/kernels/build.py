@@ -29,7 +29,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = {"block_spmm": "block_spmm.cu",
            "flash_attention": "flash_attention.cu",
            "recurrence": "recurrence.cu",
-           "segment_sum": "segment_sum.cu"}
+           "segment_sum": "segment_sum.cu",
+           "stage_rows": "stage_rows.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -243,6 +243,16 @@ def gather_segment_sum_ref(x: torch.Tensor, idx: torch.Tensor,
     return segment_sum_ref(terms, every, offsets)
 
 
+def stage_rows_ref(x: torch.Tensor, row_src: torch.Tensor) -> torch.Tensor:
+    """The staging row gather: x [B, S, F], row_src int32[R] -> [B, R, F]
+    with row r of every example x's row ``row_src[r]``, or +0.0 where it is
+    -1 (an ``index_select`` over x with a +0.0 row appended at index S)."""
+    b, s, f = x.shape
+    padded = torch.cat([x, x.new_zeros((b, 1, f))], 1)
+    idx = torch.where(row_src < 0, s, row_src).long()
+    return padded.index_select(1, idx)
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``, as JAX writes it: ``logaddexp(x, 0)`` =
     max(x, 0) + log1p(exp(-|x|))."""

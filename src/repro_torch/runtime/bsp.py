@@ -84,6 +84,7 @@ from repro_torch.kernels.gather_aggregate import (BLOCK, RowSubset, TileRows,
                                                   build_block_csr,
                                                   compact_block_csr,
                                                   row_subset)
+from repro_torch.kernels.stage_rows import stage_rows
 from repro_torch.runtime import dist as fog_dist
 from repro_torch.runtime.trace import span
 
@@ -568,6 +569,25 @@ class _Layout:
     boundary_index: torch.Tensor  # i64[m*B]: folded row of each halo row
     boundary_mask: torch.Tensor   # f32[m*B, 1]
     result_index: torch.Tensor    # i64[V]: row of each vertex in [n*P]
+    # i32[m*P]: the held vertex (its index among ``held``, or among all V
+    # when folded) that each folded row stages, -1 for a padded slot
+    row_src: torch.Tensor
+    held: Optional[np.ndarray]    # a rank's vertices in vertex order
+
+
+def _staging(pg: PartitionedGraph, fogs: _Fogs):
+    """(row_src, held) of the held shards: folded, row ``p*P + s`` stages
+    vertex v where (part_of[v], slot_of[v]) = (p, s); on a rank, its
+    vertices ``held`` (in vertex order) are staged at their slots."""
+    row_src = np.full(fogs.m * pg.slots, -1, np.int32)
+    if fogs.group is None:
+        held = None
+        rows = pg.part_of * pg.slots + pg.slot_of
+    else:
+        held = np.flatnonzero(pg.part_of == fogs.rank)   # none off-group
+        rows = pg.slot_of[held]
+    row_src[rows] = np.arange(len(rows), dtype=np.int32)
+    return row_src, held
 
 
 def _layout(pg: PartitionedGraph, device: torch.device,
@@ -576,6 +596,7 @@ def _layout(pg: PartitionedGraph, device: torch.device,
 
     def build():
         shard_rows = np.arange(fogs.m)[:, None] * pg.slots
+        row_src, held = _staging(pg, fogs)
         return _Layout(
             vertex_mask=torch.as_tensor(
                 fogs.pick(pg.vertex_mask).reshape(-1, 1), device=device),
@@ -585,7 +606,8 @@ def _layout(pg: PartitionedGraph, device: torch.device,
             boundary_mask=torch.as_tensor(
                 fogs.pick(pg.boundary_mask).reshape(-1, 1), device=device),
             result_index=torch.as_tensor(pg.part_of * pg.slots + pg.slot_of,
-                                         device=device))
+                                         device=device),
+            row_src=torch.as_tensor(row_src, device=device), held=held)
     return _on_device(pg, device, fogs.key("layout"), build)
 
 
@@ -899,15 +921,25 @@ def _device_stack(stack: np.ndarray, fogs: _Fogs,
 
 def _local_stack(pg: PartitionedGraph, feats: np.ndarray, fogs: _Fogs,
                  device: torch.device) -> torch.Tensor:
-    """A [B, V, F] micro-batch as the held shards' [B, m*P, F] stack."""
+    """A [B, V, F] micro-batch as the held shards' [B, m*P, F] stack: the
+    caller's rows (a rank's own, taken on the host) go to ``device`` as
+    they are, and one ``stage_rows`` gather lays them out in the folded
+    slots there, padded slots +0.0: the floats of ``feature_stack``'s
+    table, which is never built. The stack must hold the layout's V
+    vertices: the gather reads the rows ``row_src`` names unchecked."""
+    shape, v = np.shape(feats), len(pg.part_of)
+    if len(shape) != 3 or shape[1] != v:
+        raise ValueError(f"a micro-batch of this layout is a [B, {v}, F] "
+                         f"stack, got shape {shape}")
+    lay = _layout(pg, device, fogs)
     with span("stage"):
+        with span("h2d"):
+            feats = np.asarray(feats, np.float32)
+            if lay.held is not None:
+                feats = np.take(feats, lay.held, axis=1)
+            x = torch.as_tensor(feats, device=device)
         with span("scatter"):
-            stack = pg.feature_stack(np.asarray(feats, np.float32))
-        h = _device_stack(stack, fogs, device)
-        # freeing the fresh host table takes milliseconds at full scale,
-        # with the card idle: it is staging's cost, so inside the span
-        del stack
-        return h
+            return stage_rows(x.contiguous(), lay.row_src)
 
 
 def _all_rows(fogs: _Fogs, device: torch.device, run

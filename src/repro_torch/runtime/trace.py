@@ -16,8 +16,12 @@ The spans of the batched multi-fog path, outermost first (a batch is one
 
   fog.execute_many / fog.execute   ``api.session.Session`` call
   fog.stage                        host features -> the folded device table
-    fog.scatter                    numpy scatter into [n, (B,) P, F]
-    fog.h2d                        the host-to-device copy and the fold
+    fog.h2d                        the host-to-device copy (a batch: the
+                                   caller's [B, V, F] stack as it is)
+    fog.scatter                    the layout into the folded slots (a
+                                   batch: one ``stage_rows`` gather on the
+                                   device; a query: numpy into [n, P, F])
+      fog.kernel.stage_rows        that gather's wrapper
   fog.layer                        one BSP superstep (``bsp._run_layers``)
     fog.exchange                   one sync, or the stale table read
     fog.kernel.<wrapper>           one call of a hand-written kernel's

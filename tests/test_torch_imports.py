@@ -65,8 +65,8 @@ def test_port_has_the_slice_modules():
               "core.simulation", "kernels.gather_aggregate", "kernels.ref",
               "kernels.daq_dequant", "kernels.ops", "kernels.build",
               "kernels.flash_attention", "kernels.segment_sum",
-              "kernels.recurrence", "models.moe", "models.ssm",
-              "runtime.bsp", "models.config",
+              "kernels.recurrence", "kernels.stage_rows", "models.moe",
+              "models.ssm", "runtime.bsp", "models.config",
               "models.layers", "models.attention", "models.transformer",
               "configs.registry", "configs.qwen1_5_0_5b", "launch.serve",
               "runtime.serving", "api.demo", "data.pipeline",
@@ -79,7 +79,7 @@ def test_port_has_the_slice_modules():
     assert "repro_torch.analysis.hlo" not in mods
     assert "repro_torch.launch.hlo_analysis" not in mods
     for src in ("block_spmm.cu", "flash_attention.cu", "segment_sum.cu",
-                "recurrence.cu"):
+                "recurrence.cu", "stage_rows.cu"):
         assert (PORT / "kernels" / "csrc" / src).is_file()
     for name in EXAMPLES:
         assert ROOT / "examples" / name in FILES, name

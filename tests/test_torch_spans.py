@@ -2,9 +2,9 @@
 ``mesh-bsp`` serving path, on the CPU.
 
 Under ``torch.profiler`` a served batch records the documented ``fog.*``
-spans and no others, each nested where its layer sits (stage, scatter and
-H2D; one span a BSP superstep with its exchange and kernel calls inside;
-the unfold), in the counts the code runs them: on the segment path one
+spans and no others, each nested where its layer sits (stage: the H2D,
+then the scatter with its one ``stage_rows`` gather inside; one span a
+BSP superstep with its exchange and kernel calls inside; the unfold), in the counts the code runs them: on the segment path one
 ``fog.layer`` an example and layer, on the kernel path one a layer.
 Without a profiler a span enters no ``record_function``, and the answers
 are bitwise the same either way.
@@ -18,18 +18,21 @@ import torch
 from repro_torch.api import Engine
 from repro_torch.gnn import datasets as tdata
 from repro_torch.gnn import models as tmodels
-from repro_torch.kernels import daq_dequant, gather_aggregate, segment_sum
+from repro_torch.kernels import (daq_dequant, gather_aggregate, segment_sum,
+                                 stage_rows)
 from repro_torch.runtime import trace
 
 from _torch_threads import one_cpu_thread  # noqa: F401  (autouse)
 
 K, B = 2, 3
+#: the kernels a superstep calls, then those staging calls (once a batch).
 KERNELS = ("block_spmm", "block_spmm_batched", "dequant_spmm",
            "dequant_spmm_batched", "dequant", "segment_sum")
+STAGE_KERNELS = ("stage_rows",)
 DOCUMENTED = {"fog." + n for n in ("execute_many", "execute", "stage",
                                    "scatter", "h2d", "layer", "exchange",
                                    "unfold")} | {
-    "fog.kernel." + k for k in KERNELS}
+    "fog.kernel." + k for k in KERNELS + STAGE_KERNELS}
 #: (kind, compressor, aggregation, kernel spans a superstep runs)
 PATHS = [("gat", "none", "segment_sum", {"segment_sum": 2}),
          ("gcn", "none", "segment_sum", {"segment_sum": 1}),
@@ -40,7 +43,8 @@ COUNTERS = [(gather_aggregate.block_spmm, "launches"),
             (gather_aggregate.block_spmm_batched, "launches"),
             (daq_dequant.dequant_spmm, "launches"),
             (daq_dequant.dequant_spmm_batched, "launches"),
-            (segment_sum.segment_sum, "launches")]
+            (segment_sum.segment_sum, "launches"),
+            (stage_rows.stage_rows, "launches")]
 
 
 @functools.lru_cache(maxsize=None)
@@ -103,15 +107,23 @@ def test_batch_spans_nest_by_layer(path):
             assert len(inside) == 1, name
         if name in ("fog.scatter", "fog.h2d"):
             assert parent[2] == "fog.stage", name
-        if name == "fog.exchange" or name.startswith("fog.kernel."):
+        if name in ["fog.kernel." + k for k in STAGE_KERNELS]:
+            assert parent[2] == "fog.scatter", name
+        elif name == "fog.exchange" or name.startswith("fog.kernel."):
             assert parent[2] == "fog.layer", name
     steps = K * B if agg == "segment_sum" else K
     assert _count(spans, "fog.layer") == steps
     assert _count(spans, "fog.exchange") == steps
-    for one in ("fog.stage", "fog.scatter", "fog.h2d", "fog.unfold"):
+    for one in ("fog.stage", "fog.scatter", "fog.h2d", "fog.unfold",
+                "fog.kernel.stage_rows"):
         assert _count(spans, one) == 1, one
+    # the stage ships the stack, then lays it out on the device
+    (h2d,) = [s for s in spans if s[2] == "fog.h2d"]
+    (scatter,) = [s for s in spans if s[2] == "fog.scatter"]
+    assert h2d[1] <= scatter[0]
     kernels = {s[2] for s in spans if s[2].startswith("fog.kernel.")}
-    assert kernels == {"fog.kernel." + k for k in per_step}
+    stage = {"fog.kernel." + k for k in STAGE_KERNELS}
+    assert kernels - stage == {"fog.kernel." + k for k in per_step}
     for k, n in per_step.items():
         assert _count(spans, "fog.kernel." + k) == n * steps, k
 
@@ -127,6 +139,7 @@ def test_query_spans_stage_twice_and_run_each_layer_once():
     assert _count(spans, "fog.stage") == 2
     assert _count(spans, "fog.layer") == _count(spans, "fog.exchange") == K
     assert _count(spans, "fog.kernel.dequant_spmm") == K
+    assert _count(spans, "fog.kernel.stage_rows") == 0
     for span, parent in zip(spans, parents):
         if span[2] in ("fog.scatter", "fog.h2d"):
             assert parent[2] == "fog.stage"
