@@ -29,7 +29,7 @@ def control_excess(c, seed: int, device: str = "cuda", scale=None,
                    precision: str = "tf32") -> float:
     """The widest excess gap of the reference in ``precision`` on the
     graphs a run of cell ``c`` with ``seed`` would check."""
-    cfg, model = c.config, c.config["model"]
+    cfg = c.config
     dev = torch.device(device)
     g, params, stacks = run.draw(c, seed, dev, scale)
     sample = run.Sample(int(c.traffic["check_graphs"]), run.sample_rng(seed))
@@ -41,9 +41,9 @@ def control_excess(c, seed: int, device: str = "cuda", scale=None,
     worst = 0.0
     for _, feats in sample.items:
         x = torch.as_tensor(feats, device=dev)
-        want, slack = reference.forward(model["kind"], params, x, rg,
-                                        wire=wire, with_slack=True)
-        got = reference.forward(model["kind"], params, x, rg, wire=wire,
+        want, slack = reference.forward(c.gnn, params, x, rg, wire=wire,
+                                        with_slack=True)
+        got = reference.forward(c.gnn, params, x, rg, wire=wire,
                                 precision=precision)
         worst = max(worst, reference.excess(got, want, slack))
     return worst

@@ -1,5 +1,6 @@
-"""The yardstick's arithmetic: peaks of the card, operations a forward
-needs, and the least time of a kernel call.
+"""The yardstick's arithmetic: peaks of the card and the least time of a
+kernel call. The operations of a model's forward are its kind's file's
+(``bench/models/<kind>.py``, ``forward_flops``).
 
 Peaks are NVIDIA's data-sheet numbers of one H100 SXM at its 700 W limit
 (dense, no sparsity). ``bound_s`` is the roofline floor of
@@ -21,32 +22,6 @@ PEAK_BYTES_PER_S = 3.35e12
 def bound_s(nbytes: float, flops: float) -> float:
     """Least seconds for ``nbytes`` of traffic and ``flops`` operations."""
     return max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOP_PER_S)
-
-
-def forward_flops(kind: str, dims, vertices: int, edges: int) -> float:
-    """Operations of one full-graph forward (f32), counted from the edges
-    and the widths:
-
-    GCN a layer: the neighbour sum (one add an edge a feature), the self
-    add and the division (two a vertex a feature), the product
-    (2 V Fi Fo) and the bias.
-    GAT a layer: the product (2 V Fi Fo), the two attention scores
-    (2 V Fo each), then over the E + V edges with self loops the score,
-    leaky ReLU, max, subtraction, exponent, sum and division (7 an edge)
-    and the weighted messages (2 Fo an edge).
-    """
-    total = 0.0
-    for fi, fo in zip(dims[:-1], dims[1:]):
-        if kind == "gcn":
-            total += edges * fi + 2.0 * vertices * fi \
-                + 2.0 * vertices * fi * fo + vertices * fo
-        elif kind == "gat":
-            e = edges + vertices
-            total += 2.0 * vertices * fi * fo + 4.0 * vertices * fo \
-                + 7.0 * e + 2.0 * e * fo
-        else:
-            raise ValueError(kind)
-    return total
 
 
 def spmm_bytes_flops(nonzeros: int, src_rows: int, out_rows: int, f: int,

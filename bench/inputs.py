@@ -2,10 +2,11 @@
 and the sensor snapshots, made on the run's device in a few large calls,
 and the traffic's stacked micro-batches.
 
-Weights are Glorot draws laid out as the port's per-layer dicts (GCN:
-``w``, ``b``; GAT: ``w``, ``att_src``, ``att_dst``). A snapshot is one
-reading of every sensor: every row is drawn anew, so every vertex is
-dirty. The configuration names the snapshot's kind:
+Weights are Glorot draws laid out as the port's per-layer dicts, in the
+order and shapes the model kind's file gives (``bench/models/<kind>.py``,
+``weight_shapes``). A snapshot is one reading of every sensor: every row
+is drawn anew, so every vertex is dirty. The configuration names the
+snapshot's kind:
 
   ``onehot_blocks``  categorical attributes, one-hot in ``blocks`` equal
                      blocks (SIoT's device type / brand / mobility fields)
@@ -34,31 +35,15 @@ def generators(seed: int, device) -> Tuple[torch.Generator,
             np.random.default_rng(seed))
 
 
-def weight_shapes(kind: str, dims: Sequence[int]):
-    """[(layer, name, shape, glorot limit)] in draw order."""
-    out = []
-    for li, (fi, fo) in enumerate(zip(dims[:-1], dims[1:])):
-        out.append((li, "w", (fi, fo), math.sqrt(6.0 / (fi + fo))))
-        if kind == "gat":
-            lim = math.sqrt(6.0 / (1 + fo))
-            out.append((li, "att_src", (1, fo), lim))
-            out.append((li, "att_dst", (1, fo), lim))
-        elif kind == "gcn":
-            out.append((li, "b", (fo,), 0.0))
-        else:
-            raise ValueError(f"unknown GNN kind {kind!r}")
-    return out
-
-
-def make_weights(kind: str, dims: Sequence[int],
+def make_weights(shapes: Sequence[Tuple[int, str, tuple, float]],
                  gen: torch.Generator) -> List[dict]:
-    """One uniform draw for every weight, cut into the per-layer dicts;
+    """One uniform draw for every weight of ``shapes`` ([(layer, name,
+    shape, glorot limit)] in draw order), cut into the per-layer dicts;
     a bias is zero (its limit)."""
-    shapes = weight_shapes(kind, dims)
     sizes = [math.prod(s) for _, _, s, _ in shapes]
     flat = torch.rand(sum(sizes), generator=gen, device=gen.device,
                       dtype=torch.float32) * 2.0 - 1.0
-    params = [{} for _ in range(len(dims) - 1)]
+    params = [{} for _ in range(1 + max(li for li, _, _, _ in shapes))]
     for (li, name, shape, lim), part in zip(shapes, flat.split(sizes)):
         params[li][name] = (part * lim).reshape(shape).clone()
     return params

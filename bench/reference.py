@@ -3,27 +3,24 @@
 Plain PyTorch over the benchmark's own arrays: the graph from
 ``graphgen``, the weights and snapshots that ``run.py`` draws from the
 seed. It imports nothing of the program and reads nothing the program
-made. It follows Table I of the paper as the port states it
-(``gnn/layers.py``):
+made. A model kind's layer lives in its own file (``bench/models/<kind>.py``,
+``layer``), which follows Table I of the paper as the port states it
+(``gnn/layers.py``); ``forward`` runs the layers, with no activation after
+the last one.
 
-  GCN  a_v = sum_{u in N(v)} h_u;
-       h_v' = relu(((a_v + h_v) / (|N(v)| + 1)) W + b)
-  GAT  e_vu = leaky_relu(a_src . W h_u + a_dst . W h_v, 0.2) over N(v) u {v},
-       alpha = softmax_u(e_vu);  h_v' = elu(sum_u alpha_vu W h_u)
-
-with no activation after the last layer. With ``wire`` (the 8-bit halo
-wire of a DAQ plan) a message whose source and receiver sit on different
-fogs carries the source row quantized per row to uint8 codes with one f32
-(scale, min) pair, rounding half to even, the arithmetic done in f32 as
-the wire does it; every other message is exact.
+With ``wire`` (the 8-bit halo wire of a DAQ plan) a message whose source
+and receiver sit on different fogs carries the source row quantized per
+row to uint8 codes with one f32 (scale, min) pair, rounding half to even,
+the arithmetic done in f32 as the wire does it; every other message is
+exact. A kind models the wire only where its file has ``wire_slack``.
 
 The wire's rounding of a row is only as exact as the row: where the
 program's float32 layer input and the reference's differ in the last bit
 and a value sits on a code's rounding edge, either code is right. Layer 1
 reads the snapshot itself, the same floats on both sides, so its codes
-agree; for the last layer, which is linear in its messages, ``slack``
-bounds what those edge codes can move each output (``excess`` is the gap
-beyond it). The model has to be two layers deep for that.
+agree; for a last layer linear in its messages, ``slack`` bounds what
+those edge codes can move each output (``excess`` is the gap beyond it).
+The model has to be two layers deep for that.
 
 ``precision``: ``"float64"`` for the reference; ``"tf32"`` for the control,
 float32 with every matrix product's operands rounded to TF32 (10 explicit
@@ -33,10 +30,10 @@ device.
 """
 from __future__ import annotations
 
+from types import ModuleType
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -46,7 +43,7 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
     return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def _mm(a: torch.Tensor, b: torch.Tensor, tf32: bool) -> torch.Tensor:
+def mm(a: torch.Tensor, b: torch.Tensor, tf32: bool) -> torch.Tensor:
     if tf32:
         return tf32_round(a) @ tf32_round(b)
     return a @ b
@@ -91,7 +88,8 @@ EDGE = 1e-3
 
 def wire_slack(h: torch.Tensor, w: torch.Tensor, g: Graph,
                levels: float = 255.0) -> torch.Tensor:
-    """[V, D]: for the last GCN layer with input ``h`` and weight ``w``,
+    """[V, D]: for a last layer linear in its messages, with input ``h``
+    and weight ``w`` (a neighbour sum over ``|N(v)| + 1`` before ``w``),
     the most by which codes on a rounding edge (see ``EDGE``) can move
     each output: one code step (the row's scale) through ``|w|`` for every
     such feature of every row that reaches the receiver over the wire."""
@@ -107,43 +105,20 @@ def wire_slack(h: torch.Tensor, w: torch.Tensor, g: Graph,
     return out / (g.deg.to(h.dtype) + 1.0)[:, None]
 
 
-def _gcn(p, h, g: Graph, last: bool, wire: bool, tf32: bool):
-    msg = h[g.s]
-    if wire:
-        msg = torch.where(g.cross[:, None], wire_roundtrip(h)[g.s], msg)
-    a = torch.zeros_like(h).index_add_(0, g.r, msg)
-    z = (a + h) / (g.deg.to(h.dtype) + 1.0)[:, None]
-    out = _mm(z, p["w"], tf32) + p["b"]
-    return out if last else torch.relu(out)
-
-
-def _gat(p, h, g: Graph, last: bool, tf32: bool):
-    wh = _mm(h, p["w"], tf32)
-    a_src = _mm(wh, p["att_src"].T, tf32)[:, 0]
-    a_dst = _mm(wh, p["att_dst"].T, tf32)[:, 0]
-    s, r = g.s_loop, g.r_loop
-    logits = F.leaky_relu(a_src[s] + a_dst[r], 0.2)
-    top = torch.full((g.v,), -torch.inf, dtype=h.dtype, device=h.device)
-    top = top.scatter_reduce(0, r, logits, "amax", include_self=False)
-    ex = torch.exp(logits - top[r])
-    den = torch.zeros(g.v, dtype=h.dtype, device=h.device).index_add_(0, r,
-                                                                       ex)
-    coef = ex / den[r]
-    out = torch.zeros((g.v, wh.shape[1]), dtype=h.dtype, device=h.device)
-    out.index_add_(0, r, wh[s] * coef[:, None])
-    return out if last else F.elu(out)
-
-
-def forward(kind: str, params: Sequence[dict], x: torch.Tensor, g: Graph, *,
-            wire: bool = False, precision: str = "float64",
+def forward(kind: ModuleType, params: Sequence[dict], x: torch.Tensor,
+            g: Graph, *, wire: bool = False, precision: str = "float64",
             with_slack: bool = False):
-    """[V, F] features -> [V, D] embeddings (and, ``with_slack``, the
-    wire's ``wire_slack`` of the last layer, zeros without the wire)."""
+    """[V, F] features -> [V, D] embeddings through the layers of ``kind``
+    (a model file, ``bench/models/<kind>.py``) and, ``with_slack``, the
+    wire's slack of the last layer (``kind.wire_slack``), zeros without
+    the wire."""
     if precision not in ("float64", "tf32"):
         raise ValueError(precision)
-    if wire and (kind != "gcn" or g.cross is None):
-        raise ValueError("the 8-bit wire is modelled for GCN with an "
-                         "assignment")
+    if wire and not hasattr(kind, "wire_slack"):
+        raise ValueError(f"{kind.__name__}: the 8-bit wire is modelled only "
+                         f"for a kind whose file has wire_slack")
+    if wire and g.cross is None:
+        raise ValueError("the 8-bit wire needs the fog assignment")
     if wire and len(params) != 2:
         raise ValueError("the wire's slack is modelled for two layers")
     tf32 = precision == "tf32"
@@ -153,12 +128,11 @@ def forward(kind: str, params: Sequence[dict], x: torch.Tensor, g: Graph, *,
     for li, p in enumerate(params):
         p = {k: v.to(dtype) for k, v in p.items()}
         last = li == len(params) - 1
-        if last and with_slack:
-            slack = (wire_slack(h, p["w"], g) if wire
-                     else torch.zeros((g.v, p["w"].shape[1]), dtype=dtype,
-                                      device=h.device))
-        h = (_gcn(p, h, g, last, wire, tf32) if kind == "gcn"
-             else _gat(p, h, g, last, tf32))
+        if last and with_slack and wire:
+            slack = kind.wire_slack(p, h, g)
+        h = kind.layer(p, h, g, last=last, wire=wire, tf32=tf32)
+    if with_slack and slack is None:
+        slack = torch.zeros_like(h)
     return (h, slack) if with_slack else h
 
 

@@ -6,13 +6,15 @@
 A cell (an entry of ``workloads`` in ``BENCHMARK.json``) names a
 configuration (``bench/configs/<name>.json``: graph, model, engine knobs,
 snapshot kind, the check's limit) and a traffic mix
-(``bench/traffic/<name>.json``). The run:
+(``bench/traffic/<name>.json``). The configuration's model kind brings its
+own file (``bench/models/<kind>.py``: the weights' layout, the reference's
+layer, the operations of a forward). The run:
 
 1. set-up: loads the graph (``graphgen``, cached under ``bench/.cache``),
-   draws the weights and a pool of sensor snapshots from ``--seed`` on the
-   card, cuts the traffic's micro-batches, compiles
-   ``Engine(...).compile(graph).session()`` and warms it up on the cell's
-   batch shape;
+   draws the weights (in the kind's layout) and a pool of sensor
+   snapshots from ``--seed`` on the card, cuts the traffic's
+   micro-batches, compiles ``Engine(...).compile(graph).session()`` and
+   warms it up on the cell's batch shape;
 2. window: closed loop, one stacked [B, V, F] micro-batch a call into
    ``Session.execute_many`` (the call ``Server._serve_batch`` makes) for
    ``--seconds``; every call returns host arrays, so it ends in a sync;
@@ -41,6 +43,7 @@ from types import SimpleNamespace  # noqa: E402
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
 CACHE = BENCH / ".cache"
+MODELS = BENCH / "models"
 #: top-level module names the run may not hold once its window has closed.
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 
@@ -83,22 +86,40 @@ def cell(name: str) -> SimpleNamespace:
     per_layer = [m for m in man["per_layer"]
                  if (name in m["workloads"] if "workloads" in m
                      else m["moves"] in reported)]
+    config = json.loads((BENCH / "configs" / f"{w['config']}.json")
+                        .read_text())
     return SimpleNamespace(
-        name=name, chips=int(w["chips"]),
-        config=json.loads((BENCH / "configs" / f"{w['config']}.json")
-                          .read_text()),
-        traffic=traffic, end_to_end=end_to_end, per_layer=per_layer)
+        name=name, chips=int(w["chips"]), config=config,
+        gnn=kind_file(config["model"]["kind"]), traffic=traffic,
+        end_to_end=end_to_end, per_layer=per_layer)
+
+
+def _module(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def reader(name: str):
     """``read(ctx)`` of the per-layer metric ``name``
     (``bench/metrics/<name>.py``)."""
-    path = BENCH / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"bench_metric_{name}",
-                                                  path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _module(BENCH / "metrics" / f"{name}.py",
+                   f"bench_metric_{name}").read
+
+
+def kind_file(kind: str, models: Path = MODELS):
+    """The file of the model kind ``kind``, ``<models>/<kind>.py``, with
+    ``weight_shapes(model)`` ([(layer, name, shape, glorot limit)] in draw
+    order), the reference's ``layer(p, h, g, last=, wire=, tf32=)``,
+    ``forward_flops(model, vertices, edges)``, and ``wire_slack(p, h, g)``
+    where the 8-bit wire is modelled; ``model`` is the configuration's
+    ``model`` object."""
+    known = sorted(p.stem for p in Path(models).glob("*.py"))
+    if kind not in known:
+        raise SystemExit(f"model kind {kind!r} has no file in {models}; "
+                         f"known kinds: {', '.join(known)}")
+    return _module(Path(models) / f"{kind}.py", f"bench_model_{kind}")
 
 
 class Sample:
@@ -140,8 +161,7 @@ def draw(c: SimpleNamespace, seed: int, dev: torch.device, scale=None):
     g = graphgen.load(data["name"], data["scale"] if scale is None else scale,
                       data["seed"], CACHE / "graphs")
     gen, rng = inputs.generators(seed, dev)
-    params = inputs.make_weights(cfg["model"]["kind"], cfg["model"]["dims"],
-                                 gen)
+    params = inputs.make_weights(c.gnn.weight_shapes(cfg["model"]), gen)
     pool = inputs.make_snapshots(cfg["snapshot"], g["features"],
                                  int(c.traffic["pool"]), gen)
     return g, params, inputs.make_stacks(pool, c.traffic, rng)
@@ -275,8 +295,8 @@ def run_cell(c: SimpleNamespace, seed: int, seconds: float, trace: bool,
     limit = float(cfg["check"]["emb_excess_limit"])
     for j, got in sample.items:
         want, slack = reference.forward(
-            model["kind"], params, torch.as_tensor(pool_of[j], device=dev),
-            rg, wire=wire, with_slack=True)
+            c.gnn, params, torch.as_tensor(pool_of[j], device=dev), rg,
+            wire=wire, with_slack=True)
         gap = reference.excess(torch.as_tensor(got, device=dev), want, slack)
         worst = max(worst, gap)
         failed += gap > limit
@@ -302,8 +322,9 @@ def run_cell(c: SimpleNamespace, seed: int, seconds: float, trace: bool,
             trace=tr, config=cfg, graphs_per_s=graphs_per_s,
             batches=int(traffic["trace_batches"]),
             graphs=int(traffic["trace_batches"]) * int(traffic["batch"]),
-            batch=int(traffic["batch"]), kind=model["kind"],
-            dims=model["dims"], vertices=int(g["num_vertices"]),
+            batch=int(traffic["batch"]), model=model, gnn=c.gnn,
+            kind=model["kind"], dims=model["dims"],
+            vertices=int(g["num_vertices"]),
             senders=g["senders"], receivers=g["receivers"],
             halo_bytes=halo_bytes, assignment=assignment, setup_parts=parts)
         metrics = {}

@@ -153,8 +153,9 @@ def test_halo_bytes_are_counted_at_each_layers_width(compressor, aggregation,
     g["features"] = g["features"][:, :dims[0]]
     graph = Graph(num_vertices=g["num_vertices"],
                   **{k: g[k] for k in graphgen.KEYS})
-    params = inputs.make_weights("gcn", dims,
-                                 torch.Generator().manual_seed(0))
+    params = inputs.make_weights(
+        run.kind_file("gcn").weight_shapes({"dims": dims}),
+        torch.Generator().manual_seed(0))
     knobs = {"compressor": compressor, "aggregation": aggregation}
     sess = Engine((params, "gcn"), cluster="1A+4B+1C", executor="mesh-bsp",
                   device="cpu", **knobs).compile(graph).session()

@@ -7,6 +7,7 @@ import torch
 import graphgen
 import inputs
 import placement_copy
+import run
 
 
 @pytest.mark.parametrize("name,scale", [("siot", 0.05), ("rmat-40k", 0.01),
@@ -39,7 +40,9 @@ def test_assignment_equals_the_ports_placement(name, scale, kind, dims):
     g = graphgen.generate(name, scale, 0)
     graph = Graph(num_vertices=g["num_vertices"],
                   **{k: g[k] for k in graphgen.KEYS})
-    params = inputs.make_weights(kind, dims, torch.Generator().manual_seed(0))
+    params = inputs.make_weights(
+        run.kind_file(kind).weight_shapes({"dims": dims}),
+        torch.Generator().manual_seed(0))
     plan = Engine((params, kind), cluster="1A+4B+1C", executor="mesh-bsp",
                   aggregation="segment_sum", device="cpu").compile(graph)
     got = placement_copy.assignment(g, "1A+4B+1C", k_layers=len(dims) - 1)
@@ -53,7 +56,8 @@ def test_inputs_are_the_seeds():
 
     def draw(seed):
         gen, rng = inputs.generators(seed, "cpu")
-        w = inputs.make_weights("gcn", [52, 64, 2], gen)
+        w = inputs.make_weights(
+            run.kind_file("gcn").weight_shapes({"dims": [52, 64, 2]}), gen)
         pool = inputs.make_snapshots(spec, feats, 6, gen)
         st = inputs.make_stacks(pool, {"batch": 3, "stacks": 2}, rng)
         return w, pool, st
