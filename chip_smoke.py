@@ -98,8 +98,14 @@ Phases, in order; any failed check raises and the script exits non-zero:
                 the float64 plain version, two launches bitwise equal,
                 autograd's launch bitwise the direct one, timed beside
                 ``index_add_`` into the source rows and ``torch.sparse.mm``
-                of the transposed adjacency; and GAT's plain w-gradient
-                (the per-entry dot, no kernel) at F = 64;
+                of the transposed adjacency; GAT's plain w-gradient
+                (the per-entry dot, no kernel) at F = 64; and the
+                per-head weighted sum (``headed_sum_kernel``) on the
+                folded RMAT-40k layout of stage_rows below, at the
+                multi-head GAT's 4 x 256 and 6 x 121: bitwise the plain
+                version and a second launch, one launch a call in both
+                ``launches`` and ``headed_launches``, timed beside the
+                plain version (``headed_cases`` of the row);
                 dequant: the uint8 and uint16 groups of ``daq_pack`` on
                 full-scale SIoT features (also against ``daq_unpack``'s
                 float64) and benchmarks/run.py's 128-feature shape, each
@@ -2070,6 +2076,91 @@ def segment_cases(sg, ref, layers, bsp, g, pg, pems) -> dict:
     log(f"  aggregate_sum on full SIoT (F={g.feature_dim}): card vs CPU port "
         f"max abs {d} ({same})")
     return out
+
+
+#: (heads, head width D) of the per-head sums of gat-ppi-rmat40k's layers:
+#: the hidden layers' 4 x 256 and the last layer's 6 x 121.
+HEADED_SHAPES = ((4, 256), (6, 121))
+
+
+def headed_bound(rows_read: int, f: int, summed: int, v: int,
+                 heads: int) -> tuple:
+    """Least time (ms) of one per-head weighted sum, as ``segment_bound``
+    with H weights an entry in place of one."""
+    nbytes = 4 * (rows_read * f + summed * (2 + heads) + (v + 1) + v * f)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2 * summed * f / PEAK_F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def headed_sum_cases(sg, ref, bsp, pg) -> list:
+    """Phase 2, the per-head weighted sum (``headed_sum_kernel``) on the
+    folded RMAT-40k layout ``pg`` (``gat_mesh_layout``): GAT's self-looped
+    halo list over the [n*P | n*B] table, at ``HEADED_SHAPES``' rows of H *
+    D floats with random per-head weights (0 on masked edges). Each launch
+    bitwise the plain version (``ref.headed_segment_sum_ref``) and a second
+    launch, one launch a call counted in both ``segment_sum.launches`` and
+    ``segment_sum.headed_launches``; timed beside the plain version, with
+    the seconds the case took."""
+    t_all = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    el = bsp._edges(pg, torch.device("cuda"), "halo", "gat_heads")
+    rows = pg.n * (pg.slots + pg.boundary_slots)
+    idx, order, offsets = el.gather, el.order, el.offsets
+    summed, v = order.shape[0], el.num_vertices
+    rows_read = int(torch.unique(idx).numel())
+    cases = []
+    for heads, d in HEADED_SHAPES:
+        t0 = time.perf_counter()
+        f = heads * d
+        x = torch.randn((rows, f), generator=gen, device="cuda")
+        w = (torch.rand((el.receivers.shape[0], heads), generator=gen,
+                        device="cuda") * el.mask[:, None])
+        longs = el.long_segments(f)
+
+        def call():
+            return sg.segment_sum(x, order, offsets, idx=idx, w=w,
+                                  long=longs)
+        before = (sg.segment_sum.launches, sg.segment_sum.headed_launches)
+        got = call()
+        after = (sg.segment_sum.launches, sg.segment_sum.headed_launches)
+        if (after[0] - before[0], after[1] - before[1]) != (1, 1):
+            raise AssertionError(f"headed_sum H={heads} D={d}: "
+                                 f"{after[0] - before[0]} launches, "
+                                 f"{after[1] - before[1]} headed launches "
+                                 f"for one call")
+        want = ref.headed_segment_sum_ref(x, idx, offsets, order, w)
+        for what, other in (("plain version", want), ("second launch",
+                                                      call())):
+            if not torch.equal(got.view(torch.int32),
+                               other.view(torch.int32)):
+                raise AssertionError(f"headed_sum H={heads} D={d}: not "
+                                     f"bitwise the {what}")
+        del got, want
+        b_ms, b_by = headed_bound(rows_read, f, summed, v, heads)
+        k_ms = time_ms(call, reps=30)
+        p_ms = time_ms(lambda: ref.headed_segment_sum_ref(
+            x, idx, offsets, order, w), reps=5)
+        rec = {"case": "rmat-40k mesh halo", "path": "mesh", "H": heads,
+               "D": d, "F": f, "rows": rows, "summed": summed, "V": v,
+               "source_rows": rows_read,
+               "long_segments": int(longs.ids.numel()),
+               "max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "roofline_pct": 100.0 * b_ms / k_ms}
+        del x, w
+        torch.cuda.empty_cache()
+        rec["case_s"] = time.perf_counter() - t0
+        cases.append(rec)
+        log(f"  headed_sum H={heads} D={d}: [{rows}, {f}] -> [{v}, {f}] "
+            f"over {summed} entries, bitwise the plain version, one launch "
+            f"a call; {k_ms:.4f} ms (bound {b_ms:.4f} ms, {b_by}, "
+            f"{rec['roofline_pct']:.1f} %), plain {p_ms:.4f} ms; case "
+            f"{rec['case_s']:.2f} s")
+    log(f"  headed_sum cases, the edge list's build included: "
+        f"{time.perf_counter() - t_all:.2f} s")
+    return cases
 
 
 def wgrad_bound(src_rows: int, g_rows: int, f: int, summed: int,
@@ -5826,6 +5917,7 @@ def main() -> int:
         f"({gat_layout_s:.2f} s)")
     staging = stage_rows_cases(sr, ref, bsp, [
         ("gat-rmat40k", gat_pg, 32), ("gcn-siot", pg, g.feature_dim)])
+    headed = headed_sum_cases(sg, ref, bsp, gat_pg)
     del gat_pg
     n_rows, blocks_sim, blocks_mesh = subset_blocks(g, pg, local.out_rows,
                                                     frontier)
@@ -5840,6 +5932,7 @@ def main() -> int:
     pems = layers.EdgeList.from_graph(
         datasets.load_pems_window(1.0, seed=0).graph, device="cuda")
     results.update(segment_cases(sg, ref, layers, bsp, g, pg, pems))
+    results["segment_sum"]["headed_cases"] = headed
     results["segment_sum"]["cases"] += segment_backward_cases(
         sg, ref, layers, g, pems)
     del pems

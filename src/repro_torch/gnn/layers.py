@@ -15,6 +15,12 @@ the executor, which then runs only the dense tail here
   GAT       a_v = sum_{u in N(v) u {v}} alpha_vu W h_u ;  h_v = sigma(a_v)
   GraphSAGE a_v = mean_{u in N(v)} h_u ; h_v = sigma(W . [a_v, h_v])
 
+GAT's layer has H attention heads (H = 1 in the ``gat`` kind's models);
+``gat_heads`` is the multi-head model of Velickovic et al. (ICLR 2018,
+arXiv 1710.10903, Section 3.3): its hidden layers concatenate their heads
+and add an identity skip where the widths allow, its last layer averages
+its heads.
+
 Layers take one [V, F] table; ``apply_layer_with_sum`` also takes a
 stacked [B, V, F] micro-batch and runs the dense tail example by example.
 """
@@ -30,6 +36,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.segment_sum import (LongSegments, Transposed,
                                              cached_long_segments,
                                              receiver_order, segment_sum)
+from repro_torch.runtime.trace import span
 
 
 def _glorot(generator: torch.Generator, shape) -> torch.Tensor:
@@ -208,42 +215,94 @@ def gcn_layer(params, h, edges: EdgeList, *, activation=torch.relu,
 
 
 # ----------------------------------------------------------------------------
-# GAT (single head per layer)
+# GAT (H heads a layer)
 # ----------------------------------------------------------------------------
 
-def gat_init(generator: torch.Generator, in_dim: int, out_dim: int):
-    return {"w": _glorot(generator, (in_dim, out_dim)),
-            "att_src": _glorot(generator, (1, out_dim)),
-            "att_dst": _glorot(generator, (1, out_dim))}
+#: kinds whose layers attend over N(v) u {v}: their edge lists carry one
+#: self edge a vertex.
+SELF_LOOP_KINDS = ("gat", "gat_heads")
 
 
-def gat_layer(params, h, edges: EdgeList, *, activation=F.elu, h_src=None):
-    wh = h @ params["w"]                                # [P, D] (local)
+def gat_init(generator: torch.Generator, in_dim: int, out_dim: int,
+             heads: int = 1, concat: bool = True):
+    """One GAT layer of ``heads`` heads: ``w`` [in, H * D] and each head's
+    attention vectors ``att_src``, ``att_dst`` [H, D] (Glorot over each
+    head's [1, D]), D = out / H where the heads are concatenated
+    (``concat``: a hidden layer) and D = out where they are averaged (the
+    last layer). At one head this is the draw of a [1, out] vector."""
+    d = out_dim // heads if concat else out_dim
+    if concat and d * heads != out_dim:
+        raise ValueError(f"{heads} concatenated heads do not divide the "
+                         f"width {out_dim}")
+    return {"w": _glorot(generator, (in_dim, heads * d)),
+            "att_src": _glorot(generator, (heads, 1, d)).reshape(heads, d),
+            "att_dst": _glorot(generator, (heads, 1, d)).reshape(heads, d)}
+
+
+def _scores(z: torch.Tensor, att: torch.Tensor) -> torch.Tensor:
+    """Every head's score a^k . z^k of the rows of z [N, H * D], head-major
+    ([H, N], a view), or [N] at one head."""
+    heads = att.shape[0]
+    scores = (z.view(z.shape[0], heads, -1) * att).sum(-1).T
+    return scores[0] if heads == 1 else scores
+
+
+def _mean_heads(a: torch.Tensor, heads: int) -> torch.Tensor:
+    """[V, H * D] -> [V, D]: the heads added in order k = 0 .. H - 1, then
+    one division (nothing at one head)."""
+    if heads == 1:
+        return a
+    parts = a.view(a.shape[0], heads, -1).unbind(1)
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total / heads
+
+
+def gat_layer(params, h, edges: EdgeList, *, activation=F.elu, h_src=None,
+              skip: bool = False):
+    """One GAT layer with H heads (H and D read from ``att_src`` [H, D]):
+    per head k, z^k = h W^k, e^k_vu = leaky_relu(a^k_src . z^k_u + a^k_dst
+    . z^k_v, 0.2) over N(v) u {v}, alpha^k = softmax_u(e^k) and s^k_v =
+    sum_u alpha^k_vu z^k_u. A hidden layer returns activation(s^0 || ..
+    || s^{H-1} [+ h, with ``skip`` where h is as wide]); the last layer
+    (``activation=None``) the mean of its heads. ``h_src`` is the table
+    the senders index into (then ``edges`` carries the self edges)."""
+    heads = params["att_src"].shape[0]
+    wh = h @ params["w"]                                # [P, H*D] (local)
     wh_src = wh if h_src is None else h_src @ params["w"]
-    alpha_src = (wh_src * params["att_src"]).sum(-1)    # [M]
-    alpha_dst = (wh * params["att_dst"]).sum(-1)        # [P]
     v = edges.num_vertices
     # Self loops: include v in its own neighborhood (Table I: N_v u {v}),
     # unless the caller indexes a different source table.
     if h_src is None:
         edges = edges.self_looped
-    s, r, m = edges.senders, edges.receivers, edges.mask
-    logits = F.leaky_relu(alpha_src[s] + alpha_dst[r], 0.2)
-    logits = torch.where(m > 0, logits, -torch.inf)
-    # Segment softmax over each receiver's incoming edges; receivers with
-    # no edge keep -inf and are zeroed by the isfinite guard. The max is
-    # exact in any order.
-    seg_max = torch.full((v,), -torch.inf, dtype=logits.dtype,
-                         device=logits.device)
-    seg_max = seg_max.scatter_reduce(0, r.long(), logits, "amax",
-                                     include_self=False)
-    seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
-    ex = torch.where(m > 0, torch.exp(logits - seg_max[r]), 0.0)
-    denom = _segment_sum(ex, edges)
-    coef = ex / torch.clamp_min(denom[r], 1e-16)
-    # The messages wh_src[s] * coef, gathered and weighted inside the sum.
-    a = _segment_sum(wh_src, edges, idx=edges.gather, w=coef)
-    return activation(a) if activation is not None else a
+    with span("attention"):
+        # Head-major: [H, ..] tables gathered along their last axis ([..]
+        # at one head, the single-head arithmetic op for op).
+        alpha_src = _scores(wh_src, params["att_src"])  # [H, M]
+        alpha_dst = _scores(wh, params["att_dst"])      # [H, P]
+        s, r, m = edges.senders, edges.receivers, edges.mask
+        logits = F.leaky_relu(alpha_src[..., s] + alpha_dst[..., r], 0.2)
+        logits = torch.where(m > 0, logits, -torch.inf)  # [H, E]
+        # Segment softmax over each receiver's incoming edges, per head;
+        # receivers with no edge keep -inf and are zeroed by the isfinite
+        # guard. The max is exact in any order.
+        seg_max = torch.full(logits.shape[:-1] + (v,), -torch.inf,
+                             dtype=logits.dtype, device=logits.device)
+        seg_max = seg_max.scatter_reduce(-1, r.long().expand_as(logits),
+                                         logits, "amax", include_self=False)
+        seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
+        ex = torch.where(m > 0, torch.exp(logits - seg_max[..., r]), 0.0)
+        denom = _segment_sum(ex.movedim(0, -1), edges).movedim(-1, 0)
+        coef = ex / torch.clamp_min(denom[..., r], 1e-16)
+    # The messages wh_src[s] * coef, gathered and weighted per head inside
+    # the sum (coef [E, H]).
+    a = _segment_sum(wh_src, edges, idx=edges.gather, w=coef.movedim(0, -1))
+    if activation is None:
+        return _mean_heads(a, heads)
+    if skip and h.shape[-1] == a.shape[-1]:
+        a = a + h
+    return activation(a)
 
 
 # ----------------------------------------------------------------------------
@@ -270,8 +329,12 @@ def sage_layer(params, h, edges: EdgeList, *, activation=torch.relu,
     return out / torch.clamp_min(norm, 1e-12)
 
 
+#: ``gat`` and ``gat_heads`` share the layer: both run whatever heads the
+#: weights hold (``gat``'s drawn models have one), and only ``gat_heads``
+#: adds the skip.
 LAYER_FNS = {"gcn": (gcn_init, gcn_layer),
              "gat": (gat_init, gat_layer),
+             "gat_heads": (gat_init, functools.partial(gat_layer, skip=True)),
              "sage": (sage_init, sage_layer)}
 
 

@@ -26,12 +26,24 @@ from repro_torch.gnn.layers import (EdgeList, LAYER_FNS, aggregate_sum,
 
 
 def gnn_init(generator: torch.Generator, kind: str,
-             dims: Sequence[int]) -> List[dict]:
+             dims: Sequence[int],
+             heads: Optional[Sequence[int]] = None) -> List[dict]:
     """dims = [in, hidden..., out]; returns the per-layer param list, on
-    the generator's device, drawn from ``generator`` in layer order."""
+    the generator's device, drawn from ``generator`` in layer order.
+    ``heads`` (GAT kinds): each layer's head count, the hidden layers'
+    heads concatenated into their width, the last layer's averaged;
+    ``gat_heads`` needs it."""
     init_fn, _ = LAYER_FNS[kind]
-    return [init_fn(generator, dims[i], dims[i + 1])
-            for i in range(len(dims) - 1)]
+    n = len(dims) - 1
+    if heads is None and kind == "gat_heads":
+        raise ValueError("gat_heads weights need heads: each layer's head "
+                         "count")
+    if heads is None:
+        return [init_fn(generator, dims[i], dims[i + 1]) for i in range(n)]
+    if len(heads) != n:
+        raise ValueError(f"{len(heads)} head counts for {n} layers")
+    return [init_fn(generator, dims[i], dims[i + 1], heads[i],
+                    concat=i < n - 1) for i in range(n)]
 
 
 def _f32_copy(v, device) -> torch.Tensor:

@@ -5,6 +5,10 @@
 // softmax denominators); it is the port's "segment_sum" aggregation and
 // GAT's only path
 //   -> segment_sum_launch
+// and the per-head weighted sum of a multi-head GAT layer, which XLA would
+// run as H weighted sums over column slices (the JAX package has no
+// multi-head GAT)
+//   -> headed_sum_launch (headed_sum_kernel, below segment_kernel)
 //
 // Computes, for every receiver v and feature f,
 //   out[v, f] = +0 (+) w(k0) * x[idx[k0], f] (+) w(k1) * x[idx[k1], f] ...
@@ -451,6 +455,172 @@ int launch_vec(const Args& a, int vec, int nc, int grid, int smem,
   }
 }
 
+// The per-head weighted sum (a multi-head GAT layer's messages): rows of
+// H * D floats, head k's columns k*D .. k*D + D - 1, one weight an entry
+// and head,
+//   out[v, c] = +0 (+) w[order[k0], c / D] * x[idx[k0], c] (+) ...
+// with the same rounding and order as segment_kernel's weighted sum.
+//
+// What bounds it: the rows are wide (a PPI-sized layer: 1,024 or 726
+// floats, 4 KB or 2.9 KB), and the folded source table (144,576 rows on
+// RMAT-40k's six fogs, 592 MB at 1,024) is far past the 50 MB L2, so most
+// gathered rows come from HBM: E * F * 4 bytes a call (5.7 GB at 1.4 M
+// entries and F = 1,024) against the bound's source rows and output read
+// and written once. The receivers' in-degrees are skewed (RMAT-40k: 668 of
+// 40,000 receivers over 256 entries hold 41 % of them; the largest 7,634).
+//
+// Design. Column blocks are cut inside a head: a lane group (up to a
+// warp) owns one receiver's sum over one head's columns (D = 256: a warp
+// of float4 pairs; D = 121: a warp of four floats a lane, since a head of
+// odd width starts on any float), so a group takes one weight an entry,
+// and the heads of a row are read by neighbouring groups of one CTA,
+// which share the entries' indices and weights through L1. VEC divides D,
+// so no vector crosses a head. A group walks its segment in batches of
+// kUnroll entries as segment_kernel's short path does: the batch's row
+// and weight loads issued together, the next batch's indices prefetched,
+// then the adds in order, so that a batch costs one HBM latency. The long
+// segments (all listed, longest first) take the first groups of the grid,
+// so that the hubs' chains start first and run under the rest; their
+// receivers are skipped where they come up in order. One group owns each
+// sum, so the order is fixed; no atomics.
+struct HeadedArgs {
+  const float* x;
+  const int32_t* idx;
+  const float* w;          // [entries, heads]
+  const int32_t* order;
+  const int32_t* offsets;
+  const int32_t* long_segs;
+  float* out;
+  int num_segments, f, heads, head_dim;
+  int n_long;
+  int long_threshold;      // receivers longer than this are long_segs'
+  int lanes;               // lanes of a group (1, 2, .., 32)
+  int head_blocks;         // column blocks of a head
+};
+
+template <int VEC, int NC>
+__global__ void __launch_bounds__(kThreads)
+    headed_sum_kernel(const HeadedArgs a) {
+  const int groups = kThreads / a.lanes;
+  const int col_blocks = a.heads * a.head_blocks;
+  const long long gid =
+      (long long)blockIdx.x * groups + threadIdx.x / a.lanes;
+  const int lane = threadIdx.x % a.lanes;
+  const long long slot = gid / col_blocks;
+  const int cb = (int)(gid % col_blocks);
+  if (slot >= (long long)a.n_long + a.num_segments) return;
+  int v;
+  if (slot < a.n_long) {
+    v = a.long_segs[slot];
+  } else {
+    v = (int)(slot - a.n_long);
+    if (a.offsets[v + 1] - a.offsets[v] > a.long_threshold) return;
+  }
+  const int lo = a.offsets[v], hi = a.offsets[v + 1];
+  const int f = a.f, d = a.head_dim, nh = a.heads, step = a.lanes * VEC;
+  const int head = cb / a.head_blocks;
+  const int c_in = ((cb % a.head_blocks) * NC * a.lanes + lane) * VEC;
+  const int col = head * d + c_in;
+  bool live[NC];
+  float acc[NC][VEC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    live[c] = c_in + c * step < d;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[c][e] = 0.f;
+  }
+  const float* wh = a.w + head;
+  int j[kUnroll], o[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    j[u] = lo + u < hi ? __ldg(a.idx + lo + u) : 0;
+    o[u] = lo + u < hi ? __ldg(a.order + lo + u) : 0;
+  }
+  for (int base = lo; base < hi; base += kUnroll) {
+    const int n = min(kUnroll, hi - base);
+    float val[kUnroll][NC][VEC];
+    float wt[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const float* row = a.x + (long long)j[u] * f + col;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        if (u < n && live[c]) {
+          Vec<VEC>::ld(row + c * step, val[u][c]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) val[u][c][e] = 0.f;
+        }
+      }
+      wt[u] = u < n ? __ldg(wh + (long long)o[u] * nh) : 0.f;
+    }
+    // The next batch's indices load while this batch's adds run.
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int k = base + kUnroll + u;
+      j[u] = k < hi ? __ldg(a.idx + k) : 0;
+      o[u] = k < hi ? __ldg(a.order + k) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (u < n) {
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            acc[c][e] = __fadd_rn(acc[c][e], __fmul_rn(wt[u], val[u][c][e]));
+      }
+    }
+  }
+  float* dst = a.out + (long long)v * f + col;
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+    if (live[c]) Vec<VEC>::st(dst + c * step, acc[c]);
+}
+
+template <int VEC, int NC>
+int launch_headed(const HeadedArgs& a, long long grid, cudaStream_t s) {
+  headed_sum_kernel<VEC, NC><<<(unsigned)grid, kThreads, 0, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int VEC>
+int launch_headed_nc(const HeadedArgs& a, int nc, long long grid,
+                     cudaStream_t s) {
+  switch (nc) {
+    case 1:
+      return launch_headed<VEC, 1>(a, grid, s);
+    case 2:
+      return launch_headed<VEC, (2 * VEC <= kMaxVals ? 2 : 1)>(a, grid, s);
+    case 3:
+      return launch_headed<VEC, (3 * VEC <= kMaxVals ? 3 : 1)>(a, grid, s);
+    default:
+      return launch_headed<VEC, (4 * VEC <= kMaxVals ? 4 : 1)>(a, grid, s);
+  }
+}
+
+// The lane groups of a sum over columns of `width` floats of x and out:
+// the widest vector that divides the width and both tables' alignment, a
+// group just wide enough for the columns (up to a warp), and its vectors
+// a lane (up to kMaxVals floats, at most 4 vectors).
+struct Groups {
+  int vec, lanes, nc;
+};
+
+Groups lane_groups(int width, const float* x, const float* out) {
+  const bool a16 = (uintptr_t)x % 16 == 0 && (uintptr_t)out % 16 == 0;
+  const bool a8 = (uintptr_t)x % 8 == 0 && (uintptr_t)out % 8 == 0;
+  Groups g;
+  g.vec = width % 4 == 0 && a16 ? 4 : (width % 2 == 0 && a8 ? 2 : 1);
+  const int vecs = width / g.vec;
+  g.lanes = 1;
+  while (g.lanes < 32 && g.lanes < vecs) g.lanes *= 2;
+  g.nc = (vecs + g.lanes - 1) / g.lanes;
+  const int nc_max = kMaxVals / g.vec < 4 ? kMaxVals / g.vec : 4;
+  if (g.nc > nc_max) g.nc = nc_max;
+  return g;
+}
+
 }  // namespace
 
 extern "C" {
@@ -471,15 +641,9 @@ int segment_sum_launch(const float* x, const int32_t* idx, const float* w,
   if (num_segments <= 0 || features <= 0) return 0;
   if (n_long < 0 || long_threshold < 0) return (int)cudaErrorInvalidValue;
   const int f = features;
-  const bool a16 = (uintptr_t)x % 16 == 0 && (uintptr_t)out % 16 == 0;
-  const bool a8 = (uintptr_t)x % 8 == 0 && (uintptr_t)out % 8 == 0;
-  const int vec = f % 4 == 0 && a16 ? 4 : (f % 2 == 0 && a8 ? 2 : 1);
+  const Groups gs = lane_groups(f, x, out);
+  const int vec = gs.vec, lanes = gs.lanes, nc = gs.nc;
   const int vecs = f / vec;   // vectors a row
-  int lanes = 1;
-  while (lanes < 32 && lanes < vecs) lanes *= 2;
-  int nc = (vecs + lanes - 1) / lanes;
-  const int nc_max = kMaxVals / vec < 4 ? kMaxVals / vec : 4;
-  if (nc > nc_max) nc = nc_max;
   const int col_blocks = (vecs + lanes * nc - 1) / (lanes * nc);
   const int groups = kThreads / lanes;
   Args a;
@@ -510,6 +674,60 @@ int segment_sum_launch(const float* x, const int32_t* idx, const float* w,
   cudaStream_t s = (cudaStream_t)stream;
   return w != nullptr ? launch_vec<true>(a, vec, nc, grid, smem, s)
                       : launch_vec<false>(a, vec, nc, grid, smem, s);
+}
+
+// out [num_segments, features] (contiguous float32): receiver v's sum of
+// w[order[k], c / (features / heads)] * x[idx[k], c] over k = offsets[v]
+// .. offsets[v + 1] - 1 for every column c, x [rows, features] and w
+// [entries, heads] contiguous float32, idx / order / offsets int32;
+// features a multiple of heads. long_segs lists the n_long receivers whose
+// segments are longer than long_threshold, longest first: they are summed
+// first (every such receiver must be listed). Returns a cudaError_t code.
+int headed_sum_launch(const float* x, const int32_t* idx, const float* w,
+                      const int32_t* order, const int32_t* offsets,
+                      const int32_t* long_segs, int n_long,
+                      int long_threshold, float* out, int num_segments,
+                      int features, int heads, void* stream) {
+  if (num_segments <= 0 || features <= 0) return 0;
+  if (heads <= 0 || features % heads != 0 || w == nullptr || n_long < 0 ||
+      long_threshold < 0)
+    return (int)cudaErrorInvalidValue;
+  const int f = features, d = features / heads;
+  // A vector lies in one head: VEC divides D (so also F and each head's
+  // first column).
+  const Groups gs = lane_groups(d, x, out);
+  const int vec = gs.vec, lanes = gs.lanes, nc = gs.nc;
+  const int vecs = d / vec;   // vectors a head
+  HeadedArgs a;
+  a.x = x;
+  a.idx = idx;
+  a.w = w;
+  a.order = order;
+  a.offsets = offsets;
+  a.long_segs = long_segs;
+  a.out = out;
+  a.num_segments = num_segments;
+  a.f = f;
+  a.heads = heads;
+  a.head_dim = d;
+  a.n_long = n_long;
+  a.long_threshold = n_long > 0 ? long_threshold : 0x7fffffff;
+  a.lanes = lanes;
+  a.head_blocks = (vecs + lanes * nc - 1) / (lanes * nc);
+  const long long groups = kThreads / lanes;
+  const long long total =
+      ((long long)n_long + num_segments) * heads * a.head_blocks;
+  const long long grid = (total + groups - 1) / groups;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (vec) {
+    case 4:
+      return launch_headed_nc<4>(a, nc, grid, s);
+    case 2:
+      return launch_headed_nc<2>(a, nc, grid, s);
+    default:
+      return launch_headed_nc<1>(a, nc, grid, s);
+  }
 }
 
 }  // extern "C"

@@ -243,6 +243,22 @@ def gather_segment_sum_ref(x: torch.Tensor, idx: torch.Tensor,
     return segment_sum_ref(terms, every, offsets)
 
 
+def headed_segment_sum_ref(x: torch.Tensor, idx: torch.Tensor,
+                           offsets: torch.Tensor, order: torch.Tensor,
+                           w: torch.Tensor) -> torch.Tensor:
+    """The per-head weighted gather-and-sum: x [N, H * D], w [E, H] ->
+    [V, H * D] with out[v, k*D + j] = 0 + w[order[i], k] * x[idx[i], k*D +
+    j] + ... over i in offsets[v] .. offsets[v + 1] - 1, left to right:
+    each head's columns the weighted sum of ``gather_segment_sum_ref``
+    with that head's weights."""
+    terms = x.index_select(0, idx.long())
+    e, heads = terms.shape[0], w.shape[1]
+    wk = w.index_select(0, order.long())
+    terms = (terms.view(e, heads, -1) * wk[:, :, None]).view(e, -1)
+    every = torch.arange(e, dtype=torch.int32, device=terms.device)
+    return segment_sum_ref(terms, every, offsets)
+
+
 def stage_rows_ref(x: torch.Tensor, row_src: torch.Tensor) -> torch.Tensor:
     """The staging row gather: x [B, S, F], row_src int32[R] -> [B, R, F]
     with row r of every example x's row ``row_src[r]``, or +0.0 where it is

@@ -28,11 +28,18 @@ segment as the gather index, ``w`` carried along), so the gradient for
 ``x`` is one more call of the same kernel on the card (the plain version on
 the CPU); the gradient for ``w`` is a per-entry dot in plain PyTorch.
 
-The kernel counts its launches in ``segment_sum.launches``, raised by one
-at every launch and nowhere else; a launch for a gradient also raises
-``segment_sum.backward_launches``. While a profiler records, each sum
-(launch or plain version) is the span ``fog.kernel.segment_sum``
-(``runtime.trace``).
+With ``w`` of shape [E, H] over rows of H * D floats the sum is per head
+(a multi-head GAT layer's messages): head k's columns k*D .. k*D + D - 1
+take the weight ``w[order[k], head]``, in the same order and rounding, in
+one launch of ``headed_sum_kernel`` (plain version ``kernels.ref.
+headed_segment_sum_ref``); at H = 1 the call is the weighted sum above.
+
+The kernels count their launches in ``segment_sum.launches``, raised by
+one at every launch and nowhere else; a launch for a gradient also raises
+``segment_sum.backward_launches``, and a per-head launch
+``segment_sum.headed_launches``. While a profiler records, each sum
+(launch or plain version) is the span ``fog.kernel.segment_sum``, a
+per-head one ``fog.kernel.headed_sum`` (``runtime.trace``).
 """
 from __future__ import annotations
 
@@ -48,6 +55,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: C signature of segment_sum_launch: x, idx, w, order, offsets,
 #: long_segs, n_long, long_threshold, out, num_segments, features, stream.
 _SIGNATURE = [_P] * 6 + [_I] * 2 + [_P] + [_I] * 2 + [_P]
+#: C signature of headed_sum_launch: the same, then heads before stream.
+_HEADED_SIGNATURE = [_P] * 6 + [_I] * 2 + [_P] + [_I] * 3 + [_P]
 
 #: Segments of more entries than this get a CTA of their own on the card
 #: when a row is one vector (F = 1, 2 or 4; SIoT: 470 of 16,216 receivers,
@@ -65,10 +74,10 @@ def long_threshold(features: int) -> int:
     return LONG_SEGMENT if features in (1, 2, 4) else WIDE_LONG_SEGMENT
 
 
-def _kernel():
-    fn = build.load("segment_sum").segment_sum_launch
+def _kernel(name: str = "segment_sum_launch", signature=_SIGNATURE):
+    fn = getattr(build.load("segment_sum"), name)
     if fn.argtypes is None:
-        fn.argtypes = _SIGNATURE
+        fn.argtypes = signature
         fn.restype = ctypes.c_int
     return fn
 
@@ -170,9 +179,12 @@ class Transposed:
 
 def _sum(x, order, offsets, idx, w, long, backward: bool = False):
     """The checked sum on x's device: the plain version on the CPU, the
-    kernel (counted) on CUDA."""
-    with span("kernel.segment_sum"):
+    kernel (counted) on CUDA; per head where ``w`` is [E, H]."""
+    headed = w is not None and w.ndim == 2
+    with span("kernel.headed_sum" if headed else "kernel.segment_sum"):
         if x.device.type == "cpu":
+            if headed:
+                return ref.headed_segment_sum_ref(x, idx, offsets, order, w)
             return ref.gather_segment_sum_ref(x, idx, offsets, order=order,
                                               w=w)
         if x.device.type != "cuda":
@@ -190,13 +202,18 @@ def _sum(x, order, offsets, idx, w, long, backward: bool = False):
         wc = None if w is None else w.contiguous()
         out = torch.empty((v,) + tuple(x.shape[1:]), dtype=x.dtype,
                           device=x.device)
+        args = [_P(xc.data_ptr()), _P(ic.data_ptr()),
+                _P(None if wc is None else wc.data_ptr()),
+                _P(oc.data_ptr()), _P(fc.data_ptr()), _P(lc.data_ptr()),
+                lc.shape[0], threshold, _P(out.data_ptr()), v, feats]
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = _kernel()(_P(xc.data_ptr()), _P(ic.data_ptr()),
-                            _P(None if wc is None else wc.data_ptr()),
-                            _P(oc.data_ptr()), _P(fc.data_ptr()),
-                            _P(lc.data_ptr()), lc.shape[0], threshold,
-                            _P(out.data_ptr()), v, feats, _P(stream))
+            if headed:
+                err = _kernel("headed_sum_launch", _HEADED_SIGNATURE)(
+                    *args, w.shape[1], _P(stream))
+                segment_sum.headed_launches += 1
+            else:
+                err = _kernel()(*args, _P(stream))
             segment_sum.launches += 1
             if backward:
                 segment_sum.backward_launches += 1
@@ -234,7 +251,9 @@ class _SegmentSum(torch.autograd.Function):
         if w is not None and ctx.needs_input_grad[1]:
             dots = (x.index_select(0, idx.long())
                     * g.index_select(0, t.segment.long()))
-            if dots.ndim == 2:
+            if w.ndim == 2:      # per head: the dot over the head's columns
+                dots = dots.view(dots.shape[0], w.shape[1], -1)
+            if dots.ndim > w.ndim:
                 dots = dots.sum(-1)
             gw = torch.zeros_like(w).index_copy_(0, order.long(), dots)
         return gx, gw, None, None, None, None, None
@@ -250,7 +269,9 @@ def segment_sum(x: torch.Tensor, order: torch.Tensor, offsets: torch.Tensor,
     offsets[v + 1] - 1`` summed left to right from +0. ``idx`` defaults to
     ``order`` (x then holds one row per edge); every entry of ``idx`` must
     be below ``len(x)`` and, with ``w``, every entry of ``order`` below
-    ``len(w)``. ``long`` is ``LongSegments(offsets, F)`` of these very
+    ``len(w)``; ``w`` [E, H] weighs head k's columns k*D .. k*D + D - 1 of
+    rows of F = H * D floats (at H = 1 the call is the 1-d one). ``long``
+    is ``LongSegments(offsets, F)`` of these very
     offsets (the CTAs of the long segments on the card; without it every
     segment is summed by a lane group, right but slow for a hub). On the
     CPU any float dtype runs the plain version; the kernel takes
@@ -273,11 +294,15 @@ def segment_sum(x: torch.Tensor, order: torch.Tensor, offsets: torch.Tensor,
     if idx is order and order.shape[0] > x.shape[0]:
         raise ValueError(f"segment_sum: {order.shape[0]} entries in order "
                          f"for {x.shape[0]} rows of x")
-    if w is not None and (w.ndim != 1 or w.dtype != x.dtype
-                          or w.device != x.device):
-        raise ValueError(f"segment_sum: w must be 1-d {x.dtype} on "
-                         f"{x.device}, got {w.dtype} {tuple(w.shape)} on "
-                         f"{w.device}")
+    if w is not None and w.ndim == 2 and w.shape[1] == 1:
+        w = w.reshape(-1)
+    if w is not None and (w.ndim not in (1, x.ndim) or w.dtype != x.dtype
+                          or w.device != x.device
+                          or (w.ndim == 2 and x.shape[1] % w.shape[1])):
+        raise ValueError(f"segment_sum: w must be 1-d, or [E, H] with H "
+                         f"dividing the {tuple(x.shape[1:])} row, "
+                         f"{x.dtype} on {x.device}, got {w.dtype} "
+                         f"{tuple(w.shape)} on {w.device}")
     if long is not None and long.offsets is not offsets:
         raise ValueError("segment_sum: long was built for other offsets; "
                          "pass LongSegments(offsets, features) of these")
@@ -293,3 +318,4 @@ def segment_sum(x: torch.Tensor, order: torch.Tensor, offsets: torch.Tensor,
 
 segment_sum.launches = 0
 segment_sum.backward_launches = 0
+segment_sum.headed_launches = 0

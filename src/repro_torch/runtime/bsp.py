@@ -75,7 +75,8 @@ import torch.nn.functional as F
 
 from repro_torch.api.registry import EXCHANGES
 from repro_torch.gnn.graph import Graph
-from repro_torch.gnn.layers import EdgeList, LAYER_FNS, apply_layer_with_sum
+from repro_torch.gnn.layers import (EdgeList, LAYER_FNS, SELF_LOOP_KINDS,
+                                    apply_layer_with_sum)
 from repro_torch.kernels.daq_dequant import (dequant_spmm,
                                              dequant_spmm_batched)
 from repro_torch.kernels.gather_aggregate import (BLOCK, RowSubset, TileRows,
@@ -501,12 +502,12 @@ def _layer_edges(slots: int, senders: torch.Tensor, kind: str,
 
     ``senders`` [m, E] already index the folded source table;
     ``receivers`` [m, E] are shard-local slots, moved here to shard p's
-    rows ``p*P ..``. GAT gets explicit self-edges (``self_senders``
-    [m, P], masked by ``vmask``) after each shard's own edges, as the
-    reference appends them per shard.
+    rows ``p*P ..``. GAT (``SELF_LOOP_KINDS``) gets explicit self-edges
+    (``self_senders`` [m, P], masked by ``vmask``) after each shard's own
+    edges, as the reference appends them per shard.
     """
     m = receivers.shape[0]
-    if kind == "gat":
+    if kind in SELF_LOOP_KINDS:
         slot = torch.arange(slots, dtype=receivers.dtype,
                             device=receivers.device).expand(m, slots)
         senders = torch.cat([senders, self_senders], 1)
@@ -642,7 +643,8 @@ def _edges(pg: PartitionedGraph, device: torch.device, exchange: str,
                             put(fogs.pick(pg.edge_mask)),
                             put(fogs.pick(pg.vertex_mask)), fogs)
     return _on_device(pg, device,
-                      fogs.key(("edges", exchange, kind == "gat")), build)
+                      fogs.key(("edges", exchange,
+                                kind in SELF_LOOP_KINDS)), build)
 
 
 @dataclasses.dataclass(frozen=True)

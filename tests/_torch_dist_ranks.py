@@ -266,3 +266,31 @@ def raise_before_gather(rank):
         raise RuntimeError(f"rank {rank} failed on purpose")
     world = dist.get_world_size()
     dist.all_gather([torch.zeros(1) for _ in range(world)], torch.zeros(1))
+
+
+#: tests/test_torch_gat_heads.py's multi-head GAT: heads a layer and
+#: each head's width (hidden heads concatenated, the last averaged).
+GAT_HEADS = (2, 2, 3)
+GAT_HEAD_DIMS = (8, 8, 5)
+
+
+def gat_heads_many(inputs, cluster, g) -> np.ndarray:
+    """The multi-head GAT (``gat_heads``) of ``inputs`` (``param/<layer>/
+    <name>`` arrays) serves the ``stack`` batch on the mesh."""
+    layers = [{name: inputs[f"param/{i}/{name}"]
+               for name in ("w", "att_src", "att_dst")}
+              for i in range(len(GAT_HEADS))]
+    sess = Engine((models.params_from_numpy(layers), "gat_heads"),
+                  cluster=cluster, compressor="none", exchange="halo",
+                  executor="mesh-bsp", aggregation="segment_sum",
+                  device="cpu").compile(g).session()
+    return np.stack(sess.execute_many(inputs["stack"]))
+
+
+def serve_gat_heads_rank(rank, inputs_path, cluster, out_dir):
+    """One rank: ``gat_heads_many`` on its shard, saved to
+    ``gat_heads<r>.npz``."""
+    with np.load(inputs_path) as f:
+        inputs = dict(f)
+    np.savez(f"{out_dir}/gat_heads{rank}.npz",
+             many=gat_heads_many(inputs, cluster, graph()))

@@ -81,6 +81,10 @@ def test_port_has_the_slice_modules():
     for src in ("block_spmm.cu", "flash_attention.cu", "segment_sum.cu",
                 "recurrence.cu", "stage_rows.cu"):
         assert (PORT / "kernels" / "csrc" / src).is_file()
+    # the per-head weighted sum: its entry point beside the segment sum's
+    sums = (PORT / "kernels" / "csrc" / "segment_sum.cu").read_text()
+    for entry in ("segment_sum_launch", "headed_sum_launch"):
+        assert f"int {entry}(" in sums, entry
     for name in EXAMPLES:
         assert ROOT / "examples" / name in FILES, name
 

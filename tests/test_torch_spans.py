@@ -5,7 +5,9 @@ Under ``torch.profiler`` a served batch records the documented ``fog.*``
 spans and no others, each nested where its layer sits (stage: the H2D,
 then the scatter with its one ``stage_rows`` gather inside; one span a
 BSP superstep with its exchange and kernel calls inside; the unfold), in the counts the code runs them: on the segment path one
-``fog.layer`` an example and layer, on the kernel path one a layer.
+``fog.layer`` an example and layer, on the kernel path one a layer; a
+GAT layer's edge softmax is one ``fog.attention`` inside its superstep,
+holding the denominators' sum.
 Without a profiler a span enters no ``record_function``, and the answers
 are bitwise the same either way.
 """
@@ -27,11 +29,11 @@ from _torch_threads import one_cpu_thread  # noqa: F401  (autouse)
 K, B = 2, 3
 #: the kernels a superstep calls, then those staging calls (once a batch).
 KERNELS = ("block_spmm", "block_spmm_batched", "dequant_spmm",
-           "dequant_spmm_batched", "dequant", "segment_sum")
+           "dequant_spmm_batched", "dequant", "segment_sum", "headed_sum")
 STAGE_KERNELS = ("stage_rows",)
 DOCUMENTED = {"fog." + n for n in ("execute_many", "execute", "stage",
                                    "scatter", "h2d", "layer", "exchange",
-                                   "unfold")} | {
+                                   "attention", "unfold")} | {
     "fog.kernel." + k for k in KERNELS + STAGE_KERNELS}
 #: (kind, compressor, aggregation, kernel spans a superstep runs)
 PATHS = [("gat", "none", "segment_sum", {"segment_sum": 2}),
@@ -44,6 +46,7 @@ COUNTERS = [(gather_aggregate.block_spmm, "launches"),
             (daq_dequant.dequant_spmm, "launches"),
             (daq_dequant.dequant_spmm_batched, "launches"),
             (segment_sum.segment_sum, "launches"),
+            (segment_sum.segment_sum, "headed_launches"),
             (stage_rows.stage_rows, "launches")]
 
 
@@ -109,11 +112,14 @@ def test_batch_spans_nest_by_layer(path):
             assert parent[2] == "fog.stage", name
         if name in ["fog.kernel." + k for k in STAGE_KERNELS]:
             assert parent[2] == "fog.scatter", name
-        elif name == "fog.exchange" or name.startswith("fog.kernel."):
+        elif name in ("fog.exchange", "fog.attention"):
             assert parent[2] == "fog.layer", name
+        elif name.startswith("fog.kernel."):
+            assert parent[2] in ("fog.layer", "fog.attention"), name
     steps = K * B if agg == "segment_sum" else K
     assert _count(spans, "fog.layer") == steps
     assert _count(spans, "fog.exchange") == steps
+    assert _count(spans, "fog.attention") == (steps if kind == "gat" else 0)
     for one in ("fog.stage", "fog.scatter", "fog.h2d", "fog.unfold",
                 "fog.kernel.stage_rows"):
         assert _count(spans, one) == 1, one
