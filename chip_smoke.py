@@ -106,6 +106,15 @@ Phases, in order; any failed check raises and the script exits non-zero:
                 version and a second launch, one launch a call in both
                 ``launches`` and ``headed_launches``, timed beside the
                 plain version (``headed_cases`` of the row);
+                edge_softmax (GAT's softmax, scores to coefficients) on the
+                same folded RMAT-40k layout's self-looped halo list, H =
+                1 (GAT's) and H = 4 and 6 (the multi-head cell's): bitwise
+                the plain chain on the card (its denominators the segment
+                sum's) over every entry of the order and a second launch,
+                one launch a call and no segment sum; timed beside its
+                bytes bound, that chain (``plain_ms``) and the chain with
+                library sums (``torch.segment_reduce``: ``library_ms``),
+                and the chain's ``scatter_reduce`` max alone;
                 dequant: the uint8 and uint16 groups of ``daq_pack`` on
                 full-scale SIoT features (also against ``daq_unpack``'s
                 float64) and benchmarks/run.py's 128-feature shape, each
@@ -143,8 +152,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
               the counters set to 0 again, GCN, SAGE and GAT on
               ``aggregation="segment_sum"``: two executes of the same input
               bitwise equal, an ``execute_many`` of 8 bitwise 8 serial
-              executes, exactly K (GAT 2K) segment-sum launches an execute
-              and 8 times that a batch, and the embeddings against the
+              executes, exactly K segment-sum launches an execute (GAT:
+              its weighted messages) and K edge-softmax launches (GAT only)
+              and 8 times those a batch, and the embeddings against the
               float64 forward on the CPU at the same bar (gating GCN and
               GAT, printed for SAGE), with their execute times.
   3b. mesh    serves the same models through ``Engine(...,
@@ -178,9 +188,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
               output bitwise the same calls folded in this process; per
               rank exactly K ``block_spmm`` + K ``dequant_spmm`` a DAQ
               query or execute, K + K of the batched forms a batch, 2K
-              ``block_spmm`` an f32 query, K (GAT 2K) segment sums a
-              segment query; each BSP sync's bytes on the wire (``runtime.dist.
-              WIRE``) the layer's ``exchange_bytes``, the first a query's
+              ``block_spmm`` an f32 query, K segment sums (GAT: and K
+              edge softmaxes) a segment query; each BSP sync's bytes on
+              the wire (``runtime.dist.WIRE``) the layer's
+              ``exchange_bytes``, the first a query's
               ``exchange_bytes``; a four-fog plan on the six-rank group
               refused by world size. Printed per rank and kind: median
               query and execute ms, the ``all_gather`` ms a layer. Then,
@@ -199,7 +210,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
               rank 2's too, bitwise the folded run's, latencies and tags
               included; per member K ``block_spmm`` + K ``dequant_spmm`` a
               DAQ call, K + K batched a batch, 2K ``block_spmm`` an f32
-              call, 2K segment sums a GAT query, rank 2 none on the
+              call, K segment sums and K edge softmaxes a GAT query,
+              rank 2 none on the
               survivors' calls; each sync's bytes
               the survivor plan's ``exchange_bytes``. Printed per rank:
               ``fail_nodes`` ms in both modes, the first execute after it,
@@ -303,7 +315,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
               JSON line.
   3i. training, case study  GCN, SAGE and GAT [52, 64, 2] on full SIoT:
               the first step on the card (exactly TRAIN_LAUNCHES segment-
-              sum launches, the backward ones counted apart) with its
+              sum launches, the backward ones counted apart, and K
+              SOFTMAXES edge-softmax launches) with its
               loss and every gradient against the CPU float64 step (rtol
               1e-4 / atol 1e-5); ``train_node_classifier`` at the
               reference's defaults (120 steps, lr 5e-3) from a CUDA
@@ -382,7 +395,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
               resumed to 120: "resumed from step 100", the loss down by
               0.3 (tests/test_substrate.py:82), 3 checkpoints kept. One
               ``{"lm_train_path": ...}`` JSON line.
-  4. report   one ``{"kernels": [...]}`` JSON line (all eleven kernels, the
+  4. report   one ``{"kernels": [...]}`` JSON line (every kernel of
+              REPLACES and the staging gather, the
               block kernels with their subset cases and subset launches
               by path, the segment sum with its backward launches by
               path; the scans' backward kernels on the training paths),
@@ -475,10 +489,12 @@ DECODE_VS_FORWARD_ATOL = 5e-3
 QUANT_REL_BAR = 0.05
 QUANT_STEPS = 32
 #: Kinds held to segment-sum determinism on the card (GAT has no other
-#: path), and the segment sums a layer of each launches (GAT: its softmax
-#: denominators and its weighted messages).
+#: path), the segment sums a layer of each launches (GAT: its weighted
+#: messages) and its edge-softmax launches a layer (GAT's softmax, its
+#: denominators included, is one launch of ``kernels.edge_softmax``).
 SEGMENT_KINDS = ("gcn", "sage", "gat")
-SEGMENT_SUMS = {"gcn": 1, "sage": 1, "gat": 2}
+SEGMENT_SUMS = {"gcn": 1, "sage": 1, "gat": 1}
+SOFTMAXES = {"gcn": 0, "sage": 0, "gat": 1}
 #: Kinds whose segment-sum embeddings (both executors) gate the run
 #: against the float64 forward at the embedding bar. SAGE's are printed: its
 #: unit-normalised 2-wide rows amplify any float32 rounding of a row with
@@ -495,6 +511,7 @@ SOURCES = {"block_spmm": CSRC + "block_spmm.cu",
            "dequant": CSRC + "block_spmm.cu",
            "flash_attention": CSRC + "flash_attention.cu",
            "segment_sum": CSRC + "segment_sum.cu",
+           "edge_softmax": CSRC + "segment_sum.cu",
            "selective_scan": CSRC + "recurrence.cu",
            "rglru_scan": CSRC + "recurrence.cu",
            "selective_scan_bwd": CSRC + "recurrence.cu",
@@ -508,6 +525,9 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:67",
     # Not a Pallas kernel: the XLA segment sum of the reference's layers.
     "segment_sum": "src/repro/gnn/layers.py:67",
+    # Not a Pallas kernel: the segment max and softmax chain of the
+    # reference's GAT layer.
+    "edge_softmax": "src/repro/gnn/layers.py:125",
     # Not Pallas kernels: the reference's lax.scan time loops.
     "selective_scan": "src/repro/models/ssm.py:79",
     "rglru_scan": "src/repro/models/ssm.py:163",
@@ -521,7 +541,8 @@ REPLACES = {
 ROW_PATH = {"block_spmm": "sim", "block_spmm_batched": "sim",
             "dequant_spmm": "mesh", "dequant_spmm_batched": "mesh",
             "dequant": "dequantize", "flash_attention": "prefill",
-            "segment_sum": "sim", "selective_scan": "serve-falcon-mamba",
+            "segment_sum": "sim", "edge_softmax": "mesh",
+            "selective_scan": "serve-falcon-mamba",
             "rglru_scan": "serve-recurrentgemma",
             "selective_scan_bwd": "train-falcon-mamba",
             "rglru_scan_bwd": "train-recurrentgemma"}
@@ -530,25 +551,26 @@ MESH_KERNELS = ("block_spmm", "block_spmm_batched", "dequant_spmm",
                 "dequant_spmm_batched")
 #: The kernels each driven path must launch.
 PATH_KERNELS = {"sim": ("block_spmm", "block_spmm_batched"),
-                "sim-segment": ("segment_sum",),
+                "sim-segment": ("segment_sum", "edge_softmax"),
                 "mesh": MESH_KERNELS,
-                "mesh-segment": ("segment_sum",),
+                "mesh-segment": ("segment_sum", "edge_softmax"),
                 "dequantize": ("dequant",),
                 "server": ("block_spmm", "block_spmm_batched"),
                 "server-mesh": MESH_KERNELS,
                 # Phase 3l: every rank's kernel and segment-sum queries,
                 # summed over the ranks.
-                "mesh-dist": MESH_KERNELS + ("segment_sum",),
+                "mesh-dist": MESH_KERNELS + ("segment_sum", "edge_softmax"),
                 # Phase 3l's faults part: the survivors' ranks (a crashed
                 # fog's rank launches nothing), summed over the ranks.
-                "mesh-dist-faults": MESH_KERNELS + ("segment_sum",),
+                "mesh-dist-faults": MESH_KERNELS + ("segment_sum",
+                                                    "edge_softmax"),
                 "server-slo": ("segment_sum",),
                 "server-update": ("block_spmm", "dequant_spmm"),
                 "serve": ("flash_attention",),
                 "prefill": ("flash_attention",),
                 "frontier-sim": ("block_spmm", "block_spmm_batched"),
                 "frontier-mesh": MESH_KERNELS,
-                "frontier-sim-segment": ("segment_sum",),
+                "frontier-sim-segment": ("segment_sum", "edge_softmax"),
                 "frontier-mesh-segment": ("segment_sum",),
                 "stale": ("block_spmm", "dequant_spmm", "segment_sum"),
                 "fleet": ("block_spmm", "block_spmm_batched"),
@@ -558,7 +580,7 @@ PATH_KERNELS = {"sim": ("block_spmm", "block_spmm_batched"),
                 "recover-update": ("block_spmm_batched",
                                    "dequant_spmm_batched"),
                 "fleet-faults": ("block_spmm",),
-                "train": ("segment_sum",),
+                "train": ("segment_sum", "edge_softmax"),
                 "train-serve": ("block_spmm",),
                 "astgcn": ("segment_sum",),
                 "demo": ("segment_sum", "block_spmm"),
@@ -1269,14 +1291,25 @@ def f64_forward(models, plan, kind: str):
     return exact
 
 
-def segment_gates(Engine, models, g, kind: str, executor: str, sg) -> dict:
+def segment_launches(kind: str, n: int) -> dict:
+    """The launches n layer-examples of ``kind`` make on the segment path:
+    n SEGMENT_SUMS[kind] segment sums and n SOFTMAXES[kind] edge softmaxes
+    (the kernels that launch at all)."""
+    want = {"segment_sum": n * SEGMENT_SUMS[kind],
+            "edge_softmax": n * SOFTMAXES[kind]}
+    return {name: k for name, k in want.items() if k}
+
+
+def segment_gates(Engine, models, g, kind: str, executor: str, sg,
+                  es) -> dict:
     """Phases 3 and 3b, ``aggregation="segment_sum"`` for one kind on one
     executor (seeded weights; on the mesh the halo rows cross as f32, since
     the DAQ halo wire runs only on the kernel path): two executes of the
     same features must be bitwise equal, and an ``execute_many`` of BATCH
     bitwise BATCH serial executes; an execute launches the segment-sum
-    kernel SEGMENT_SUMS[kind] times a layer, a batch BATCH times that
-    (``sg`` is the kernel's module). The embeddings are held to the
+    kernel SEGMENT_SUMS[kind] times a layer and the edge softmax
+    SOFTMAXES[kind] times, a batch BATCH times those (``sg`` and ``es``
+    are the kernels' modules). The embeddings are held to the
     float64 forward on the CPU at the embedding bar, gating the kinds in
     SEGMENT_F64_GATED_KINDS and printed for all. Returns the execute times
     (host clock, ending in the copy back) and the checks."""
@@ -1287,20 +1320,26 @@ def segment_gates(Engine, models, g, kind: str, executor: str, sg) -> dict:
                   aggregation="segment_sum", validate="strict",
                   device="cuda").compile(g)
     sess = plan.session()
-    per_execute = plan.model.num_layers * SEGMENT_SUMS[kind]
+    per_execute = segment_launches(kind, plan.model.num_layers)
     what = f"{kind} {executor} segment_sum"
 
-    def launched(fn, want, call):
-        before = sg.segment_sum.launches
+    def counts():
+        return {"segment_sum": sg.segment_sum.launches,
+                "edge_softmax": es.edge_softmax.launches}
+
+    def launched(fn, examples, call):
+        before = counts()
         out = fn()
-        if sg.segment_sum.launches - before != want:
-            raise AssertionError(f"{what}: {call} launched "
-                                 f"{sg.segment_sum.launches - before} "
-                                 f"segment sums, expected {want}")
+        got = {k: n - before[k] for k, n in counts().items()
+               if n != before[k]}
+        want = segment_launches(kind, plan.model.num_layers * examples)
+        if got != want:
+            raise AssertionError(f"{what}: {call} launched {got}, "
+                                 f"expected {want}")
         return out
 
     feats = sess.collect()
-    first = launched(lambda: sess.execute(feats), per_execute, "an execute")
+    first = launched(lambda: sess.execute(feats), 1, "an execute")
     if first.shape != (g.num_vertices, DIMS_OUT) or \
             not np.isfinite(first).all():
         raise AssertionError(f"{what}: bad embeddings {first.shape}")
@@ -1316,7 +1355,7 @@ def segment_gates(Engine, models, g, kind: str, executor: str, sg) -> dict:
     stack = np.stack([sess.collect(g.features + rng.normal(
         scale=0.1, size=g.features.shape)) for _ in range(BATCH)])
     t0 = time.perf_counter()
-    many = launched(lambda: sess.execute_many(stack), BATCH * per_execute,
+    many = launched(lambda: sess.execute_many(stack), BATCH,
                     f"a batch of {BATCH}")
     batch_ms = (time.perf_counter() - t0) * 1e3
     for b in range(BATCH):
@@ -2163,6 +2202,122 @@ def headed_sum_cases(sg, ref, bsp, pg) -> list:
     return cases
 
 
+#: Heads of the edge-softmax cases: GAT's one, the multi-head cell's 4 and 6.
+SOFTMAX_HEADS = (1, 4, 6)
+
+
+def softmax_bound(rows_read: int, v: int, summed: int, heads: int) -> tuple:
+    """Least time (ms) of one edge softmax: the source scores of the rows
+    it gathers and the receivers' scores read once, the offsets once, the
+    order and the gather index once and a coefficient written an entry and
+    head, at the HBM rate; or seven operations an entry and head (an add,
+    the leaky product, a max, a subtraction, an exponent, an add and a
+    division) at the f32 rate."""
+    nbytes = 4 * (rows_read * heads + v * heads + (v + 1)
+                  + summed * (2 + heads))
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 7 * summed * heads / PEAK_F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def edge_softmax_cases(es, sg, ref, bsp, pg) -> list:
+    """Phase 2, GAT's edge softmax (``edge_softmax_kernel``) on the folded
+    RMAT-40k layout ``pg`` (``gat_mesh_layout``): GAT's self-looped halo
+    list over the [n*P | n*B] table at SOFTMAX_HEADS heads, N(0, 2) scores.
+    Each launch bitwise the plain chain on the card (``ref.
+    edge_softmax_ref``, its denominators the segment-sum kernel's, as the
+    layer ran it) over every entry of the order, and a second launch; one
+    launch a call and no segment sum. Timed beside the chain (plain_ms),
+    the chain with ``torch.segment_reduce`` sums (library_ms: library calls
+    only) and the chain's ``scatter_reduce`` max alone, with the seconds
+    the case took. H = 1 is GAT's layer (path "mesh"), H = 4 and 6 the
+    multi-head cell's (path "mesh-heads")."""
+    t_all = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    el = bsp._edges(pg, torch.device("cuda"), "halo", "gat")
+    rows = pg.n * (pg.slots + pg.boundary_slots)
+    order, v = el.order, el.num_vertices
+    kept = order.long()
+    summed = order.shape[0]
+    rows_read = int(torch.unique(el.gather).numel())
+    n_long = int(el.long_segments(es.LONG_FEATURES).ids.numel())
+    total = es._total(el)
+    cases = []
+    for heads in SOFTMAX_HEADS:
+        t0 = time.perf_counter()
+        shape = () if heads == 1 else (heads,)
+        a_src = torch.randn((rows,) + shape, generator=gen,
+                            device="cuda") * 2.0
+        a_dst = torch.randn((v,) + shape, generator=gen, device="cuda") * 2.0
+
+        def call():
+            return es.edge_softmax(a_src, a_dst, el)
+
+        def plain(sums=total):
+            return ref.edge_softmax_ref(a_src, a_dst, el.senders,
+                                        el.receivers, el.mask, order,
+                                        el.offsets, sums)
+
+        def library():
+            return plain(None)
+
+        def scatter_max():
+            logits = torch.where(el.mask > 0, a_src.movedim(0, -1)[
+                ..., el.senders], -torch.inf)
+            return torch.full(logits.shape[:-1] + (v,), -torch.inf,
+                              device="cuda").scatter_reduce(
+                -1, el.receivers.long().expand_as(logits), logits, "amax",
+                include_self=False)
+
+        before = (es.edge_softmax.launches, sg.segment_sum.launches)
+        got = call()
+        after = (es.edge_softmax.launches, sg.segment_sum.launches)
+        if (after[0] - before[0], after[1] - before[1]) != (1, 0):
+            raise AssertionError(f"edge_softmax H={heads}: "
+                                 f"{after[0] - before[0]} launches and "
+                                 f"{after[1] - before[1]} segment sums for "
+                                 f"one call")
+        want = plain()
+        for what, other in (("plain chain", want), ("second launch",
+                                                    call())):
+            if not torch.equal(got[kept].view(torch.int32),
+                               other[kept].view(torch.int32)):
+                bad = int((got[kept] != other[kept]).sum())
+                raise AssertionError(f"edge_softmax H={heads}: not bitwise "
+                                     f"the {what} ({bad} entries differ)")
+        lib_err = float((library()[kept] - got[kept]).abs().max())
+        del got, want
+        b_ms, b_by = softmax_bound(rows_read, v, summed, heads)
+        k_ms = time_ms(call, reps=30)
+        p_ms = time_ms(plain, reps=10)
+        l_ms = time_ms(library, reps=10)
+        m_ms = time_ms(scatter_max, reps=10)
+        rec = {"case": "rmat-40k mesh halo",
+               "path": "mesh" if heads == 1 else "mesh-heads", "H": heads,
+               "rows": rows, "summed": summed,
+               "edges": int(el.senders.shape[0]), "V": v,
+               "source_rows": rows_read, "long_segments": n_long,
+               "max_abs_err": 0.0, "library_max_abs_diff": lib_err,
+               "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+               "scatter_max_ms": m_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "roofline_pct": 100.0 * b_ms / k_ms}
+        del a_src, a_dst
+        torch.cuda.empty_cache()
+        rec["case_s"] = time.perf_counter() - t0
+        cases.append(rec)
+        log(f"  edge_softmax H={heads}: {summed} entries of "
+            f"{rec['edges']} edges into {v} receivers ({n_long} long), "
+            f"bitwise the plain chain and a second launch, one launch a "
+            f"call; {k_ms:.4f} ms (bound {b_ms:.4f} ms, {b_by}, "
+            f"{rec['roofline_pct']:.1f} %), plain chain {p_ms:.4f} ms, "
+            f"library chain {l_ms:.4f} ms (max diff {lib_err:.3g}), its "
+            f"scatter max {m_ms:.4f} ms; case {rec['case_s']:.2f} s")
+    log(f"  edge_softmax cases, the edge list's build included: "
+        f"{time.perf_counter() - t_all:.2f} s")
+    return cases
+
+
 def wgrad_bound(src_rows: int, g_rows: int, f: int, summed: int,
                 entries: int) -> tuple:
     """Least time (ms) of the w-gradient ``<x[idx[k]], g[v]>``: the
@@ -2498,7 +2653,7 @@ def expected_launches(responses, plan, mesh: bool, ladder=()) -> dict:
     """The launches a replay's batches imply: a batch of one K
     ``block_spmm`` (and K ``dequant_spmm`` on the mesh's DAQ wire), a batch
     of two or more K of the batched kernels; a batch of b on a segment-sum
-    rung of L layers b * L * SEGMENT_SUMS[kind] segment sums (the rule of
+    rung of L layers ``segment_launches(kind, b * L)`` (the rule of
     ``segment_gates``)."""
     want = dict.fromkeys(REPLACES, 0)
     k = plan.model.num_layers
@@ -2507,8 +2662,9 @@ def expected_launches(responses, plan, mesh: bool, ladder=()) -> dict:
             rung = ladder[level - 1]
             if rung.aggregation != "segment_sum":
                 raise AssertionError(f"rung {rung} is not a segment-sum rung")
-            want["segment_sum"] += (b * (rung.num_layers or k)
-                                    * SEGMENT_SUMS[plan.model.kind])
+            for name, n in segment_launches(
+                    plan.model.kind, b * (rung.num_layers or k)).items():
+                want[name] += n
             continue
         suffix = "" if b == 1 else "_batched"
         want["block_spmm" + suffix] += k
@@ -3430,7 +3586,7 @@ def frontier_launches(mesh: bool, segment: bool, kind: str, k: int,
     if decision == "empty":
         return want, sub
     if segment:
-        want["segment_sum"] = k * SEGMENT_SUMS[kind] * batch
+        want.update(segment_launches(kind, k * batch))
         return want, sub
     suffix = "" if batch == 1 else "_batched"
     for name in ["block_spmm"] + ["dequant_spmm"] * mesh:
@@ -4072,7 +4228,7 @@ def check_batches(what: str, calls, kernel_lint, bsp, k: int,
         mesh = plan.config.executor == "mesh-bsp"
         want = dict.fromkeys(REPLACES, 0)
         if segment:
-            want["segment_sum"] = b * k * SEGMENT_SUMS[plan.model.kind]
+            want.update(segment_launches(plan.model.kind, b * k))
         elif mesh and s == 0:
             want = lint_counts(kernel_lint, plan, True)
         elif mesh:
@@ -4471,13 +4627,18 @@ def verifier_path(analysis, plans) -> dict:
 TRAIN_KINDS = ("gcn", "sage", "gat")
 TRAIN_STEPS, TRAIN_LR = 120, 5e-3
 AST_STEPS = 300
-#: Segment-sum launches a training step makes, (forward, backward): K
-#: layers of SEGMENT_SUMS forward; backward one launch a sum whose input
-#: wants a gradient: GCN and SAGE sum the features at layer 1 (no
-#: gradient) and layer 1's output at layer 2 (one), GAT's two sums a
-#: layer both sum functions of its weights (its w-gradient is plain
-#: PyTorch, no launch). ASTGCN-lite: one spatial sum over all timesteps.
+#: Segment-sum launches a training step makes, (not for a gradient, for
+#: one): K layers of SEGMENT_SUMS forward; then one launch a sum whose
+#: input wants a gradient: GCN and SAGE sum the features at layer 1 (no
+#: gradient) and layer 1's output at layer 2 (one); GAT's message sums
+#: both sum functions of its weights (its w-gradient is plain PyTorch, no
+#: launch), and each layer's edge-softmax backward recomputes the softmax
+#: chain, its denominators one sum, and takes that sum's gradient (one
+#: each). Beside them K SOFTMAXES edge-softmax launches a step, forward.
+#: ASTGCN-lite: one spatial sum over all timesteps.
 TRAIN_LAUNCHES = {"gcn": (2, 1), "sage": (2, 1), "gat": (4, 4)}
+#: The layers of the trained models ([52, 64, 2]).
+TRAIN_LAYERS = 2
 AST_LAUNCHES = (1, 1)
 DAQ_ACCURACY_DROP = 0.01                # tests/test_system.py:63
 #: The card's ASTGCN-lite run against the CPU's from the same init: final
@@ -4559,24 +4720,27 @@ def first_step(models, layers, g, kind: str, params, device, dtype):
     return loss.detach(), torch.autograd.grad(loss, flat)
 
 
-def gradient_gate(models, layers, sg, g, kind: str) -> dict:
+def gradient_gate(models, layers, sg, es, g, kind: str) -> dict:
     """Phase 3i, one kind's first training step on the card (``[52, 64,
     2]``, ``gnn_init`` from a CUDA generator, seed 0): exactly
-    TRAIN_LAUNCHES segment-sum launches (the backward ones counted apart),
-    and its loss and every gradient against the CPU float64 step at rtol
-    1e-4 / atol 1e-5."""
+    TRAIN_LAUNCHES segment-sum launches (the backward ones counted apart)
+    and K SOFTMAXES edge-softmax launches, and its loss and every gradient
+    against the CPU float64 step at rtol 1e-4 / atol 1e-5."""
     fwd, bwd = TRAIN_LAUNCHES[kind]
+    soft = TRAIN_LAYERS * SOFTMAXES[kind]
     init = models.gnn_init(torch.Generator(device="cuda").manual_seed(0),
                            kind, [g.feature_dim, DIMS_HIDDEN, DIMS_OUT])
-    before = (sg.segment_sum.launches, sg.segment_sum.backward_launches)
+    before = (sg.segment_sum.launches, sg.segment_sum.backward_launches,
+              es.edge_softmax.launches)
     loss_card, g_card = first_step(models, layers, g, kind, init,
                                    torch.device("cuda"), torch.float32)
     step_launches = (sg.segment_sum.launches - before[0],
-                     sg.segment_sum.backward_launches - before[1])
-    if step_launches != (fwd + bwd, bwd):
+                     sg.segment_sum.backward_launches - before[1],
+                     es.edge_softmax.launches - before[2])
+    if step_launches != (fwd + bwd, bwd, soft):
         raise AssertionError(f"{kind} training step: {step_launches} "
-                             f"(launches, backward launches), expected "
-                             f"{(fwd + bwd, bwd)}")
+                             f"(launches, backward launches, edge "
+                             f"softmaxes), expected {(fwd + bwd, bwd, soft)}")
     loss_64, g_64 = first_step(models, layers, g, kind, init,
                                torch.device("cpu"), torch.float64)
     names = [f"{i}/{k}" for i, p in enumerate(init) for k in p]
@@ -4633,12 +4797,15 @@ def check_training(outs, per_run, plain_calls_made: int) -> tuple:
     for (kind, steps, params, loss, wall, bwd_n), counts in zip(outs,
                                                                 per_run):
         fwd, bwd = TRAIN_LAUNCHES[kind]
+        soft = TRAIN_LAYERS * SOFTMAXES[kind]
         if counts["segment_sum"] != steps * (fwd + bwd) or \
-                bwd_n != steps * bwd:
+                bwd_n != steps * bwd or \
+                counts["edge_softmax"] != steps * soft:
             raise AssertionError(
                 f"{kind}: {steps} training steps launched "
-                f"{counts['segment_sum']} segment sums ({bwd_n} backward), "
-                f"expected {steps * (fwd + bwd)} ({steps * bwd})")
+                f"{counts['segment_sum']} segment sums ({bwd_n} backward) "
+                f"and {counts['edge_softmax']} edge softmaxes, expected "
+                f"{steps * (fwd + bwd)} ({steps * bwd}) and {steps * soft}")
         by_kind.setdefault(kind, []).append((params, loss, wall))
     recs, trained = [], {}
     for kind, ((_, loss_1, _), (params, loss_n, wall),
@@ -4867,7 +5034,8 @@ def train_path(models, layers, datasets, ref, sg, Engine, g, drive,
     output of ``--device cpu``)."""
     from repro_torch.api import demo
     t0 = time.perf_counter()
-    gates = {kind: gradient_gate(models, layers, sg, g, kind)
+    from repro_torch.kernels import edge_softmax as es
+    gates = {kind: gradient_gate(models, layers, sg, es, g, kind)
              for kind in TRAIN_KINDS}
     with plain_calls(ref) as plain:
         outs, per_run = drive_each("train", train_runs(models, sg, g))
@@ -5488,6 +5656,7 @@ def dist_rank(rank: int, out_dir: str) -> None:
     from repro_torch.api import Engine
     from repro_torch.gnn import datasets, models
     from repro_torch.kernels import daq_dequant as dq
+    from repro_torch.kernels import edge_softmax as es
     from repro_torch.kernels import gather_aggregate as ga
     from repro_torch.kernels import segment_sum as sg
     from repro_torch.runtime.dist import WIRE
@@ -5498,7 +5667,8 @@ def dist_rank(rank: int, out_dir: str) -> None:
                 "block_spmm_batched": ga.block_spmm_batched,
                 "dequant_spmm": dq.dequant_spmm,
                 "dequant_spmm_batched": dq.dequant_spmm_batched,
-                "segment_sum": sg.segment_sum}
+                "segment_sum": sg.segment_sum,
+                "edge_softmax": es.edge_softmax}
     g = datasets.load("siot", 1.0, seed=0)
     WIRE.reset()
     WIRE.timed = True
@@ -5547,7 +5717,7 @@ def dist_expected(bsp, pg, kind: str, name: str, k: int) -> tuple:
                 [BATCH * b for b in daq])
     if name == "f32_query":
         return {"block_spmm": 2 * k}, f32
-    return {"segment_sum": k * SEGMENT_SUMS[kind]}, f32
+    return segment_launches(kind, k), f32
 
 
 def dist_path(Engine, models, g, bsp, wrappers: dict) -> tuple:
@@ -5709,7 +5879,7 @@ def dist_fault_expected(name: str, wire: dict, plans: dict, bsp,
             syncs = wire[f"{kind}/{parts[1]}"]
     k = 2
     if kind == "gat":
-        return {"segment_sum": k * SEGMENT_SUMS[kind]}, syncs["f32"]
+        return segment_launches(kind, k), syncs["f32"]
     if comp == "daq":
         one = {"block_spmm": k, "dequant_spmm": k}
         many = {"block_spmm_batched": k, "dequant_spmm_batched": k}
@@ -5829,6 +5999,7 @@ def main() -> int:
     from repro_torch.gnn import datasets, layers, models
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import daq_dequant as dq
+    from repro_torch.kernels import edge_softmax as es
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gather_aggregate as ga
     from repro_torch.kernels import recurrence as rc
@@ -5918,6 +6089,7 @@ def main() -> int:
     staging = stage_rows_cases(sr, ref, bsp, [
         ("gat-rmat40k", gat_pg, 32), ("gcn-siot", pg, g.feature_dim)])
     headed = headed_sum_cases(sg, ref, bsp, gat_pg)
+    softmax = edge_softmax_cases(es, sg, ref, bsp, gat_pg)
     del gat_pg
     n_rows, blocks_sim, blocks_mesh = subset_blocks(g, pg, local.out_rows,
                                                     frontier)
@@ -5933,6 +6105,7 @@ def main() -> int:
         datasets.load_pems_window(1.0, seed=0).graph, device="cuda")
     results.update(segment_cases(sg, ref, layers, bsp, g, pg, pems))
     results["segment_sum"]["headed_cases"] = headed
+    results["edge_softmax"] = {"cases": softmax}
     results["segment_sum"]["cases"] += segment_backward_cases(
         sg, ref, layers, g, pems)
     del pems
@@ -5950,6 +6123,7 @@ def main() -> int:
                 "dequant": dq.dequant,
                 "flash_attention": fa.flash_attention,
                 "segment_sum": sg.segment_sum,
+                "edge_softmax": es.edge_softmax,
                 "selective_scan": rc.selective_scan,
                 "rglru_scan": rc.rglru_scan}
     wrappers["selective_scan_bwd"] = BackwardCount(rc.selective_scan)
@@ -6024,7 +6198,7 @@ def main() -> int:
     served = drive("sim", lambda: [serve(Engine, models, g, kind, ga)
                                    for kind in ("gcn", "sage")])
     seg_sim = drive("sim-segment", lambda: [
-        segment_gates(Engine, models, g, kind, "sim", sg)
+        segment_gates(Engine, models, g, kind, "sim", sg, es)
         for kind in SEGMENT_KINDS])
     for s in served:
         log(f"  {s['kind']}: compile {s['compile_s']:.2f} s, query "
@@ -6047,7 +6221,7 @@ def main() -> int:
         return out
     meshed = drive("mesh", mesh_kinds)
     seg_mesh = drive("mesh-segment", lambda: [
-        segment_gates(Engine, models, g, kind, "mesh-bsp", sg)
+        segment_gates(Engine, models, g, kind, "mesh-bsp", sg, es)
         for kind in SEGMENT_KINDS])
     del gcn_mesh, pg
     for path in ("mesh", "mesh-segment"):

@@ -15,7 +15,11 @@ the executor, which then runs only the dense tail here
   GAT       a_v = sum_{u in N(v) u {v}} alpha_vu W h_u ;  h_v = sigma(a_v)
   GraphSAGE a_v = mean_{u in N(v)} h_u ; h_v = sigma(W . [a_v, h_v])
 
-GAT's layer has H attention heads (H = 1 in the ``gat`` kind's models);
+GAT's softmax, scores to coefficients, is one call of
+``kernels.edge_softmax`` over the receiver order (one launch on the card;
+on the CPU its plain version, a chain of PyTorch ops), whose coefficients
+weight the messages inside the sum. GAT's layer has H attention heads (H
+= 1 in the ``gat`` kind's models);
 ``gat_heads`` is the multi-head model of Velickovic et al. (ICLR 2018,
 arXiv 1710.10903, Section 3.3): its hidden layers concatenate their heads
 and add an identity skip where the widths allow, its last layer averages
@@ -33,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.edge_softmax import edge_softmax
 from repro_torch.kernels.segment_sum import (LongSegments, Transposed,
                                              cached_long_segments,
                                              receiver_order, segment_sum)
@@ -240,11 +245,11 @@ def gat_init(generator: torch.Generator, in_dim: int, out_dim: int,
 
 
 def _scores(z: torch.Tensor, att: torch.Tensor) -> torch.Tensor:
-    """Every head's score a^k . z^k of the rows of z [N, H * D], head-major
-    ([H, N], a view), or [N] at one head."""
+    """Every head's score a^k . z^k of the rows of z [N, H * D], row-major
+    [N, H], or [N] at one head."""
     heads = att.shape[0]
-    scores = (z.view(z.shape[0], heads, -1) * att).sum(-1).T
-    return scores[0] if heads == 1 else scores
+    scores = (z.view(z.shape[0], heads, -1) * att).sum(-1)
+    return scores[:, 0] if heads == 1 else scores
 
 
 def _mean_heads(a: torch.Tensor, heads: int) -> torch.Tensor:
@@ -271,33 +276,19 @@ def gat_layer(params, h, edges: EdgeList, *, activation=F.elu, h_src=None,
     heads = params["att_src"].shape[0]
     wh = h @ params["w"]                                # [P, H*D] (local)
     wh_src = wh if h_src is None else h_src @ params["w"]
-    v = edges.num_vertices
     # Self loops: include v in its own neighborhood (Table I: N_v u {v}),
     # unless the caller indexes a different source table.
     if h_src is None:
         edges = edges.self_looped
     with span("attention"):
-        # Head-major: [H, ..] tables gathered along their last axis ([..]
-        # at one head, the single-head arithmetic op for op).
-        alpha_src = _scores(wh_src, params["att_src"])  # [H, M]
-        alpha_dst = _scores(wh, params["att_dst"])      # [H, P]
-        s, r, m = edges.senders, edges.receivers, edges.mask
-        logits = F.leaky_relu(alpha_src[..., s] + alpha_dst[..., r], 0.2)
-        logits = torch.where(m > 0, logits, -torch.inf)  # [H, E]
-        # Segment softmax over each receiver's incoming edges, per head;
-        # receivers with no edge keep -inf and are zeroed by the isfinite
-        # guard. The max is exact in any order.
-        seg_max = torch.full(logits.shape[:-1] + (v,), -torch.inf,
-                             dtype=logits.dtype, device=logits.device)
-        seg_max = seg_max.scatter_reduce(-1, r.long().expand_as(logits),
-                                         logits, "amax", include_self=False)
-        seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
-        ex = torch.where(m > 0, torch.exp(logits - seg_max[..., r]), 0.0)
-        denom = _segment_sum(ex.movedim(0, -1), edges).movedim(-1, 0)
-        coef = ex / torch.clamp_min(denom[..., r], 1e-16)
+        alpha_src = _scores(wh_src, params["att_src"])  # [M, H]
+        alpha_dst = _scores(wh, params["att_dst"])      # [P, H]
+        # Segment softmax over each receiver's incoming edges, per head
+        # (``kernels.edge_softmax``: one pass over the receiver order).
+        coef = edge_softmax(alpha_src, alpha_dst, edges)  # [E, H]
     # The messages wh_src[s] * coef, gathered and weighted per head inside
-    # the sum (coef [E, H]).
-    a = _segment_sum(wh_src, edges, idx=edges.gather, w=coef.movedim(0, -1))
+    # the sum.
+    a = _segment_sum(wh_src, edges, idx=edges.gather, w=coef)
     if activation is None:
         return _mean_heads(a, heads)
     if skip and h.shape[-1] == a.shape[-1]:

@@ -9,6 +9,10 @@
 // run as H weighted sums over column slices (the JAX package has no
 // multi-head GAT)
 //   -> headed_sum_launch (headed_sum_kernel, below segment_kernel)
+// and GAT's edge softmax over the same receiver order, scores to
+// coefficients in one pass (the jax.ops.segment_max and elementwise chain
+// of src/repro/gnn/layers.py:125-132)
+//   -> edge_softmax_launch (edge_softmax_kernel, at the end)
 //
 // Computes, for every receiver v and feature f,
 //   out[v, f] = +0 (+) w(k0) * x[idx[k0], f] (+) w(k1) * x[idx[k1], f] ...
@@ -56,6 +60,7 @@
 // column), so the order is fixed. No atomics.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -727,6 +732,371 @@ int headed_sum_launch(const float* x, const int32_t* idx, const float* w,
       return launch_headed_nc<2>(a, nc, grid, s);
     default:
       return launch_headed_nc<1>(a, nc, grid, s);
+  }
+}
+
+}  // extern "C"
+
+// GAT's edge softmax over the receiver order. Replaces no TPU kernel: the
+// JAX package's GAT layer computes it with jax.ops.segment_max, a
+// segment_sum and elementwise ops (src/repro/gnn/layers.py:125-132), which
+// XLA lowers without Pallas; the port ran that chain as some twenty PyTorch
+// launches a layer around scatter_reduce "amax", an atomic compare-and-swap
+// an edge over every edge of the padded arrays.
+//
+// Computes, for every receiver v and head h, over the entries k =
+// offsets[v] .. offsets[v + 1] - 1 of the order (the unmasked edges sorted
+// stably by receiver), with j = gather[k] and e = order[k]:
+//   l_k = leaky_relu(a_src[j, h] + a_dst[v, h], 0.2)   (l > 0 ? l : l * 0.2f)
+//   m   = the max of the l_k (NaN if one is NaN), 0 where not finite
+//   d   = +0 (+) expf(l_k0 - m) (+) expf(l_k1 - m) ...   left to right
+//   coef[e, h] = expf(l_k - m) / (d is NaN ? d : max(d, 1e-16f))
+// each operation rounded on its own (__fadd_rn, __fsub_rn, __fmul_rn,
+// __fdiv_rn and the full-precision expf; the build has no fast math): the
+// floats of the PyTorch chain (kernels/ref.py edge_softmax_ref), whose
+// denominators are segment_kernel's left-to-right sums. coef is [E, H],
+// edge-major, as segment_kernel and headed_sum_kernel read their weights;
+// entries outside the order (masked edges) are neither read nor written.
+//
+// What bounds it on an H100: the order and the gather index read once and
+// the coefficients written once, 8 + 4H bytes an entry, and the score
+// tables read once: 18 MB at H = 1 over RMAT-40k's folded six-fog layout
+// (1.4 M entries), 5.4 us at 3.35 TB/s; the arithmetic (two exps an entry
+// and head) is far below the f32 rate. What sets its pace instead: the
+// denominators' add chain, one dependent add an entry, as long as the
+// longest segment (RMAT-40k's hub: over 7,000 entries), and the gathers
+// of scores (the tables, 0.3-3.5 MB, stay in L2).
+//
+// Design. Three passes over a segment: the max (any order: exact), the
+// denominators (in order), the coefficients; the last two recompute the
+// logits and exponents from the tables (L1 and L2 hits) rather than keep
+// them. Short segments (at most long_threshold entries): a group of G
+// lanes (the smallest power of two, 4 to 32, at least the mean segment
+// length) owns a receiver and all its heads; lanes take strided entries,
+// the max is a shuffle reduction over the group, and the sum walks G
+// entries at a time in every lane of the group, each entry's exponents
+// broadcast by shuffles that do not wait on the sum, so the chain costs
+// one add an entry. Long segments (all listed, longest first, by the
+// caller) take the first CTAs of the grid, so the hubs' chains run under
+// everything else: warps 1-7 compute a chunk's exponents into one half of
+// a shared-memory double buffer while lanes 0 .. H-1 of warp 0 add the
+// other half's in order, one head a lane. One lane, or one group's lanes
+// in step, own each sum, so the order is fixed; no atomics, no fill.
+namespace {
+
+constexpr int kMaxHeads = 8;
+constexpr int kSoftmaxPer = 2;   // entries a producer computes a chunk
+constexpr int kSoftmaxChunk = kProducers * kSoftmaxPer;
+constexpr int kBatch = 4;        // strided entries whose loads go together
+
+struct SoftmaxArgs {
+  const float* a_src;      // [rows, H]
+  const float* a_dst;      // [num_segments, H]
+  const int32_t* order;
+  const int32_t* gather;
+  const int32_t* offsets;
+  const int32_t* long_segs;
+  float* coef;             // [entries, H]
+  int num_segments, n_long;
+  int long_threshold;      // segments longer than this are long_segs'
+  int lanes;               // lanes of a short group (4 .. 32)
+};
+
+// torch.nn.functional.leaky_relu(x, 0.2) in f32.
+__device__ __forceinline__ float leaky(float x) {
+  return x > 0.f ? x : __fmul_rn(x, 0.2f);
+}
+
+// The max of scatter_reduce "amax" (safe_max): a NaN wins.
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (isnan(a) || a > b) ? a : b;
+}
+
+// torch.clamp_min(d, 1e-16) in f32: NaN kept.
+__device__ __forceinline__ float floor_denominator(float d) {
+  return isnan(d) ? d : fmaxf(d, 1e-16f);
+}
+
+// Entry k's H scores of its sender, one load each.
+template <int H>
+__device__ __forceinline__ void src_scores(const SoftmaxArgs& a, int j,
+                                           float (&s)[H]) {
+  const float* row = a.a_src + (long long)j * H;
+#pragma unroll
+  for (int h = 0; h < H; ++h) s[h] = __ldg(row + h);
+}
+
+// Pass 1 over the entries lo + first, lo + first + step, .. < hi: the
+// lane's max of the logits per head, kBatch entries' loads at a time.
+template <int H>
+__device__ __forceinline__ void lane_max(const SoftmaxArgs& a, int lo,
+                                         int hi, int first, int step,
+                                         const float (&dst)[H],
+                                         float (&m)[H]) {
+  for (int k0 = lo + first; k0 < hi; k0 += kBatch * step) {
+    int j[kBatch];
+    float s[kBatch][H];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int k = k0 + u * step;
+      j[u] = k < hi ? __ldg(a.gather + k) : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (j[u] >= 0) src_scores<H>(a, j[u], s[u]);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (j[u] >= 0) {
+#pragma unroll
+        for (int h = 0; h < H; ++h)
+          m[h] = nan_max(leaky(__fadd_rn(s[u][h], dst[h])), m[h]);
+      }
+  }
+}
+
+// Pass 3 over the same strided entries: each coefficient written once.
+template <int H>
+__device__ __forceinline__ void lane_coefs(const SoftmaxArgs& a, int lo,
+                                           int hi, int first, int step,
+                                           const float (&dst)[H],
+                                           const float (&m)[H],
+                                           const float (&d)[H]) {
+  for (int k0 = lo + first; k0 < hi; k0 += kBatch * step) {
+    int j[kBatch], e[kBatch];
+    float s[kBatch][H];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int k = k0 + u * step;
+      j[u] = k < hi ? __ldg(a.gather + k) : -1;
+      e[u] = k < hi ? __ldg(a.order + k) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (j[u] >= 0) src_scores<H>(a, j[u], s[u]);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (j[u] >= 0) {
+        float* out = a.coef + (long long)e[u] * H;
+#pragma unroll
+        for (int h = 0; h < H; ++h) {
+          const float l = leaky(__fadd_rn(s[u][h], dst[h]));
+          out[h] = __fdiv_rn(expf(__fsub_rn(l, m[h])), d[h]);
+        }
+      }
+  }
+}
+
+// One short segment by a group of a.lanes lanes (mask: the group's lanes
+// of the warp; width: a.lanes).
+template <int H>
+__device__ __forceinline__ void short_softmax(const SoftmaxArgs& a, int v,
+                                              int lane, unsigned mask) {
+  const int g = a.lanes, lo = a.offsets[v], hi = a.offsets[v + 1];
+  float dst[H], m[H], d[H];
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    dst[h] = __ldg(a.a_dst + (long long)v * H + h);
+    m[h] = -INFINITY;
+    d[h] = 0.f;
+  }
+  lane_max<H>(a, lo, hi, lane, g, dst, m);
+  for (int off = g / 2; off > 0; off /= 2) {
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+      m[h] = nan_max(m[h], __shfl_xor_sync(mask, m[h], off, g));
+  }
+#pragma unroll
+  for (int h = 0; h < H; ++h) m[h] = isfinite(m[h]) ? m[h] : 0.f;
+  // Pass 2: g entries at a time, each lane one entry's exponents, added in
+  // entry order by every lane of the group.
+  for (int base = lo; base < hi; base += g) {
+    const int k = base + lane, n = min(g, hi - base);
+    float ex[H];
+    if (k < hi) {
+      float s[H];
+      src_scores<H>(a, __ldg(a.gather + k), s);
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+        ex[h] = expf(__fsub_rn(leaky(__fadd_rn(s[h], dst[h])), m[h]));
+    } else {
+#pragma unroll
+      for (int h = 0; h < H; ++h) ex[h] = 0.f;
+    }
+#pragma unroll 4
+    for (int u = 0; u < n; ++u) {
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+        d[h] = __fadd_rn(d[h], __shfl_sync(mask, ex[h], u, g));
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < H; ++h) d[h] = floor_denominator(d[h]);
+  lane_coefs<H>(a, lo, hi, lane, g, dst, m, d);
+}
+
+// One long segment by a whole CTA; ring: 2 * kSoftmaxChunk * H floats.
+template <int H>
+__device__ __forceinline__ void long_softmax(const SoftmaxArgs& a,
+                                             float* ring, int v) {
+  __shared__ float part[kThreads / 32][H];
+  __shared__ float stat[2][H];   // the max and the floored denominator
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int lo = a.offsets[v], hi = a.offsets[v + 1];
+  float dst[H], m[H];
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    dst[h] = __ldg(a.a_dst + (long long)v * H + h);
+    m[h] = -INFINITY;
+  }
+  lane_max<H>(a, lo, hi, tid, kThreads, dst, m);
+  for (int off = 16; off > 0; off /= 2) {
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+      m[h] = nan_max(m[h], __shfl_xor_sync(0xffffffffu, m[h], off));
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int h = 0; h < H; ++h) part[warp][h] = m[h];
+  }
+  __syncthreads();
+  if (tid < H) {
+    float x = part[0][tid];
+    for (int w = 1; w < kThreads / 32; ++w) x = nan_max(x, part[w][tid]);
+    stat[0][tid] = isfinite(x) ? x : 0.f;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < H; ++h) m[h] = stat[0][h];
+  // Pass 2: chunk c's exponents into ring half c % 2 by warps 1-7 while
+  // lane h of warp 0 adds head h of chunk c - 1 in entry order.
+  const int chunks = (hi - lo + kSoftmaxChunk - 1) / kSoftmaxChunk;
+  float acc = 0.f;
+  for (int c = 0; c <= chunks; ++c) {
+    if (warp > 0) {
+      if (c < chunks) {
+        float* half = ring + (c % 2) * kSoftmaxChunk * H;
+        int i[kSoftmaxPer], j[kSoftmaxPer];
+#pragma unroll
+        for (int q = 0; q < kSoftmaxPer; ++q) {
+          i[q] = tid - 32 + q * kProducers;
+          const int k = lo + c * kSoftmaxChunk + i[q];
+          j[q] = k < hi ? __ldg(a.gather + k) : -1;
+        }
+        float s[kSoftmaxPer][H];
+#pragma unroll
+        for (int q = 0; q < kSoftmaxPer; ++q)
+          if (j[q] >= 0) src_scores<H>(a, j[q], s[q]);
+#pragma unroll
+        for (int q = 0; q < kSoftmaxPer; ++q)
+          if (j[q] >= 0) {
+#pragma unroll
+            for (int h = 0; h < H; ++h)
+              half[i[q] * H + h] = expf(
+                  __fsub_rn(leaky(__fadd_rn(s[q][h], dst[h])), m[h]));
+          }
+      }
+    } else if (c > 0 && lane < H) {
+      const float* half = ring + ((c - 1) % 2) * kSoftmaxChunk * H + lane;
+      const int n = min(kSoftmaxChunk, hi - lo - (c - 1) * kSoftmaxChunk);
+#pragma unroll 8
+      for (int i = 0; i < n; ++i) acc = __fadd_rn(acc, half[i * H]);
+    }
+    __syncthreads();
+  }
+  if (warp == 0 && lane < H) stat[1][lane] = floor_denominator(acc);
+  __syncthreads();
+  float d[H];
+#pragma unroll
+  for (int h = 0; h < H; ++h) d[h] = stat[1][h];
+  lane_coefs<H>(a, lo, hi, tid, kThreads, dst, m, d);
+}
+
+template <int H>
+__global__ void __launch_bounds__(kThreads)
+    edge_softmax_kernel(const SoftmaxArgs a) {
+  extern __shared__ __align__(16) float softmax_ring[];
+  const int b = blockIdx.x;
+  if (b < a.n_long) {
+    long_softmax<H>(a, softmax_ring, a.long_segs[b]);
+    return;
+  }
+  const int g = a.lanes;
+  const int v = (b - a.n_long) * (kThreads / g) + (int)threadIdx.x / g;
+  if (v >= a.num_segments) return;
+  if (a.offsets[v + 1] - a.offsets[v] > a.long_threshold) return;
+  // A group's lanes are g neighbours of one warp, and they leave together.
+  const int first = ((int)threadIdx.x % 32) / g * g;
+  const unsigned mask =
+      g == 32 ? 0xffffffffu : ((1u << g) - 1u) << first;
+  short_softmax<H>(a, v, (int)threadIdx.x % g, mask);
+}
+
+template <int H>
+int launch_softmax(const SoftmaxArgs& a, int grid, int smem,
+                   cudaStream_t s) {
+  edge_softmax_kernel<H><<<grid, kThreads, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// coef [entries, heads] (contiguous float32): for every entry k of the
+// order, coef[order[k], h] = the softmax coefficient of its edge and head
+// (above), a_src [rows, heads] and a_dst [num_segments, heads] contiguous
+// float32, order / gather / offsets int32 (gather[k] < rows, order[k] <
+// entries). long_segs lists the n_long receivers whose segments are
+// longer than long_threshold, longest first, each of which gets a CTA of
+// its own; every such receiver must be listed (the groups skip them).
+// heads: 1 .. 8. Returns a cudaError_t code.
+int edge_softmax_launch(const float* a_src, const float* a_dst,
+                        const int32_t* order, const int32_t* gather,
+                        const int32_t* offsets, const int32_t* long_segs,
+                        int n_long, int long_threshold, float* coef,
+                        int num_segments, int entries, int heads,
+                        void* stream) {
+  if (num_segments <= 0) return 0;
+  if (heads < 1 || heads > kMaxHeads || n_long < 0 || long_threshold < 0 ||
+      entries < 0)
+    return (int)cudaErrorInvalidValue;
+  SoftmaxArgs a;
+  a.a_src = a_src;
+  a.a_dst = a_dst;
+  a.order = order;
+  a.gather = gather;
+  a.offsets = offsets;
+  a.long_segs = long_segs;
+  a.coef = coef;
+  a.num_segments = num_segments;
+  a.n_long = n_long;
+  a.long_threshold = n_long > 0 ? long_threshold : 0x7fffffff;
+  // Group lanes from the mean segment length (entries over receivers).
+  const long long mean = ((long long)entries + num_segments - 1) /
+                         num_segments;
+  a.lanes = 4;
+  while (a.lanes < 32 && a.lanes < mean) a.lanes *= 2;
+  const int groups = kThreads / a.lanes;
+  const int grid = n_long + (num_segments + groups - 1) / groups;
+  const int smem = n_long > 0 ? 2 * kSoftmaxChunk * heads * 4 : 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (heads) {
+    case 1:
+      return launch_softmax<1>(a, grid, smem, s);
+    case 2:
+      return launch_softmax<2>(a, grid, smem, s);
+    case 3:
+      return launch_softmax<3>(a, grid, smem, s);
+    case 4:
+      return launch_softmax<4>(a, grid, smem, s);
+    case 5:
+      return launch_softmax<5>(a, grid, smem, s);
+    case 6:
+      return launch_softmax<6>(a, grid, smem, s);
+    case 7:
+      return launch_softmax<7>(a, grid, smem, s);
+    default:
+      return launch_softmax<8>(a, grid, smem, s);
   }
 }
 

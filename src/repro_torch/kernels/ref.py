@@ -8,9 +8,10 @@ tensors that lie on the CPU.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 
 
 def block_spmm_ref(blocks: torch.Tensor, block_cols: torch.Tensor,
@@ -257,6 +258,42 @@ def headed_segment_sum_ref(x: torch.Tensor, idx: torch.Tensor,
     terms = (terms.view(e, heads, -1) * wk[:, :, None]).view(e, -1)
     every = torch.arange(e, dtype=torch.int32, device=terms.device)
     return segment_sum_ref(terms, every, offsets)
+
+
+def edge_softmax_ref(a_src: torch.Tensor, a_dst: torch.Tensor,
+                     senders: torch.Tensor, receivers: torch.Tensor,
+                     mask: torch.Tensor, order: torch.Tensor,
+                     offsets: torch.Tensor,
+                     total: Optional[Callable] = None) -> torch.Tensor:
+    """GAT's edge softmax as the PyTorch chain: scores a_src [M] or [M, H]
+    (senders index them) and a_dst [V] or [V, H] (receivers) -> the
+    coefficients [E] or [E, H] of every edge, per head: leaky_relu(a_src[s]
+    + a_dst[r], 0.2), -inf on masked edges, the receiver's max
+    (``scatter_reduce`` "amax", 0 where not finite), the exponents (0 on
+    masked edges), their sums over the order, and the exponents over
+    ``clamp_min(sum, 1e-16)``. ``total`` sums [E] or [E, H] terms per
+    receiver left to right over the order (default ``segment_sum_ref``;
+    the backward of ``kernels.edge_softmax`` passes the differentiable
+    ``segment_sum``). Head-major inside: [H, E] tables gathered along
+    their last axis ([E] at one head)."""
+    if total is None:
+        def total(x):
+            return segment_sum_ref(x, order, offsets)
+    alpha_src = a_src.movedim(-1, 0) if a_src.ndim == 2 else a_src
+    alpha_dst = a_dst.movedim(-1, 0) if a_dst.ndim == 2 else a_dst
+    v = offsets.shape[0] - 1
+    s, r, m = senders, receivers, mask
+    logits = F.leaky_relu(alpha_src[..., s] + alpha_dst[..., r], 0.2)
+    logits = torch.where(m > 0, logits, -torch.inf)  # [H, E]
+    seg_max = torch.full(logits.shape[:-1] + (v,), -torch.inf,
+                         dtype=logits.dtype, device=logits.device)
+    seg_max = seg_max.scatter_reduce(-1, r.long().expand_as(logits),
+                                     logits, "amax", include_self=False)
+    seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
+    ex = torch.where(m > 0, torch.exp(logits - seg_max[..., r]), 0.0)
+    denom = total(ex.movedim(0, -1)).movedim(-1, 0)
+    coef = ex / torch.clamp_min(denom[..., r], 1e-16)
+    return coef.movedim(0, -1)
 
 
 def stage_rows_ref(x: torch.Tensor, row_src: torch.Tensor) -> torch.Tensor:

@@ -24,12 +24,14 @@ The spans of the batched multi-fog path, outermost first (a batch is one
       fog.kernel.stage_rows        that gather's wrapper
   fog.layer                        one BSP superstep (``bsp._run_layers``)
     fog.exchange                   one sync, or the stale table read
-    fog.attention                  a GAT layer's edge softmax (scores,
-                                   logits, per-head segment max, exponents,
+    fog.attention                  a GAT layer's edge softmax (the
+                                   scores, then one edge_softmax call:
+                                   per-head segment max, exponents,
                                    denominators, coefficients)
     fog.kernel.<wrapper>           one call of a hand-written kernel's
                                    wrapper: its checks and launch (the
-                                   per-head weighted sum: headed_sum)
+                                   per-head weighted sum: headed_sum; in
+                                   fog.attention: edge_softmax)
   fog.unfold                       unpermute, device-to-host copy, and the
                                    host's wait for the queued forward
 """

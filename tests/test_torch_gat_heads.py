@@ -290,9 +290,10 @@ def _profiled(fn):
 
 def test_a_traced_batch_records_the_attention_and_the_per_head_sums():
     """On the mesh, one ``fog.attention`` a layer and example inside its
-    ``fog.layer``, holding the denominators' ``fog.kernel.segment_sum``;
-    one ``fog.kernel.headed_sum`` a layer and example beside it. Tracing
-    moves no answer and no counter."""
+    ``fog.layer``, holding the edge softmax's ``fog.kernel.edge_softmax``
+    (no segment sum: the denominators are the softmax's own); one
+    ``fog.kernel.headed_sum`` a layer and example beside it. Tracing moves
+    no answer and no counter."""
     sess = _session("mesh-bsp")
     stack = _stack()
     counters = (tseg.segment_sum.launches, tseg.segment_sum.headed_launches)
@@ -307,11 +308,12 @@ def test_a_traced_batch_records_the_attention_and_the_per_head_sums():
     assert names.count("fog.layer") == steps
     assert names.count("fog.attention") == steps
     assert names.count("fog.kernel.headed_sum") == steps
-    assert names.count("fog.kernel.segment_sum") == steps
+    assert names.count("fog.kernel.edge_softmax") == steps
+    assert names.count("fog.kernel.segment_sum") == 0
     for (_, _, name), parent in zip(spans, parents):
         if name in ("fog.attention", "fog.kernel.headed_sum"):
             assert parent == "fog.layer", name
-        if name == "fog.kernel.segment_sum":
+        if name == "fog.kernel.edge_softmax":
             assert parent == "fog.attention"
 
 

@@ -7,7 +7,7 @@ then the scatter with its one ``stage_rows`` gather inside; one span a
 BSP superstep with its exchange and kernel calls inside; the unfold), in the counts the code runs them: on the segment path one
 ``fog.layer`` an example and layer, on the kernel path one a layer; a
 GAT layer's edge softmax is one ``fog.attention`` inside its superstep,
-holding the denominators' sum.
+holding its one ``fog.kernel.edge_softmax``.
 Without a profiler a span enters no ``record_function``, and the answers
 are bitwise the same either way.
 """
@@ -20,8 +20,8 @@ import torch
 from repro_torch.api import Engine
 from repro_torch.gnn import datasets as tdata
 from repro_torch.gnn import models as tmodels
-from repro_torch.kernels import (daq_dequant, gather_aggregate, segment_sum,
-                                 stage_rows)
+from repro_torch.kernels import (daq_dequant, edge_softmax,
+                                 gather_aggregate, segment_sum, stage_rows)
 from repro_torch.runtime import trace
 
 from _torch_threads import one_cpu_thread  # noqa: F401  (autouse)
@@ -29,14 +29,16 @@ from _torch_threads import one_cpu_thread  # noqa: F401  (autouse)
 K, B = 2, 3
 #: the kernels a superstep calls, then those staging calls (once a batch).
 KERNELS = ("block_spmm", "block_spmm_batched", "dequant_spmm",
-           "dequant_spmm_batched", "dequant", "segment_sum", "headed_sum")
+           "dequant_spmm_batched", "dequant", "segment_sum", "headed_sum",
+           "edge_softmax")
 STAGE_KERNELS = ("stage_rows",)
 DOCUMENTED = {"fog." + n for n in ("execute_many", "execute", "stage",
                                    "scatter", "h2d", "layer", "exchange",
                                    "attention", "unfold")} | {
     "fog.kernel." + k for k in KERNELS + STAGE_KERNELS}
 #: (kind, compressor, aggregation, kernel spans a superstep runs)
-PATHS = [("gat", "none", "segment_sum", {"segment_sum": 2}),
+PATHS = [("gat", "none", "segment_sum", {"segment_sum": 1,
+                                         "edge_softmax": 1}),
          ("gcn", "none", "segment_sum", {"segment_sum": 1}),
          ("gcn", "daq", "pallas", {"block_spmm_batched": 1,
                                    "dequant_spmm_batched": 1}),
@@ -47,7 +49,8 @@ COUNTERS = [(gather_aggregate.block_spmm, "launches"),
             (daq_dequant.dequant_spmm_batched, "launches"),
             (segment_sum.segment_sum, "launches"),
             (segment_sum.segment_sum, "headed_launches"),
-            (stage_rows.stage_rows, "launches")]
+            (stage_rows.stage_rows, "launches"),
+            (edge_softmax.edge_softmax, "launches")]
 
 
 @functools.lru_cache(maxsize=None)
@@ -114,6 +117,8 @@ def test_batch_spans_nest_by_layer(path):
             assert parent[2] == "fog.scatter", name
         elif name in ("fog.exchange", "fog.attention"):
             assert parent[2] == "fog.layer", name
+        elif name == "fog.kernel.edge_softmax":
+            assert parent[2] == "fog.attention", name
         elif name.startswith("fog.kernel."):
             assert parent[2] in ("fog.layer", "fog.attention"), name
     steps = K * B if agg == "segment_sum" else K
