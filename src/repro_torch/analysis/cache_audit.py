@@ -8,9 +8,10 @@ Two caches keep device state keyed by *some* of what produced it:
     tile edge, device). A field missing from a key lets operands of two
     adjacencies (or two devices) collide.
   * ``PartitionedGraph.device_cache`` — the device copies of one mesh
-    layout (``runtime.bsp._on_device``), keyed ``(device, what)`` and
-    shared by the layout's ``with_features`` copies. A key must name its
-    device and what it holds, and every entry must describe the layout it
+    layout (``runtime.bsp._on_device``), keyed ``(device, what)`` by
+    ``bsp.device_key`` ("cuda" and "cuda:0" one key) and shared by the
+    layout's ``with_features`` copies. A key must name its device and
+    what it holds, and every entry must describe the layout it
     hangs on: a graph revision or a failover rebind builds a new layout
     with an empty cache, so an entry whose geometry disagrees with its
     layout is a stale copy that would be served.
@@ -40,15 +41,6 @@ def _is_device(name) -> bool:
     except (RuntimeError, TypeError):
         return False
     return True
-
-
-def same_device(a, b) -> bool:
-    """Whether two device names denote one device ("cuda" is the current
-    card, so it matches "cuda:0": a tensor names its card's index, a plan
-    may not)."""
-    a, b = torch.device(a), torch.device(b)
-    return a.type == b.type and (a.index is None or b.index is None
-                                 or a.index == b.index)
 
 
 @register_check(
@@ -146,6 +138,7 @@ def _entry_problems(pg, what, value) -> List[str]:
     description="every device-cache key names its device and its layout "
                 "entry, and every entry describes the layout it hangs on")
 def check_device_layout(ctx: AnalysisContext) -> Iterable[Diagnostic]:
+    from repro_torch.runtime.bsp import device_key
     plan = ctx.plan
     pg = plan.partitioned
     cache = pg.device_cache
@@ -159,7 +152,7 @@ def check_device_layout(ctx: AnalysisContext) -> Iterable[Diagnostic]:
                      f"an entry — copies for two devices would collide",
                 layer="cache", subject="device_cache",
                 fix_hint="key entries through bsp._on_device: "
-                         "(str(device), what)"))
+                         "(bsp.device_key(device), what)"))
             continue
         device, what = key
         kind = what[0] if isinstance(what, tuple) else what
@@ -170,7 +163,7 @@ def check_device_layout(ctx: AnalysisContext) -> Iterable[Diagnostic]:
                 subject=f"device_cache[{key!r}]",
                 fix_hint="key entries through bsp._on_device"))
             continue
-        if not same_device(device, plan.device):
+        if device != device_key(plan.device):
             out.append(error(
                 cid, f"device-cache entry {what!r} is held on {device} but "
                      f"the plan runs on {plan.device} — dead weight no "

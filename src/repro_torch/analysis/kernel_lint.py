@@ -181,8 +181,9 @@ def wire_probe(f: int):
 def _cached(cache: dict, what, device):
     """The entry of ``cache`` keyed ``(device, what)`` (a layout's device
     cache) or ``what + (device,)`` (the BlockCsr LRU) for ``device``, or
-    None."""
-    from repro_torch.analysis.cache_audit import same_device
+    None; devices compare by ``bsp.device_key``."""
+    from repro_torch.runtime.bsp import device_key
+    want = device_key(device)
     for key, value in cache.items():
         if not isinstance(key, tuple) or len(key) < 2:
             continue
@@ -190,7 +191,7 @@ def _cached(cache: dict, what, device):
             dev, rest = key[-1], key[:-1]
         else:
             dev, rest = key[0], key[1]
-        if rest == what and same_device(dev, device):
+        if rest == what and device_key(dev) == want:
             return value
     return None
 

@@ -30,10 +30,10 @@ quantized and aggregates it with the fused ``dequant_spmm`` kernel).
 rules.
 
 Micro-batches (``run_many``) run the kernel path with one batched launch
-per layer and operand for the whole [B, V, F] stack and the dense tail
-example by example; the segment-sum path runs the serial forward per
-example. Either way each batched result is bitwise equal to the serial
-``run`` on the same features.
+per layer and operand for the whole [B, V, F] stack; every layer's dense
+work, and on the segment-sum path its aggregation too, runs example by
+example (``gnn.layers.apply_layer``). Either way each batched result is
+bitwise equal to the serial ``run`` on the same features.
 
 Incremental frontier queries (``run_layers`` / ``run_frontier``, driven by
 ``Session(activation_cache=True)``): a capturing pass returns every
@@ -56,18 +56,15 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.api.registry import EXECUTORS
-from repro_torch.gnn.layers import EdgeList, LAYER_FNS, apply_layer_with_sum
-from repro_torch.gnn.models import gnn_apply_layers
+from repro_torch.gnn.layers import apply_layer
 from repro_torch.kernels import ops
 from repro_torch.kernels.gather_aggregate import BLOCK, row_subset
 from repro_torch.runtime import bsp
 from repro_torch.runtime import dist as fog_dist
 
-#: model kinds the incremental frontier path supports: their per-layer
-#: aggregation is a static SUM over fixed adjacency, so a row subset can
-#: be recomputed from sub-edges (GAT re-weights edges per layer from all
-#: rows' values, so a dirty-row restriction is unsound).
-FRONTIER_KINDS = ("gcn", "sage")
+#: model kinds the incremental frontier path supports: the kinds of the
+#: kernel path, whose aggregation is a static sum (``bsp.KERNEL_KINDS``).
+FRONTIER_KINDS = bsp.KERNEL_KINDS
 
 
 def _as_stack(feats: Union[np.ndarray, Sequence[np.ndarray]]) -> np.ndarray:
@@ -175,59 +172,59 @@ class ExecutorBackend:
         raise NotImplementedError
 
 
-def _kernel_gnn_layers(params, kind: str, h: torch.Tensor, edges: EdgeList,
-                       csr: ops.BlockCsr) -> List[torch.Tensor]:
-    """K-layer forward with block-CSR kernel aggregation, single or
-    stacked; returns every layer's output.
-
-    ``h`` is one [V, F] feature table or a stacked [B, V, F] micro-batch.
-    Per layer, the neighbor sum runs as ONE kernel launch —
-    ``block_spmm`` for a single example, ``block_spmm_batched`` for a
-    stack — and the dense layer update then runs per example, which keeps
-    batched results bitwise equal to serial ones. GCN/SAGE only (GAT
-    re-weights edges per layer and cannot be pre-blocked;
-    ``resolve_aggregation`` rejects it upstream).
-    """
-    n = len(params)
-    outs = []
-    for i, p in enumerate(params):
-        h = apply_layer_with_sum(kind, p, h, edges, csr.aggregate_traced(h),
-                                 last=i == n - 1)
-        outs.append(h)
-    return outs
-
-
-def _forward_each(kind: str, p, h: torch.Tensor, edges: EdgeList,
-                  last: bool) -> torch.Tensor:
-    """One segment-sum layer over [V, F], or over a stack example by
-    example (the serial path's op sequence, so batched == serial)."""
-    _, layer_fn = LAYER_FNS[kind]
-    kwargs = {"activation": None} if last else {}
-    if h.ndim == 3:
-        return torch.stack([layer_fn(p, hh, edges, **kwargs) for hh in h])
-    return layer_fn(p, h, edges, **kwargs)
-
-
 class _SingleProgram(ExecutorBackend):
-    def _layers(self, plan, feats: np.ndarray,
-                aggregation: str) -> List[torch.Tensor]:
+    def _layers(self, plan, feats: np.ndarray, aggregation: str,
+                rows_per_layer=None, cached_layers=None
+                ) -> List[torch.Tensor]:
         """Every layer's output of one forward for ``feats`` = [V, F] or
-        [B, V, F], on the plan's device."""
+        [B, V, F], on the plan's device.
+
+        Per layer the neighbour sums come from one launch of the
+        whole-graph block kernels over the stack (kernel path), or the
+        layer aggregates over ``plan.edges`` for itself; then the one
+        layer step. A frontier pass (``rows_per_layer``, merged into
+        ``cached_layers``) recomputes only each layer's dirty rows: on the
+        kernel path one launch over the row subset of the dirty rows'
+        128-row blocks (every row of such a block is recomputed and
+        merged; its operands are the full pass's, so its value is too), on
+        the segment path the edges into clean rows masked out. The dense
+        tail runs at the full table's shape, then a ``torch.where`` merge
+        into the cached table.
+        """
         # Single-program layout: no cross-fog exchange is involved, so the
         # kernel path only depends on the model kind and the device.
         mode = bsp.resolve_aggregation(aggregation, plan.model.kind,
                                        device=plan.device)
+        kind, dev = plan.model.kind, plan.device
         params = list(plan.model.params)
-        kind = plan.model.kind
-        edges = plan.edges
-        h = torch.tensor(np.asarray(feats, np.float32), device=plan.device)
-        if mode == "pallas":
-            csr = ops.block_csr_for(plan.graph, device=plan.device)
-            return _kernel_gnn_layers(params, kind, h, edges, csr)
-        if h.ndim == 3:
-            per = [gnn_apply_layers(params, kind, hh, edges) for hh in h]
-            return [torch.stack(layer) for layer in zip(*per)]
-        return gnn_apply_layers(params, kind, h, edges)
+        v = plan.graph.num_vertices
+        h = torch.tensor(np.asarray(feats, np.float32), device=dev)
+        csr = (ops.block_csr_for(plan.graph, device=dev)
+               if mode == "pallas" else None)
+        outs = []
+        for i, p in enumerate(params):
+            edges, subset, mask = plan.edges, None, None
+            if rows_per_layer is not None:
+                rows = np.asarray(rows_per_layer[i], np.int64)
+                if csr is not None:
+                    subset = row_subset(csr.rows, np.unique(rows // BLOCK))
+                    mask = subset.row_mask()[:v]
+                else:
+                    mask = torch.zeros(v, dtype=torch.bool, device=dev)
+                    mask[torch.as_tensor(rows, device=dev)] = True
+                    edges = edges.into(mask)
+            kw = ({} if csr is None
+                  else {"a_sum": csr.aggregate_traced(h, subset=subset)})
+            h = apply_layer(kind, p, h, edges, last=i == len(params) - 1,
+                            **kw)
+            if mask is not None:
+                cached = torch.as_tensor(
+                    np.asarray(cached_layers[i], np.float32), device=dev)
+                # A select, never a blend: clean rows keep the cached
+                # bits, -0.0 included.
+                h = torch.where(mask[:, None], h, cached)
+            outs.append(h)
+        return outs
 
     def _forward(self, plan, feats: np.ndarray,
                  aggregation: str) -> np.ndarray:
@@ -260,45 +257,11 @@ class _SingleProgram(ExecutorBackend):
 
     def run_frontier(self, plan, feats, assignment, pg, exchange,
                      aggregation, rows_per_layer, cached_layers):
-        """Per layer: the neighbor sums of the dirty rows only — on the
-        kernel path one launch over the row subset of the dirty rows'
-        128-row blocks (every row of such a block is recomputed and
-        merged; its operands are the full pass's, so its value is too), on
-        the segment path the edges into clean rows masked out — then the
-        dense tail at the full table's shape and a ``torch.where`` merge
-        into the cached table."""
-        mode = bsp.resolve_aggregation(aggregation, plan.model.kind,
-                                       device=plan.device)
-        kind = plan.model.kind
-        params = list(plan.model.params)
-        dev = plan.device
-        v = plan.graph.num_vertices
-        h = torch.tensor(np.asarray(feats, np.float32), device=dev)
-        csr = (ops.block_csr_for(plan.graph, device=dev)
-               if mode == "pallas" else None)
-        n = len(params)
-        merged = []
+        """The frontier pass of ``_layers``: only ``rows_per_layer[l]``
+        recomputed a layer, merged into ``cached_layers``."""
         with torch.no_grad():
-            for i, p in enumerate(params):
-                rows = np.asarray(rows_per_layer[i], np.int64)
-                last = i == n - 1
-                if mode == "pallas":
-                    sub = row_subset(csr.rows, np.unique(rows // BLOCK))
-                    h_new = apply_layer_with_sum(
-                        kind, p, h, plan.edges,
-                        csr.aggregate_traced(h, subset=sub), last=last)
-                    mask = sub.row_mask()[:v]
-                else:
-                    mask = torch.zeros(v, dtype=torch.bool, device=dev)
-                    mask[torch.as_tensor(rows, device=dev)] = True
-                    h_new = _forward_each(kind, p, h,
-                                          plan.edges.into(mask), last)
-                cached = torch.as_tensor(
-                    np.asarray(cached_layers[i], np.float32), device=dev)
-                # A select, never a blend: clean rows keep the cached
-                # bits, -0.0 included.
-                h = torch.where(mask[:, None], h_new, cached)
-                merged.append(h.cpu().numpy())
+            merged = [o.cpu().numpy() for o in self._layers(
+                plan, feats, aggregation, rows_per_layer, cached_layers)]
         emb = merged[-1]
         if emb.ndim == 3:
             return list(emb), merged

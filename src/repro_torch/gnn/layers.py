@@ -7,8 +7,8 @@ edge order, from 0, with no atomics and no message tensor
 (``kernels.segment_sum``), so a sum is the same on every run, and on the
 CPU it is the serial ``index_add_`` of the messages. Aggregation can be
 routed through the block-CSR SpMM kernels (see repro_torch.kernels.ops) by
-the executor, which then runs only the dense tail here
-(``apply_layer_with_sum``).
+the executor, which then hands the layer its neighbour sum
+(``apply_layer``'s ``a_sum``).
 
   GCN       a_v = sum_{u in N(v)} h_u
             h_v = sigma(W . (a_v + h_v) / (|N(v)| + 1))
@@ -25,8 +25,9 @@ arXiv 1710.10903, Section 3.3): its hidden layers concatenate their heads
 and add an identity skip where the widths allow, its last layer averages
 its heads.
 
-Layers take one [V, F] table; ``apply_layer_with_sum`` also takes a
-stacked [B, V, F] micro-batch and runs the dense tail example by example.
+Layers take one [V, F] table; ``apply_layer``, the one layer step of
+every program, also takes a stacked [B, V, F] micro-batch and runs it
+example by example.
 """
 from __future__ import annotations
 
@@ -193,10 +194,14 @@ def aggregate_sum(h: torch.Tensor, edges: EdgeList,
     return _segment_sum(src, edges, idx=edges.gather)
 
 
+def _mean_of(a_sum: torch.Tensor, edges: EdgeList) -> torch.Tensor:
+    """A neighbour sum as the mean over the receivers' masked degrees."""
+    return a_sum / torch.clamp_min(masked_degree(edges), 1.0)[:, None]
+
+
 def aggregate_mean(h: torch.Tensor, edges: EdgeList,
                    h_src: Optional[torch.Tensor] = None) -> torch.Tensor:
-    deg = masked_degree(edges)
-    return aggregate_sum(h, edges, h_src) / torch.clamp_min(deg, 1.0)[:, None]
+    return _mean_of(aggregate_sum(h, edges, h_src), edges)
 
 
 # ----------------------------------------------------------------------------
@@ -210,9 +215,10 @@ def gcn_init(generator: torch.Generator, in_dim: int, out_dim: int):
 
 
 def gcn_layer(params, h, edges: EdgeList, *, activation=torch.relu,
-              aggregate=aggregate_sum, h_src=None):
-    """Paper Table I GCN row (sum aggregate, mean-with-self update)."""
-    a = aggregate(h, edges, h_src)
+              aggregate=aggregate_sum, h_src=None, a_sum=None):
+    """Paper Table I GCN row (sum aggregate, mean-with-self update);
+    ``a_sum``, a neighbour sum already computed, is the aggregate."""
+    a = aggregate(h, edges, h_src) if a_sum is None else a_sum
     deg = masked_degree(edges)
     z = (a + h) / (deg + 1.0)[:, None]
     out = z @ params["w"] + params["b"]
@@ -307,8 +313,11 @@ def sage_init(generator: torch.Generator, in_dim: int, out_dim: int):
 
 
 def sage_layer(params, h, edges: EdgeList, *, activation=torch.relu,
-               aggregate=aggregate_mean, h_src=None):
-    a = aggregate(h, edges, h_src)
+               aggregate=aggregate_mean, h_src=None, a_sum=None):
+    """Table I GraphSAGE row; ``a_sum``, a neighbour sum already
+    computed, becomes the mean aggregate over the masked degrees."""
+    a = aggregate(h, edges, h_src) if a_sum is None else _mean_of(a_sum,
+                                                                  edges)
     # The [a | h] @ W update as two explicit matmuls, one reduction order
     # for every caller.
     f = h.shape[-1]
@@ -329,32 +338,37 @@ LAYER_FNS = {"gcn": (gcn_init, gcn_layer),
              "sage": (sage_init, sage_layer)}
 
 
+def apply_layer(kind: str, p, h, edges: EdgeList, *, last: bool,
+                h_src=None, a_sum=None, **kw):
+    """Layer ``kind`` with params ``p`` over ``edges`` on ``h``, one
+    [V, F] table or a stacked [B, V, F] micro-batch: the one layer step of
+    the single program, the mesh and ``gnn_apply_layers``.
+
+    The layer aggregates for itself (``h_src``: the table the senders
+    index into, one per example of a stack; ``kw``: the layer's own
+    keywords, such as ``aggregate``), or takes ``a_sum``, a neighbour sum
+    a kernel launch already computed (one per example of a stack). The
+    ``last`` layer has no activation. A stack runs example by example,
+    each the serial op sequence at the serial shapes (a batched product
+    may pick another algorithm and differ in the last bits), so a batched
+    result is its serial one bit for bit.
+    """
+    if h.ndim == 3:
+        none = [None] * len(h)
+        return torch.stack([
+            apply_layer(kind, p, hh, edges, last=last, h_src=src, a_sum=a,
+                        **kw)
+            for hh, src, a in zip(h, none if h_src is None else h_src,
+                                  none if a_sum is None else a_sum)])
+    if a_sum is not None:
+        kw["a_sum"] = a_sum
+    if last:
+        kw["activation"] = None
+    return LAYER_FNS[kind][1](p, h, edges, h_src=h_src, **kw)
+
+
 def apply_layer_with_sum(kind: str, p, h, edges: EdgeList, a_sum, *,
                          last: bool):
-    """Apply one GCN/SAGE layer given its precomputed neighbor SUM.
-
-    The dense tail of the kernel path: the neighbor sum ``a_sum`` has
-    already been computed by one (possibly batched) SpMM launch, and only
-    the cheap dense update remains. ``h``/``a_sum`` are one [V, F] table
-    or a stacked [B, V, F] micro-batch; the stacked case runs the update
-    example by example, which keeps every example's matmuls the serial
-    ones (a batched product may pick another algorithm and differ in the
-    last bits) and so keeps batched == serial bitwise. SAGE's mean
-    normalization is applied here, from the masked degree.
-    """
-    _, layer_fn = LAYER_FNS[kind]
-    kwargs = {"activation": None} if last else {}
-
-    def apply_one(hh, aa):
-        if kind == "sage":               # SAGE aggregates the mean
-            def hook(h_, edges_, h_src_=None, _aa=aa):
-                deg = masked_degree(edges_)
-                return _aa / torch.clamp_min(deg, 1.0)[:, None]
-        else:
-            def hook(h_, edges_, h_src_=None, _aa=aa):
-                return _aa
-        return layer_fn(p, hh, edges, aggregate=hook, **kwargs)
-
-    if h.ndim == 3:
-        return torch.stack([apply_one(hh, aa) for hh, aa in zip(h, a_sum)])
-    return apply_one(h, a_sum)
+    """One GCN/SAGE layer given its neighbour SUM ``a_sum`` (the dense tail
+    of the kernel path; see ``apply_layer``)."""
+    return apply_layer(kind, p, h, edges, last=last, a_sum=a_sum)

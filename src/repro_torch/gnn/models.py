@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.gnn.layers import (EdgeList, LAYER_FNS, aggregate_sum,
-                                    masked_degree)
+                                    apply_layer, masked_degree)
 
 
 def gnn_init(generator: torch.Generator, kind: str,
@@ -63,18 +63,15 @@ def params_from_numpy(params, device="cpu") -> List[dict]:
 def gnn_apply_layers(params: List[dict], kind: str, h: torch.Tensor,
                      edges: EdgeList, *, aggregate=None
                      ) -> List[torch.Tensor]:
-    """K-layer forward returning every layer's output, h^1 .. h^K."""
-    _, layer_fn = LAYER_FNS[kind]
-    n = len(params)
+    """K-layer forward returning every layer's output, h^1 .. h^K.
+    ``aggregate`` replaces the aggregation of the GCN and SAGE layers."""
+    kwargs = {}
+    if aggregate is not None and kind in ("gcn", "sage"):
+        kwargs["aggregate"] = aggregate
     outs = []
     for i, p in enumerate(params):
-        kwargs = {}
-        if aggregate is not None and kind in ("gcn", "sage"):
-            kwargs["aggregate"] = aggregate
-        if i == n - 1:
-            h = layer_fn(p, h, edges, activation=None, **kwargs)
-        else:
-            h = layer_fn(p, h, edges, **kwargs)
+        h = apply_layer(kind, p, h, edges, last=i == len(params) - 1,
+                        **kwargs)
         outs.append(h)
     return outs
 

@@ -75,8 +75,7 @@ import torch.nn.functional as F
 
 from repro_torch.api.registry import EXCHANGES
 from repro_torch.gnn.graph import Graph
-from repro_torch.gnn.layers import (EdgeList, LAYER_FNS, SELF_LOOP_KINDS,
-                                    apply_layer_with_sum)
+from repro_torch.gnn.layers import EdgeList, SELF_LOOP_KINDS, apply_layer
 from repro_torch.kernels.daq_dequant import (dequant_spmm,
                                              dequant_spmm_batched)
 from repro_torch.kernels.gather_aggregate import (BLOCK, RowSubset, TileRows,
@@ -553,10 +552,20 @@ def _gathered_stack(x: torch.Tensor) -> torch.Tensor:
     return x.movedim(0, 1).reshape((b, n * x.shape[2]) + x.shape[3:])
 
 
+def device_key(device) -> str:
+    """The name a device cache keys ``device`` by: "cuda" is the current
+    card, so it names that card's index, as a tensor on it does."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return str(device)
+
+
 def _on_device(pg: PartitionedGraph, device: torch.device, what, build):
     """``build()`` for this layout and device, built once and kept in
-    ``pg.device_cache`` (shared by ``with_features`` copies)."""
-    key = (str(device), what)
+    ``pg.device_cache`` (shared by ``with_features`` copies) under
+    ``(device_key(device), what)``."""
+    key = (device_key(device), what)
     if key not in pg.device_cache:
         pg.device_cache[key] = build()
     return pg.device_cache[key]
@@ -784,11 +793,14 @@ def _run_layers(params, kind: str, pg: PartitionedGraph, h: torch.Tensor,
     ([m*P, F], or a [B, m*P, F] stack) -> every layer's folded output
     over the same rows, on ``h``'s device.
 
-    The kernel path runs one local and one halo launch per layer for the
-    whole stack, then the dense tail example by example; the segment-sum
-    path runs a stack example by example. Either way every example is
-    bitwise its serial run. On a rank the dense tail (all of a GAT layer
-    past the exchange) runs on ``fogs.spread`` tables of the folded shape.
+    A stack runs layer by layer. The kernel path runs one local and one
+    halo launch per layer for the whole stack, then the dense tail example
+    by example; the segment-sum path runs each example's exchange and
+    layer one example at a time within a layer (one ``fog.layer`` span
+    each). Either way every example is bitwise its serial run
+    (``gnn.layers.apply_layer``). On a rank the dense tail (all of a GAT
+    layer past the exchange) runs on ``fogs.spread`` tables of the folded
+    shape.
 
     Frontier pass (``dirty``: per layer a host bool [m*P] mask of the
     folded rows to recompute; ``cached``: the last full pass's K folded
@@ -821,58 +833,57 @@ def _run_layers(params, kind: str, pg: PartitionedGraph, h: torch.Tensor,
         raise ValueError(
             f"stale serve needs one halo table per layer: got "
             f"{len(stale)} tables for {len(params)} layers")
-    if h.ndim == 3 and not use_kernels:
-        per = [_run_layers(params, kind, pg, hh, exchange, aggregation,
-                           halo_quant, dirty, cached, stale, fogs)
-               for hh in h]
-        return [torch.stack(layer) for layer in zip(*per)]
     lay = _layout(pg, device, fogs)
     edges = _edges(pg, device, exchange, kind, fogs)
     if use_kernels:
         local, halo = _folded_csrs(pg, device, fogs)
-    _, layer_fn = LAYER_FNS[kind]
     slots = pg.slots
     outs = []
     for li, p in enumerate(params):
-        with span("layer"):
-            last = li == len(params) - 1
-            halo_l = None if stale is None else stale[li]
-            if use_kernels:
-                subsets = merge = None
-                if frontier:
-                    blocks = _dirty_blocks(pg, local, dirty[li])
-                    subsets = (row_subset(local.rows, blocks),
-                               row_subset(halo.rows, blocks))
-                    merge = _block_rows(pg, fogs, local, subsets[0])
-                a_sum = _kernel_sum(pg, h, lay, local, halo, halo_quant,
-                                    subsets, halo_l, fogs)
-                h_new = apply_layer_with_sum(
-                    kind, p, fogs.spread(h, slots), edges,
-                    fogs.spread(a_sum, slots), last=last)
-            else:
-                edges_l, merge = edges, None
-                if frontier:
-                    merge = torch.as_tensor(dirty[li], device=device)
-                    edges_l = edges.into(fogs.spread(merge, slots, -1))
-                if exchange == "allgather":
+        last = li == len(params) - 1
+        halo_l = None if stale is None else stale[li]
+        edges_l, subsets, merge = edges, None, None
+        if frontier and use_kernels:
+            blocks = _dirty_blocks(pg, local, dirty[li])
+            subsets = (row_subset(local.rows, blocks),
+                       row_subset(halo.rows, blocks))
+            merge = _block_rows(pg, fogs, local, subsets[0])
+        elif frontier:
+            merge = torch.as_tensor(dirty[li], device=device)
+            edges_l = edges.into(fogs.spread(merge, slots, -1))
+
+        def superstep(x):
+            """Layer ``li`` on ``x`` (the stack on the kernel path, one
+            example on the segment path) -> its held rows, merged."""
+            with span("layer"):
+                x_all = fogs.spread(x, slots)
+                if use_kernels:
+                    a_sum = _kernel_sum(pg, x, lay, local, halo, halo_quant,
+                                        subsets, halo_l, fogs)
+                    kw = {"a_sum": fogs.spread(a_sum, slots)}
+                elif exchange == "allgather":
                     with span("exchange"):
-                        h_src = (h if fogs.group is None
-                                 else fog_dist.gather_rows(
-                                     (h,), (-2,), fogs.group.group)[0])
+                        kw = {"h_src": x if fogs.group is None
+                              else fog_dist.gather_rows(
+                                  (x,), (-2,), fogs.group.group)[0]}
                 else:
                     if halo_l is None:
-                        hb = _exchange(h, lay, fogs, False)[0]
+                        hb = _exchange(x, lay, fogs, False)[0]
                     else:
                         with span("exchange"):   # the stale table's read
                             hb = halo_l
-                    h_src = torch.cat([fogs.spread(h, slots), hb])
-                kwargs = {"activation": None} if last else {}
-                h_new = layer_fn(p, fogs.spread(h, slots), edges_l,
-                                 h_src=h_src, **kwargs)
-            # keep padded rows at zero
-            h_new = fogs.own(h_new, slots) * lay.vertex_mask
-            h = (h_new if merge is None
-                 else torch.where(merge[:, None], h_new, cached[li]))
+                    kw = {"h_src": torch.cat([x_all, hb])}
+                x_new = apply_layer(kind, p, x_all, edges_l, last=last,
+                                    **kw)
+                # keep padded rows at zero
+                x_new = fogs.own(x_new, slots) * lay.vertex_mask
+                return (x_new if merge is None
+                        else torch.where(merge[:, None], x_new, cached[li]))
+        # The segment path exchanges and runs a stack an example at a time.
+        if h.ndim == 3 and not use_kernels:
+            h = torch.stack([superstep(x) for x in h])
+        else:
+            h = superstep(h)
         outs.append(h)
     return outs
 

@@ -475,6 +475,32 @@ def test_device_cache_entry_of_another_layout_is_stale():
     assert run_checks(plan2, checks=["cache.device.layout"]).ok
 
 
+def test_cuda_and_its_index_key_one_device_cache_entry(monkeypatch):
+    """"cuda" names the current card: ``bsp._on_device`` builds one entry
+    for "cuda" and "cuda:0", and the audits find a card's entries for a
+    plan that names its device either way."""
+    from repro_torch.runtime import bsp
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    tp = _served_mesh()
+    cache = tp.partitioned.device_cache
+    built = []
+    for dev in ("cuda", "cuda:0", torch.device("cuda"),
+                torch.device("cuda", 0)):
+        bsp._on_device(tp.partitioned, dev, "probe",
+                       lambda: built.append(dev) or len(built))
+    assert built == ["cuda"] and cache.pop(("cuda:0", "probe")) == 1
+    # the entries a run on the card leaves, whichever name it was given
+    for key in list(cache):
+        cache["cuda:0", key[1]] = cache.pop(key)
+    for name in ("cuda", "cuda:0"):
+        on_card = dataclasses.replace(tp, config=dataclasses.replace(
+            tp.config, device=name))
+        assert run_checks(on_card, checks=["cache.device.layout"]).ok
+        assert kernel_lint._cached(cache, "csr", name) is cache[
+            "cuda:0", "csr"]
+    assert kernel_lint._cached(cache, "csr", "cuda:1") is None
+
+
 def test_live_caches_are_clean_after_serving():
     tp = _make_plans("single", "daq", "pallas")[1]
     tp.session().query()

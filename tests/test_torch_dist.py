@@ -189,7 +189,8 @@ def test_wire_bytes_per_sync_are_the_exchange_bytes(runs, reference, config):
     """Each layer's sync moves ``exchange_bytes`` at that layer's input
     width (the reference's figure at layer 0); a batch of two moves twice
     that per layer, in one sync on the kernel path and in one per example
-    on the segment path. The folded run crosses no wire."""
+    on the segment path (layer by layer: both examples' first syncs come
+    before their second). The folded run crosses no wire."""
     kind, comp, agg, exchange = config
     tag = "/".join(config)
     want = int(reference[tag + "/exchange_bytes"])
@@ -201,7 +202,7 @@ def test_wire_bytes_per_sync_are_the_exchange_bytes(runs, reference, config):
     per_layer = [want] + [tbsp.exchange_bytes(pg, f, exchange, dtype_bytes,
                                               overhead) for f in WIDTHS]
     batched = ([2 * b for b in per_layer] if agg == "pallas"
-               else per_layer + per_layer)
+               else [b for b in per_layer for _ in range(2)])
     for r in range(WORLD):
         assert int(runs[f"rank{r}/{tag}/exchange_bytes"]) == want
         assert runs[f"rank{r}/{tag}/query_syncs"].tolist() == per_layer
@@ -291,7 +292,8 @@ def test_survivor_syncs_move_the_survivor_plans_exchange_bytes(
         runs, reference, config, mode):
     """Each survivor's sync moves the three-fog plan's ``exchange_bytes``
     at the layer's width (the query's figure at layer 0); a batch of two
-    twice that, as on the whole plan; rank 1 enters no sync."""
+    twice that, layer by layer, as on the whole plan; rank 1 enters no
+    sync."""
     kind, comp, agg, exchange = config
     key = "/".join(config) + "/" + mode
     sess = _failover_plan(reference, config, mode).session()
@@ -302,7 +304,7 @@ def test_survivor_syncs_move_the_survivor_plans_exchange_bytes(
     per_layer = [tbsp.exchange_bytes(pg, f, exchange, dtype_bytes, overhead)
                  for f in (pg.feats.shape[-1],) + WIDTHS]
     batched = ([2 * b for b in per_layer] if agg == "pallas"
-               else per_layer + per_layer)
+               else [b for b in per_layer for _ in range(2)])
     for r in range(WORLD):
         assert int(runs[f"rank{r}/{key}/exchange_bytes"]) == per_layer[0]
         inside = r != OUTSIDE

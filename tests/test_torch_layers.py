@@ -84,27 +84,70 @@ def test_padded_edge_list_and_masked_degree_match_jax():
         np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("kind", ["gcn", "sage"])
+#: (kind, how the layer gets its aggregate): "sum", a given neighbour sum
+#: (the kernel path's, held to the JAX reference too); "own", its own
+#: aggregation; "h_src", its own over a source table per example (the
+#: mesh's).
+STEP_CASES = [("gcn", "sum"), ("sage", "sum"), ("gcn", "own"),
+              ("sage", "own"), ("gat", "own"), ("gat", "h_src"),
+              ("gat_heads", "own"), ("gat_heads", "h_src")]
+
+
+def _step_params(kind, tparams):
+    """One layer's weights: ``gat_heads``'s as wide out as in, two heads
+    concatenated, so the skip applies."""
+    if kind != "gat_heads":
+        return tparams[0]
+    f = tparams[0]["w"].shape[0]
+    return tmodels.gnn_init(torch.Generator().manual_seed(3), kind,
+                            [f, f, 8], heads=[2, 2])[0]
+
+
+@pytest.mark.parametrize("case", STEP_CASES,
+                         ids=lambda c: c[0] if c[1] == "sum" else "-".join(c))
 @pytest.mark.parametrize("last", [False, True])
-def test_apply_layer_with_sum_matches_jax_and_batched_is_serial(kind, last):
-    g, gt, jparams, tparams, h = _setup(kind)
-    jedges = jlayers.EdgeList.from_graph(g)
+def test_apply_layer_with_sum_matches_jax_and_batched_is_serial(case, last):
+    """The one layer step (``apply_layer``): a stacked [B, V, F] micro-batch
+    is bitwise its per-example serial calls, whichever way the layer gets
+    its aggregate; a given sum also matches the JAX reference."""
+    kind, mode = case
+    g, gt, jparams, tparams, h = _setup("gat" if kind == "gat_heads"
+                                        else kind)
     tedges = tlayers.EdgeList.from_graph(gt)
-    a = np.array(jlayers.aggregate_sum(jnp.asarray(h), jedges))
-    want = np.asarray(jlayers.apply_layer_with_sum(
-        kind, jparams[0], jnp.asarray(h), jedges, jnp.asarray(a), last=last))
-    got = tlayers.apply_layer_with_sum(kind, tparams[0], torch.as_tensor(h),
-                                       tedges, torch.as_tensor(a), last=last)
-    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
-    # The stacked [B, V, F] form is bitwise the per-example loop.
+    p = _step_params(kind, tparams)
+    if mode == "sum":
+        jedges = jlayers.EdgeList.from_graph(g)
+        a = np.array(jlayers.aggregate_sum(jnp.asarray(h), jedges))
+        want = np.asarray(jlayers.apply_layer_with_sum(
+            kind, jparams[0], jnp.asarray(h), jedges, jnp.asarray(a),
+            last=last))
+        got = tlayers.apply_layer_with_sum(kind, p, torch.as_tensor(h),
+                                           tedges, torch.as_tensor(a),
+                                           last=last)
+        np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
     rng = np.random.default_rng(5)
     hs = torch.as_tensor(rng.normal(size=(3,) + h.shape).astype(np.float32))
-    sums = torch.stack([tlayers.aggregate_sum(x, tedges) for x in hs])
-    stacked = tlayers.apply_layer_with_sum(kind, tparams[0], hs, tedges,
-                                           sums, last=last)
-    for b in range(3):
-        assert torch.equal(stacked[b], tlayers.apply_layer_with_sum(
-            kind, tparams[0], hs[b], tedges, sums[b], last=last))
+    kw, serial_kw = {}, [{} for _ in hs]
+    edges = tedges
+    if mode == "sum":
+        kw["a_sum"] = torch.stack([tlayers.aggregate_sum(x, tedges)
+                                   for x in hs])
+        serial_kw = [{"a_sum": a} for a in kw["a_sum"]]
+    elif mode == "h_src":
+        edges = tedges.self_looped
+        kw["h_src"] = [torch.tanh(x) for x in hs]
+        serial_kw = [{"h_src": src} for src in kw["h_src"]]
+    stacked = tlayers.apply_layer(kind, p, hs, edges, last=last, **kw)
+    assert stacked.shape[0] == len(hs)
+    _, layer_fn = tlayers.LAYER_FNS[kind]
+    for b, one in enumerate(serial_kw):
+        if mode == "sum":
+            serial = tlayers.apply_layer_with_sum(kind, p, hs[b], edges,
+                                                  one["a_sum"], last=last)
+        else:
+            serial = layer_fn(p, hs[b], edges, **one,
+                              **({"activation": None} if last else {}))
+        assert torch.equal(stacked[b], serial)
 
 
 def test_gat_isolated_vertex_softmax_guard():
